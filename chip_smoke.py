@@ -9,10 +9,22 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               the card: every window mode × {float32, int16} × {no norm,
               additive+scaling, multiplicative} at N=24, P=2^20, then one
               full row block of the main path (N=FRAMES, P=682·SIZE);
+  k1     — the variants K1b SIGMEDIAN, K1c LINEARFIT, K1d GESDT over the
+              same dtypes and normalizations at N=24, P=2^20; K1e (weights,
+              per frame and per pixel) over winsorized, sigma, linearfit
+              and GESDT × {float32, int16}; one stack of 1000 frames; and
+              each of K1b-K1e at the stack command's call size (N=FRAMES,
+              P=SIZE², float32, additive+scaling), with its bound; for
+              SIGMEDIAN, the pixels each version stopped at its round cap;
   4. fusedstack — the main path through the CLI entry point
               (``python -m siril_tpu_torch.cli -d <dir> fusedstack light_``)
               on FRAMES synthetic SIZE×SIZE 16-bit frames, checked against the
-              known scene, with the time of each stage.
+              known scene, with the time of each stage;
+  stack  — the staged ``stack`` command through the CLI on FRAMES aligned
+              float32 SIZE×SIZE frames (``r_light_``, as registration leaves
+              them) with SIGMEDIAN, LINEARFIT, GESDT, noise weights, and
+              rejection maps (the streamed row-block path), each checked
+              against the known scene and its variant's launches.
 Then a JSON line describing every kernel, the card line, and last the
 result line.  Any failure exits non-zero without a result line.  The script
 needs CUDA and the repository beside it; it imports nothing of JAX.
@@ -134,17 +146,31 @@ def make_stack(gen, n: int, p: int, device):
 
 
 def compare_k1(name, stack, scale, offset, mul, rtype, mode, siglow,
-               sighigh, time_plain_reps=1, work=None):
-    """Kernel vs plain version on the card; returns a result dict."""
+               sighigh, time_plain_reps=1, work=None, **extra):
+    """Kernel vs plain version on the card; returns a result dict.
+    ``extra``: weights, critical, max_outliers of the K1b-K1e variants."""
     import torch
 
     from siril_tpu_torch.kernels import reject_stack as k1
+    from siril_tpu_torch.ops.rejection import SIGMEDIAN
     from siril_tpu_torch.ops.stacking import reject_stack_plain
 
-    kw = dict(rtype=rtype, mode=mode, siglow=siglow, sighigh=sighigh)
+    kw = dict(rtype=rtype, mode=mode, siglow=siglow, sighigh=sighigh,
+              **extra)
+    # SIGMEDIAN pixels stopped at the round cap, by each version
+    capped0 = k1.capped_pixels()
     got = k1.reject_mean(stack, scale, offset, mul, **kw)
-    ref = reject_stack_plain(stack, scale, offset, mul, work=work, **kw)
+    capped_kernel = k1.capped_pixels() - capped0
+    capped_plain = torch.zeros((), dtype=torch.int64, device=stack.device)
+    refs = []
+    plain_ms = _events_ms(
+        lambda: refs.append(reject_stack_plain(
+            stack, scale, offset, mul, work=None if refs else work,
+            capped=None if refs else capped_plain, **kw)),
+        time_plain_reps)
+    ref = refs[0]
     torch.cuda.synchronize()
+    capped_plain = int(capped_plain)
     agree = (got[1] == ref[1]) & (got[2] == ref[2])
     nbad = int((~agree).sum())
     d = (got[0] - ref[0]).abs()
@@ -152,20 +178,20 @@ def compare_k1(name, stack, scale, offset, mul, rtype, mode, siglow,
     err_flip = float(d[~agree].max()) if nbad else 0.0
     p = stack.shape[1]
     ok = (nbad <= (1.0 - COUNT_AGREE) * p and err_agree <= MEAN_ATOL_AGREE
-          and err_flip < MEAN_ATOL_FLIP and bool(torch.isfinite(got[0]).all()))
+          and err_flip < MEAN_ATOL_FLIP and bool(torch.isfinite(got[0]).all())
+          and capped_kernel == capped_plain)
     for _ in range(2):
         k1.reject_mean(stack, scale, offset, mul, **kw)
     ms = _events_ms(lambda: k1.reject_mean(stack, scale, offset, mul, **kw),
                     10)
-    plain_ms = _events_ms(
-        lambda: reject_stack_plain(stack, scale, offset, mul, **kw),
-        time_plain_reps)
     log(f"  {name}: count mismatches {nbad}/{p}, max|Δmean| agree "
         f"{err_agree:.3g} flip {err_flip:.3g}, rej {int(got[1].sum())}/"
         f"{int(got[2].sum())}, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms"
-        f"{'' if ok else '  <-- OUT OF TOLERANCE'}")
+        + (f", stopped at the SIGMEDIAN round cap: kernel {capped_kernel} "
+           f"plain {capped_plain} px" if rtype == SIGMEDIAN else "")
+        + ('' if ok else '  <-- OUT OF TOLERANCE'))
     return dict(ok=ok, nbad=nbad, max_abs_err=max(err_agree, err_flip),
-                ms=ms, plain_ms=plain_ms)
+                ms=ms, plain_ms=plain_ms, capped=capped_kernel)
 
 
 def phase_k1a(seed: int):
@@ -232,10 +258,156 @@ def phase_k1a(seed: int):
     return full
 
 
-def synth_frames(seed: int, n: int, size: int):
+def _bound(nbytes: int, work: dict) -> dict:
+    """The least time for the work: bytes over the HBM rate or float
+    operations (and sort comparisons) over the f32 peak, the larger."""
+    ops = work.get("flops", 0) + work.get("compares", 0)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return dict(bytes=nbytes, ops=ops, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+#: the stack command's variants: (variant, label, rtype, siglow, sighigh,
+#: weighted) — K1e is the weighted mean (winsorized here)
+STACK_VARIANTS = [("K1b", "sigmedian", 4, 3.0, 3.0, False),
+                  ("K1c", "linearfit", 6, 3.0, 3.0, False),
+                  ("K1d", "gesdt", 7, 0.3, 0.05, False),
+                  ("K1e", "winsorized+weights", 5, 3.0, 3.0, True)]
+
+
+def phase_k1(seed: int):
+    """K1b-K1e against their plain versions; returns {variant: result}
+    with each variant's worst error and its numbers at the stack
+    command's call size."""
+    import torch
+
+    from siril_tpu_torch.ops import rejection as rj
+    from siril_tpu_torch.ops.normalization import (
+        ADDITIVE_SCALING,
+        MULTIPLICATIVE,
+        NO_NORM,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+
+    def coeffs(n):
+        return (1.0 + 0.05 * torch.randn(n, generator=gen, device=dev),
+                0.01 * torch.randn(n, generator=gen, device=dev),
+                1.0 + 0.03 * torch.randn(n, generator=gen, device=dev))
+
+    def gesdt_kw(rtype, n, sl, sh):
+        if rtype != rj.GESDT:
+            return {}
+        mo = rj.gesdt_max_outliers(n, sl)
+        return dict(max_outliers=mo,
+                    critical=rj.gesdt_critical_values(n, sh, mo))
+
+    n, p = 24, 1 << 20
+    stack = make_stack(gen, n, p, dev)
+    raw = (torch.round(stack * 65535.0) - 32768.0).to(torch.int16)
+    scale, offset, mul = coeffs(n)
+    norms = [("nonorm", NO_NORM), ("addscale", ADDITIVE_SCALING),
+             ("mul", MULTIPLICATIVE)]
+    errs = {v: 0.0 for v, *_ in STACK_VARIANTS}
+    nbad = {v: 0 for v, *_ in STACK_VARIANTS}
+    capped = {v: 0 for v, *_ in STACK_VARIANTS}
+    failures = []
+
+    def record(var, tag, r):
+        errs[var] = max(errs[var], r["max_abs_err"])
+        nbad[var] += r["nbad"]
+        capped[var] += r["capped"]
+        if not r["ok"]:
+            failures.append(tag)
+
+    for var, label, rtype, sl, sh, _ in STACK_VARIANTS[:3]:
+        for dname, data in (("f32", stack), ("i16", raw)):
+            for nname, mode in norms:
+                tag = f"{var} {label}/{dname}/{nname} N={n} P={p}"
+                record(var, tag, compare_k1(
+                    tag, data, scale, offset, mul, rtype, mode, sl, sh,
+                    **gesdt_kw(rtype, n, sl, sh)))
+    wf = 0.5 + torch.rand(n, 1, generator=gen, device=dev)
+    wp = 0.5 + torch.rand(n, p, generator=gen, device=dev)
+    for label, rtype, sl, sh in (("winsorized", rj.WINSORIZED, 3.0, 3.0),
+                                 ("sigma", rj.SIGMA, 3.0, 3.0),
+                                 ("linearfit", rj.LINEARFIT, 3.0, 3.0),
+                                 ("gesdt", rj.GESDT, 0.3, 0.05)):
+        for dname, data in (("f32", stack), ("i16", raw)):
+            for wname, w in (("frame", wf), ("pixel", wp)):
+                tag = (f"K1e {label}/{dname}/addscale weights per {wname} "
+                       f"N={n} P={p}")
+                record("K1e", tag, compare_k1(
+                    tag, data, scale, offset, mul, rtype, ADDITIVE_SCALING,
+                    sl, sh, weights=w, **gesdt_kw(rtype, n, sl, sh)))
+    del stack, raw, wp
+
+    # more frames than shared memory holds: columns in global scratch
+    # (SIGMEDIAN: its plain version's cost grows least with N)
+    nb, pb = 1000, 1 << 14
+    big = make_stack(gen, nb, pb, dev)
+    bs, bo, bm = coeffs(nb)
+    tag = f"K1b sigmedian/f32/addscale N={nb} P={pb} (global columns)"
+    record("K1b", tag, compare_k1(tag, big, bs, bo, bm, rj.SIGMEDIAN,
+                                  ADDITIVE_SCALING, 3.0, 3.0))
+    del big
+
+    # each variant at the stack command's call size: the resident layer
+    results = {}
+    nf, pf = FRAMES, SIZE * SIZE
+    full = make_stack(gen, nf, pf, dev)
+    sc = 1.0 + 0.02 * torch.randn(nf, generator=gen, device=dev)
+    off = sc * 0.1 - 0.1
+    one = torch.ones_like(sc)
+    wframe = 0.5 + torch.rand(nf, 1, generator=gen, device=dev)
+    for var, label, rtype, sl, sh, weighted in STACK_VARIANTS:
+        extra = gesdt_kw(rtype, nf, sl, sh)
+        if weighted:
+            extra["weights"] = wframe
+        work = {}
+        tag = f"{var} {label}/f32/addscale N={nf} P={pf} (stack call size)"
+        r = compare_k1(tag, full, sc, off, one, rtype, ADDITIVE_SCALING, sl,
+                       sh, work=work, **extra)
+        record(var, tag, r)
+        # the stack once, 3 coefficient vectors, 12 B per pixel out; a
+        # weighted mean its per-frame weights (the kernel also reads the
+        # stack a second time, which the function does not need: that
+        # cost is the kernel's, not the bound's); GESDT its λ table
+        nbytes = nf * pf * 4 + 3 * nf * 4 + pf * 12
+        if weighted:
+            nbytes += nf * 4
+        if "critical" in extra:
+            nbytes += 4 * len(extra["critical"])
+        r.update(_bound(nbytes, work))
+        r["max_abs_err"] = errs[var]
+        r["nbad_all"] = nbad[var]
+        log(f"  {var} bound at the stack call size: {nbytes / 1e6:.1f} MB "
+            f"→ {r['bytes_ms']:.4f} ms; {r['ops'] / 1e9:.2f} G operations "
+            f"→ {r['ops_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); kernel {r['ms']:.3f} ms = "
+            f"{r['ms'] / r['bound_ms']:.1f}x the bound; plain "
+            f"{r['plain_ms']:.1f} ms; count mismatches over all its "
+            f"configurations {nbad[var]}"
+            + (f", pixels stopped at the SIGMEDIAN round cap {capped[var]}"
+               if var == "K1b" else "")
+            + "; no library call computes this function")
+        results[var] = r
+    del full
+    if failures:
+        raise RuntimeError(f"K1b-K1e out of tolerance: {failures}")
+    return results
+
+
+def synth_frames(seed: int, n: int, size: int, aligned: bool = False):
     """A scene of Gaussian stars on a sky background, and ``n`` frames of
     it shifted by integer + sub-pixel offsets, with noise and cosmic rays.
-    Returns (scene, frames u16 list, shifts, noise σ, ray value)."""
+    Returns (scene, frames u16 list, shifts, noise σ, ray value).  With
+    ``aligned`` the frames are not shifted (as registration leaves them)
+    and are float32."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -265,18 +437,21 @@ def synth_frames(seed: int, n: int, size: int):
         return img
 
     scene = render(0.0, 0.0)
-    shifts = [(0.0, 0.0)] + [(float(rng.integers(-12, 13)
-                                     + rng.uniform(-0.5, 0.5)),
-                              float(rng.integers(-12, 13)
-                                    + rng.uniform(-0.5, 0.5)))
-                             for _ in range(n - 1)]
+    shifts = [(0.0, 0.0)] * n if aligned else \
+        [(0.0, 0.0)] + [(float(rng.integers(-12, 13)
+                               + rng.uniform(-0.5, 0.5)),
+                         float(rng.integers(-12, 13)
+                               + rng.uniform(-0.5, 0.5)))
+                        for _ in range(n - 1)]
     frames = []
     for dx, dy in shifts:
-        f = render(dx, dy)
+        f = scene.copy() if aligned else render(dx, dy)
         f += sigma_n * rng.standard_normal((size, size), dtype=np.float32)
         k = size * size // 4000
         f[rng.integers(0, size, k), rng.integers(0, size, k)] = ray
-        frames.append(np.rint(np.clip(f, 0, 1) * 65535.0).astype(np.uint16))
+        f = np.clip(f, 0, 1)
+        frames.append(f if aligned else
+                      np.rint(f * 65535.0).astype(np.uint16))
     return scene, frames, shifts, sigma_n, ray
 
 
@@ -293,6 +468,24 @@ def write_u16_fits(path: str, u16) -> None:
     hdr = "".join(c.ljust(80) for c in cards).encode("ascii")
     hdr += b" " * ((-len(hdr)) % 2880)
     body = (u16[::-1].astype(np.int32) - 32768).astype(">i2").tobytes()
+    with open(path, "wb") as f:
+        f.write(hdr)
+        f.write(body)
+        f.write(b"\0" * ((-len(body)) % 2880))
+
+
+def write_f32_fits(path: str, img) -> None:
+    """Minimal float32 FITS (BITPIX -32, bottom-up rows)."""
+    import numpy as np
+
+    h, w = img.shape
+    cards = ["SIMPLE  =                    T", "BITPIX  =                  -32",
+             "NAXIS   =                    2",
+             f"NAXIS1  = {w:>20}", f"NAXIS2  = {h:>20}",
+             "EXPTIME =                 60.0", "END"]
+    hdr = "".join(c.ljust(80) for c in cards).encode("ascii")
+    hdr += b" " * ((-len(hdr)) % 2880)
+    body = np.ascontiguousarray(img[::-1]).astype(">f4").tobytes()
     with open(path, "wb") as f:
         f.write(hdr)
         f.write(body)
@@ -318,12 +511,12 @@ def phase_fusedstack(seed: int):
             write_u16_fits(os.path.join(tmp, f"light_{i + 1:05d}.fit"), u)
         del u16s
         log(f"  wrote FITS in {time.perf_counter() - t:.2f}s")
-        k1.launch_count = 0
+        k1.reset_counts()
         t = time.perf_counter()
         session = cli.run(["-d", tmp, "fusedstack", "light_"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launches = k1.launch_count
+        launches = sum(k1.launches.values())
         res = session.result
         if res is None:
             raise RuntimeError("fusedstack produced no result")
@@ -362,6 +555,91 @@ def phase_fusedstack(seed: int):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: the stack commands of the stack phase and the variant each must launch
+STACK_RUNS = [("K1b", "rej a 3 3 -norm=addscale"),
+              ("K1c", "rej l 3 3 -norm=addscale"),
+              ("K1d", "rej g 0.3 0.05 -norm=addscale"),
+              ("K1e", "rej w 3 3 -norm=addscale -weight_from_noise"),
+              ("K1a", "rej w 3 3 -norm=addscale -rejmaps")]
+
+
+def phase_stack(seed: int):
+    """The staged stack command on aligned float32 frames; returns
+    ({variant: launches}, {command: stage seconds})."""
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch import cli
+    from siril_tpu_torch.kernels import reject_stack as k1
+
+    frames, size = FRAMES, SIZE
+    t = time.perf_counter()
+    scene, f32s, _, sigma_n, ray = synth_frames(seed + 7, frames, size,
+                                                aligned=True)
+    log(f"  synthesized {frames} aligned float32 frames of {size}x{size} "
+        f"in {time.perf_counter() - t:.2f}s")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stack_")
+    launches = dict.fromkeys(k1.launches, 0)
+    stages = {}
+    try:
+        t = time.perf_counter()
+        for i, f in enumerate(f32s):
+            write_f32_fits(os.path.join(tmp, f"r_light_{i + 1:05d}.fit"), f)
+        del f32s
+        log(f"  wrote FITS in {time.perf_counter() - t:.2f}s")
+        m = 48
+        inner = np.s_[m:-m, m:-m]
+        failed = []
+        for var, cmd in STACK_RUNS:
+            words = ["-d", tmp, "stack", "r_light_", *cmd.split()]
+            k1.reset_counts()
+            t = time.perf_counter()
+            session = cli.run(words)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = dict(k1.launches)
+            for key, v in counts.items():
+                launches[key] += v
+            res = session.result
+            out = res.image.host()[0]
+            err = float(np.abs(out[inner] - scene[inner]).mean())
+            rl, rh = res.total_rejected
+            stages[cmd] = dict(res.stage_s, wall=wall)
+            log(f"  stack r_light_ {cmd}: wall {wall:.2f}s, launches "
+                f"{ {k: v for k, v in counts.items() if v} }, interior "
+                f"mean |Δ| {err:.5f} (noise {sigma_n}), rejected low/high "
+                f"{rl}/{rh}, max {float(out.max()):.4f}"
+                + (f", pixels stopped at the SIGMEDIAN round cap "
+                   f"{res.sigmedian_capped}" if var == "K1b" else ""))
+            log("    stages: " + ", ".join(
+                f"{k} {v:.3f}s" for k, v in res.stage_s.items()))
+            checks = {
+                "interior mean |Δ| < noise/3": err < sigma_n / 3,
+                "cosmic rays rejected (rej_high > 0)": rh > 0,
+                "result max well below the ray value":
+                    float(out.max()) < 0.8 * ray,
+                "result finite, expected shape":
+                    bool(np.isfinite(out).all())
+                    and out.shape == (size, size),
+                f"{var} launched": counts[var] > 0,
+                "result file written": os.path.exists(
+                    os.path.join(tmp, "r_light_stacked.fit")),
+            }
+            if "-rejmaps" in cmd:
+                checks["rejection maps written"] = all(
+                    os.path.exists(os.path.join(tmp, f"rejmap_{s}.fit"))
+                    for s in ("low", "high"))
+            for name, good in checks.items():
+                if not good:
+                    log(f"    check {name}: FAILED")
+                    failed.append(f"{cmd}: {name}")
+        if failed:
+            raise RuntimeError(f"stack checks failed: {failed}")
+        return launches, stages
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -385,22 +663,29 @@ def main(argv=None) -> int:
     with Phase("build"):
         phase_build()
     with Phase("k1a"):
-        k1 = phase_k1a(args.seed)
+        k1a = phase_k1a(args.seed)
+    with Phase("k1"):
+        k1v = phase_k1(args.seed)
     with Phase("fusedstack"):
         launches, stages, wall = phase_fusedstack(args.seed)
-    report = {"kernels": [{
-        "name": "reject_stack (K1a)",
-        "route": "cuda",
-        "source": "siril_tpu_torch/csrc/reject_stack.cu",
-        "replaces": "siril_tpu/pallas/reject_stack.py:763",
-        "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": None,
-    }]}
+    with Phase("stack"):
+        stack_launches, _ = phase_stack(args.seed)
+    src = "siril_tpu_torch/csrc/reject_stack.cu"
+    tpu = "siril_tpu/pallas/reject_stack.py"
+    kernels = [dict(name="reject_stack (K1a)", launches=launches,
+                    replaces=f"{tpu}:763", **k1a)]
+    lines = {"K1b": 478, "K1c": 521, "K1d": 586, "K1e": 719}
+    for var, *_ in STACK_VARIANTS:
+        kernels.append(dict(name=f"reject_stack ({var})",
+                            launches=stack_launches[var],
+                            replaces=f"{tpu}:{lines[var]}", **k1v[var]))
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    report = {"kernels": [
+        dict(name=k["name"], route="cuda", source=src,
+             replaces=k["replaces"], launches=k["launches"],
+             **{key: k[key] for key in keys}, library_ms=None)
+        for k in kernels]}
+    log(f"chip_smoke done in {time.perf_counter() - T0:.1f}s")
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ it, mirrors its module paths, and imports neither ``jax`` nor anything of
 ``siril_tpu``.  Hot device work runs on a CUDA card by default; callers pass
 ``device="cpu"`` to run the plain PyTorch versions (the tests do).
 
-Ported so far: the ``fusedstack`` main path at its defaults
-(``pipeline.fused_preprocess_stack``), with the winsorized rejection stack
-as a hand-written CUDA kernel (``kernels/reject_stack.py``,
-``csrc/reject_stack.cu``).
+Ported so far: the ``fusedstack`` path (``pipeline.fused_preprocess_stack``,
+shift registration) and the staged ``stack`` command
+(``ops/stacking.stack_sequence``), with the rejection stack — every
+rejection mode and the weighted mean — as a hand-written CUDA kernel
+(``kernels/reject_stack.py``, ``csrc/reject_stack.cu``).
 """

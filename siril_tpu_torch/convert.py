@@ -68,6 +68,6 @@ def homographies(H) -> np.ndarray:
 
 def gesdt_table(critical, device: Optional[torch.device] = None
                 ) -> torch.Tensor:
-    """GESDT λ table → float32 tensor (for the GESDT kernel, K1d, when it
-    is ported)."""
+    """GESDT λ table → float32 tensor (the ``critical`` input of the
+    GESDT kernel, K1d)."""
     return torch.as_tensor(np.asarray(critical, np.float32), device=device)

@@ -1,9 +1,13 @@
 """Sequence model — counterpart of ``siril_tpu/core/sequence.py``
-(scan:193, read_frame:233, selected_indices:320, get_reference:327,
-reg:337) and of the raw chunk reader ``siril_tpu/pipeline.py:501``.
+(scan:193, read_frame:233, read_region:300, close_readers:307,
+selected_indices:320, get_reference:327, reg:337, the per-frame stats
+store :345-367) and of the raw chunk reader ``siril_tpu/pipeline.py:501``.
 
 A trimmed copy: REGULAR sequences (one FITS file per frame).  SER, FITS
-cubes and films are off this slice's path (ROADMAP §1, off-path modules).
+cubes and films are off the ported paths (ROADMAP §1, off-path modules).
+The per-frame statistics stay in memory: the ``.seq`` sidecar
+(``io/seqfile.py``, ``seq.save()``) is not ported, and the JAX package
+ignores a failure to write it (``ops/stacking.py:815``).
 """
 
 from __future__ import annotations
@@ -20,6 +24,15 @@ import numpy as np
 
 from siril_tpu_torch.core.image import Keywords, SirilImage
 
+# sequence type of a file-per-frame sequence (siril.h:351-357)
+SEQ_REGULAR = 0
+
+# statistic columns of the (N, 14) per-layer stats store (io/seqfile.c:825)
+STAT_COLS = ("total", "ngoodpix", "mean", "median", "sigma", "avgdev", "mad",
+             "sqrtbwmv", "location", "scale", "min", "max", "normvalue",
+             "bgnoise")
+
+
 @dataclass
 class RegData:
     """Columnar registration data for one layer (regdata, siril.h:433)."""
@@ -27,11 +40,16 @@ class RegData:
     n: int
     H: np.ndarray = None                 # (N, 3, 3) float64 homographies
     valid: np.ndarray = None             # bool: regdata exists for frame
+    weighted_fwhm: np.ndarray = None     # (N,) for -weight_from_wfwhm
+    number_of_stars: np.ndarray = None   # (N,) for -weight_from_nbstars
 
     def __post_init__(self):
         if self.H is None:
             self.H = np.tile(np.eye(3), (self.n, 1, 1))
             self.valid = np.zeros(self.n, dtype=bool)
+        if self.weighted_fwhm is None:
+            self.weighted_fwhm = np.zeros(self.n)
+            self.number_of_stars = np.zeros(self.n, dtype=np.int32)
 
 
 class Sequence:
@@ -40,7 +58,13 @@ class Sequence:
     def __init__(self, name: str, directory: str = "."):
         self.name = name
         self.directory = directory
+        self.seq_type = SEQ_REGULAR
         self.number = 0
+        self.nb_layers = -1
+        self.rx = 0
+        self.ry = 0
+        #: layer → (N, 14) float64 statistics, NaN where absent
+        self.stats: Dict[int, np.ndarray] = {}
         self.reference_image = -1
         self.incl = np.zeros(0, dtype=bool)
         self.regparam: Dict[int, RegData] = {}
@@ -58,6 +82,11 @@ class Sequence:
         seq._file_list = [os.path.abspath(f) for f in files]
         seq.number = len(files)
         seq.incl = np.ones(len(files), dtype=bool)
+        from siril_tpu_torch.io.fits_io import image_hdus
+
+        hdus = image_hdus(seq._file_list[0])
+        if hdus:
+            seq.nb_layers, seq.ry, seq.rx = hdus[0].shape_chw
         return seq
 
     @staticmethod
@@ -98,6 +127,16 @@ class Sequence:
                 self._readers[index] = r
             return r
 
+    def read_region(self, chan: int, index: int, y0: int,
+                    y1: int) -> np.ndarray:
+        """Rows [y0, y1) of channel ``chan`` of frame ``index``, top-down
+        [0, 1] float32 (seq_opened_read_region, io/sequence.c:1282)."""
+        return self.open_reader(index).read_region(chan, y0, y1)
+
+    def close_readers(self) -> None:
+        with self._reader_lock:
+            self._readers.clear()
+
     def selected_indices(self) -> np.ndarray:
         return np.nonzero(self.incl)[0]
 
@@ -113,6 +152,25 @@ class Sequence:
         if layer not in self.regparam:
             self.regparam[layer] = RegData(self.number)
         return self.regparam[layer]
+
+    def set_frame_stats(self, layer: int, index: int, st) -> None:
+        """Keep an ImStats for (layer, frame) in the columnar store."""
+        if layer not in self.stats:
+            self.stats[layer] = np.full((self.number, len(STAT_COLS)),
+                                        np.nan)
+        self.stats[layer][index] = [getattr(st, c) for c in STAT_COLS]
+
+    def get_frame_stats(self, layer: int, index: int):
+        """The stored ImStats of (layer, frame), or None."""
+        if layer not in self.stats:
+            return None
+        row = self.stats[layer][index]
+        if np.isnan(row[2:]).all():
+            return None
+        from siril_tpu_torch.ops.statistics import ImStats
+
+        return ImStats(**{c: float(row[i])
+                          for i, c in enumerate(STAT_COLS)})
 
 
 def raw_chunk_reader(seq: Sequence, indices: np.ndarray, L: int, H: int,

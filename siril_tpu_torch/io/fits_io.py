@@ -372,6 +372,18 @@ class FitsReader:
         return (self.hdu.bitpix == 16 and self.hdu.bzero == 32768.0
                 and self.hdu.bscale == 1.0)
 
+    def read_region(self, chan: int, y0: int, y1: int) -> np.ndarray:
+        """Rows [y0, y1) of a channel, top-down, as [0, 1] float32."""
+        if self.bottom_up:
+            fy0, fy1 = self.height - y1, self.height - y0
+        else:
+            fy0, fy1 = y0, y1
+        raw = self._mm[chan, fy0:fy1]
+        if self.bottom_up:
+            raw = raw[::-1]
+        return _raw_to_float01(np.ascontiguousarray(raw), self.hdu.bitpix,
+                               self.hdu.bzero, self.hdu.bscale)
+
     def raw_i16_topdown(self) -> np.ndarray:
         """(C, H, W) native-endian int16, rows top-down."""
         a = self._mm[:, ::-1, :] if self.bottom_up else self._mm

@@ -1,9 +1,23 @@
-"""Stacking normalization constants and coefficients — counterpart of
-``siril_tpu/ops/normalization.py`` (settings.h:34-40 modes, ``NormCoeffs``).
+"""Stacking normalization — counterpart of ``siril_tpu/ops/normalization.py``
+(settings.h:34-40 modes, ``NormCoeffs``, ``compute_normalization``:62,
+``factors_from_estimators``:121, ``_compute_missing``:151, ``_cache``:199).
+
+Per frame and per layer, location/scale estimators (IKSSlite, or
+median/1.5·MAD with ``lite``; normalization.c:98-142) become offset/scale/
+mul coefficients relative to the reference frame
+(compute_factors_from_estimators, normalization.c:146-183):
+
+  ADDITIVE_SCALING:  scale_i = scale_ref / scale_i ;
+                     offset_i = scale_i·loc_i − loc_ref
+  ADDITIVE:          offset_i = loc_i − loc_ref          (scale = 1)
+  MULTIPLICATIVE[_SCALING]: mul_i = loc_ref / loc_i
 
 Applied per pixel in the stack kernel (median_and_mean.c:1655-1689):
   additive:        v' = v·scale − offset   (zeros stay zero)
   multiplicative:  v' = v·scale·mul
+
+The estimators are ``ops/statistics.norm_estimators`` (sorts on the
+device); they are kept in the sequence's in-memory stats store.
 """
 
 from __future__ import annotations
@@ -11,6 +25,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+
+from siril_tpu_torch.device import DeviceLike, resolve_device
 
 NO_NORM = 0
 ADDITIVE = 1
@@ -34,3 +51,127 @@ class NormCoeffs:
     offset: np.ndarray
     mul: np.ndarray
     scale: np.ndarray
+
+
+def has_estimators(st, lite: bool) -> bool:
+    """Whether stored stats ``st`` hold the estimators a normalization
+    needs."""
+    return st is not None and bool(
+        (lite and st.median and st.mad) or
+        (not lite and st.location and st.scale))
+
+
+def compute_normalization(seq, indices: np.ndarray, mode: int,
+                          lite: bool = False, force: bool = False,
+                          frame_batch: int = 8, equalize_rgb: bool = False,
+                          reglayer: int = -1, device: DeviceLike = None
+                          ) -> NormCoeffs:
+    """do_normalization (normalization.c:46-80) for the selected frames
+    (absolute ``indices``).  Estimators come from the sequence's stats
+    store when present, else are computed on ``device`` (the card unless
+    the caller asks for the CPU) in frame batches and stored."""
+    device = resolve_device(device)
+    n = len(indices)
+    L = seq.nb_layers
+    if mode == NO_NORM:
+        return NormCoeffs(np.zeros((L, n)), np.ones((L, n)), np.ones((L, n)))
+    loc = np.zeros((L, n))
+    sca = np.ones((L, n))
+    need = []
+    for k, idx in enumerate(indices):
+        for layer in range(L):
+            st = None if force else seq.get_frame_stats(layer, int(idx))
+            if has_estimators(st, lite):
+                loc[layer, k] = st.median if lite else st.location
+                sca[layer, k] = 1.5 * st.mad if lite else st.scale
+            else:
+                need.append((k, int(idx), layer))
+    if need:
+        _compute_missing(seq, need, loc, sca, lite, frame_batch, device)
+    ref_idx = seq.get_reference()
+    hit = np.nonzero(np.asarray(indices) == ref_idx)[0]
+    ref_pos = int(hit[0]) if hit.size else 0
+    offset, scale, mul = factors_from_estimators(
+        loc, sca, mode, ref_pos, equalize_rgb=equalize_rgb,
+        reglayer=reglayer)
+    return NormCoeffs(offset, mul, scale)
+
+
+def factors_from_estimators(loc: np.ndarray, sca: np.ndarray, mode: int,
+                            ref_pos: int, equalize_rgb: bool = False,
+                            reglayer: int = -1):
+    """compute_factors_from_estimators (normalization.c:146): per-frame
+    (offset, scale, mul) from (L, n) location/scale estimator arrays."""
+    L, n = loc.shape
+    offset = np.zeros((L, n))
+    scale = np.ones((L, n))
+    mul = np.ones((L, n))
+    rl = reglayer if reglayer > -1 else 1
+    for layer in range(L):
+        reflayer = min(rl if equalize_rgb else layer, L - 1)
+        loc0 = loc[reflayer, ref_pos]
+        sca0 = sca[reflayer, ref_pos]
+        if mode in (ADDITIVE_SCALING, MULTIPLICATIVE_SCALING):
+            s = sca[layer]
+            scale[layer] = np.where(s == 0, 1.0,
+                                    sca0 / np.where(s == 0, 1.0, s))
+        if mode in (ADDITIVE, ADDITIVE_SCALING):
+            offset[layer] = scale[layer] * loc[layer] - loc0
+        elif mode in (MULTIPLICATIVE, MULTIPLICATIVE_SCALING):
+            lv = loc[layer]
+            mul[layer] = np.where(lv == 0, 1.0,
+                                  loc0 / np.where(lv == 0, 1.0, lv))
+    return offset, scale, mul
+
+
+def _compute_missing(seq, need, loc, sca, lite, frame_batch, device):
+    """Estimators for (position, frame, layer) triples, frames read from
+    disk (4 threads) and batched onto ``device``; results go to
+    ``loc``/``sca`` and the stats store."""
+    import concurrent.futures as cf
+
+    from siril_tpu_torch.ops.statistics import norm_estimators
+
+    by_frame = {}
+    for k, idx, layer in need:
+        by_frame.setdefault((k, idx), []).append(layer)
+    items = sorted(by_frame.items())
+    with cf.ThreadPoolExecutor(max_workers=4) as pool:
+        for start in range(0, len(items), frame_batch):
+            chunk = items[start:start + frame_batch]
+            frames = list(pool.map(
+                lambda it: seq.read_frame(it[0][1]).host(), chunk))
+            for layer in range(seq.nb_layers):
+                rows = [ci for ci, (_, layers) in enumerate(chunk)
+                        if layer in layers]
+                if not rows:
+                    continue
+                batch = torch.from_numpy(np.stack(
+                    [frames[ci][layer].reshape(-1) for ci in rows])
+                    ).to(device)
+                est = norm_estimators(batch, lite=lite)
+                vals = torch.stack([est["location"], est["scale"],
+                                    est["median"], est["mad"]], 1).cpu()
+                for r, ci in enumerate(rows):
+                    (k, idx), _ = chunk[ci]
+                    location, scale_v, med, mad = (float(v)
+                                                   for v in vals[r])
+                    loc[layer, k] = location
+                    sca[layer, k] = scale_v
+                    cache_estimators(seq, layer, idx, med, mad, location,
+                                     scale_v, lite)
+
+
+def cache_estimators(seq, layer, idx, med, mad, location, scale, lite):
+    """Store one frame's estimators in the sequence's stats store."""
+    from siril_tpu_torch.ops.statistics import ImStats
+
+    st = seq.get_frame_stats(layer, idx) or ImStats()
+    st.median = float(med)
+    st.mad = float(mad)
+    if not lite:
+        st.location = float(location)
+        st.scale = float(scale)
+    st.total = st.total or seq.rx * seq.ry
+    st.ngoodpix = st.ngoodpix or st.total
+    seq.set_frame_stats(layer, idx, st)

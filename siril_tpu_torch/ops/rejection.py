@@ -1,27 +1,30 @@
 """Pixel-rejection stacking, plain PyTorch version — counterpart of
-``siril_tpu/ops/rejection.py`` (``rejection_mean``:548) for the window
-modes NO_REJEC, PERCENTILE (``_percentile``:248), SIGMA and MAD
-(``_sigma_or_mad``:188) and WINSORIZED (``_winsorized``:268).
+``siril_tpu/ops/rejection.py`` (``rejection_mean``:548) for every mode:
+NO_REJEC, PERCENTILE (``_percentile``:248), SIGMA and MAD
+(``_sigma_or_mad``:188), WINSORIZED (``_winsorized``:268), SIGMEDIAN
+(``_sigmedian``:361), LINEARFIT (``_linearfit``:391) and GESDT
+(``_gesdt``:474, λ table ``gesdt_critical_values``:457), with the
+weighted mean of ``rejection_mean``:622-635.
 
-This is the plain version of kernel K1a (``kernels/reject_stack.py``): the
+This is the plain version of kernel K1 (``kernels/reject_stack.py``): the
 CPU path, and the function the CUDA kernel is held against on the card.
-It follows the reference's vectorized formulation — after sorting each
-pixel's frame vector (invalid entries pushed to +inf) the kept set is a
-window [lo, hi) plus, after a guard truncation, a kept-top segment.
+After sorting each pixel's frame vector (invalid entries pushed to +inf)
+the window modes keep a window [lo, hi) plus, after a guard truncation, a
+kept-top segment; LINEARFIT and GESDT keep a mask over the sorted values;
+SIGMEDIAN replaces values by the running median and re-sorts each round,
+as the Pallas kernel does (pallas/reject_stack.py:478-519).
 
-Every sum over the frame axis runs in frame order, k = 0 … N−1
+Every sum over the frame axis runs in row order, k = 0 … N−1
 (``_colsum``), the order the CUDA kernel's per-thread loops use.  Where
 XLA contracts a multiply-add into one fused multiply-add (``c − a·b`` in
-the window variance and the winsorized clip bounds; XLA:CPU does this in
-its elementwise fusions), this version computes it with one rounding too
+the window variance, the winsorized clip bounds, and the LINEARFIT
+intercept ``m_y − m_x·a`` and line ``a·pos + b``; XLA:CPU does this in its
+elementwise fusions), this version computes it with one rounding too
 (``fma``), and so does the kernel (``__fmaf_rn``): the one-pass variance
 cancels badly in float32, and a different rounding there moves σ by ~1e-4
-relative, enough to flip a candidate near kσ.  The winsorized σ loop copies the
-reference's step schedule exactly: three plain steps, an Aitken Δ² jump,
-the convergence check, at most 48 steps (rejection.py:268-360).
-
-SIGMEDIAN, LINEARFIT, GESDT and weighted means are not ported yet
-(ROADMAP §2, K1b-K1e).
+relative, enough to flip a candidate near kσ.  The winsorized σ loop copies
+the reference's step schedule exactly: three plain steps, an Aitken Δ²
+jump, the convergence check, at most 48 steps (rejection.py:268-360).
 """
 
 from __future__ import annotations
@@ -52,26 +55,22 @@ REJECTION_NAMES = {
     "g": GESDT, "gesdt": GESDT, "generalized": GESDT,
 }
 
-#: the modes ported so far (kernel K1a)
+#: the modes whose kept set is a sorted window (kernel K1a)
 WINDOW_MODES = frozenset({NO_REJEC, PERCENTILE, SIGMA, MAD, WINSORIZED})
+ALL_MODES = WINDOW_MODES | {SIGMEDIAN, LINEARFIT, GESDT}
 
-_NOT_PORTED = {
-    SIGMEDIAN: "K1b (SIGMEDIAN)",
-    LINEARFIT: "K1c (LINEARFIT)",
-    GESDT: "K1d (GESDT)",
-}
+#: SIGMEDIAN stops after this many replacement rounds.  The reference loops
+#: until nothing is replaced; the bound keeps a pathological column from
+#: spinning a kernel thread forever.  The kernel uses the same bound, and
+#: both versions count the pixels that stop at it (``capped``).
+SIGMEDIAN_MAX_ROUNDS = 1000
 
 _INF = float("inf")
 
 
 def check_rtype(rtype: int) -> None:
-    if rtype in WINDOW_MODES:
-        return
-    if rtype in _NOT_PORTED:
-        raise NotImplementedError(
-            f"rejection {_NOT_PORTED[rtype]} is not ported yet "
-            "(ROADMAP §2)")
-    raise ValueError(f"unknown rejection type {rtype}")
+    if rtype not in ALL_MODES:
+        raise ValueError(f"unknown rejection type {rtype}")
 
 
 def fma(a, b, c) -> torch.Tensor:
@@ -282,6 +281,194 @@ def _winsorized(xs, s1, s2, nvalid, siglow, sighigh, work):
     return win
 
 
+def _sigmedian(xs, nvalid, siglow, sighigh, work, capped):
+    """SIGMEDIAN (rejection_float.c:210-221): rejected values are replaced
+    by the running median and the column is re-sorted, round after round,
+    until a round replaces nothing; the kept count never shrinks.  Mean
+    and sd are two-pass over the valid rows (pallas/reject_stack.py:
+    478-519).  Pixels still replacing after ``SIGMEDIAN_MAX_ROUNDS`` rounds
+    are added to ``capped`` when it is given.  Returns (values, rej_low,
+    rej_high)."""
+    rows = _rows(xs)
+    vmask = rows < nvalid
+    zero = torch.zeros_like(nvalid)
+    nv = nvalid.float()
+    nvs = torch.clamp_min(nv, 1.0)
+    rejl, rejh = zero, zero
+    active = nvalid > 1
+    v = xs
+    for _ in range(SIGMEDIAN_MAX_ROUNDS):
+        if not bool(active.any()):
+            break
+        _count(work, "flops", lambda: 8 * torch.where(active, nvalid,
+                                                      0).sum())
+        _count(work, "compares", lambda: _sort_compares(
+            torch.where(active, nvalid, 0)))
+        med = _window_median(v, zero, nvalid)
+        mean = _colsum(v, vmask) / nvs
+        d = v - mean
+        var = _colsum(d * d, vmask) / torch.clamp_min(nv - 1.0, 1.0)
+        sd = torch.where(nv > 1, torch.sqrt(torch.clamp_min(var, 0.0)), 0.0)
+        low = vmask & ((med - v) > sd * siglow) & active
+        high = vmask & ((v - med) > sd * sighigh) & active
+        rep = low | high
+        v = torch.sort(torch.where(rep, med, v), dim=0).values
+        rejl = rejl + low.sum(0, dtype=torch.int32)
+        rejh = rejh + high.sum(0, dtype=torch.int32)
+        active = active & rep.any(0)
+    if capped is not None:
+        capped += active.sum().to(capped)
+    return v, rejl, rejh
+
+
+def linearfit_constants(n_full: int) -> Tuple[float, float]:
+    """(m_x, 1/m_dx2) of LINEARFIT for the FULL frame count, as float32
+    values: the reference precomputes them once for nb_frames and keeps
+    them after rejections shrink the set (median_and_mean.c:1491-1499;
+    pallas/reject_stack.py:527-532)."""
+    m_x = (n_full - 1) * 0.5
+    run = 0.0
+    for j in range(n_full):
+        dx = j - m_x
+        run += (dx * dx - run) / (j + 1)
+    inv = 1.0 / run if run else 0.0
+    f32 = torch.tensor([m_x, inv], dtype=torch.float32).tolist()
+    return f32[0], f32[1]
+
+
+def _linearfit(xs, nvalid, siglow, sighigh, n_full, work):
+    """LINEARFIT (rejection_float.c:259-300): fit y = b + a·i over the
+    sorted kept values (i = rank among the kept), σ = mean |residual|,
+    clip; the cumulative N−r≤4 guard accepts candidates in row order.
+    Returns (keep mask over the sorted rows, rej_low, rej_high)."""
+    m_x, inv_mdx2 = linearfit_constants(n_full)
+    keep = _rows(xs) < nvalid
+    zero = torch.zeros_like(nvalid)
+    r, rejl, rejh = zero, zero, zero
+    active = nvalid > 1
+    while bool(active.any()):
+        nk = keep.sum(0, dtype=torch.int32)
+        _count(work, "flops", lambda: 16 * torch.where(active, nk, 0).sum())
+        kf = keep.float()
+        pos = torch.cumsum(kf, 0) - 1.0
+        nks = torch.clamp_min(nk.float(), 1.0)
+        m_y = _colsum(xs, keep) / nks
+        m_dxdy = _colsum((pos - m_x) * (xs - m_y), keep) / nks
+        a = m_dxdy * inv_mdx2
+        b = fma(-m_x, a, m_y)
+        resid = xs - fma(a, pos, b)
+        sigma = _colsum(torch.abs(resid), keep) / nks
+        low = keep & ((-resid) > sigma * siglow)
+        high = keep & (resid > sigma * sighigh)
+        cand = low | high
+        max_acc = torch.clamp_min(nk - r - 4, 0)
+        rank = torch.cumsum(cand.int(), 0)
+        accept = cand & (rank <= max_acc) & active
+        n_low = (accept & low).sum(0, dtype=torch.int32)
+        n_high = (accept & high).sum(0, dtype=torch.int32)
+        keep = keep & ~accept
+        r = r + n_low + n_high
+        rejl = rejl + n_low
+        rejh = rejh + n_high
+        changed = (n_low + n_high) > 0
+        active = active & changed & ((nk - n_low - n_high) > 3)
+    return keep, rejl, rejh
+
+
+def gesdt_critical_values(nb_frames: int, alpha: float,
+                          max_outliers: int) -> "np.ndarray":
+    """GESDT λ_j table (median_and_mean.c:1479-1486), float32, on the host
+    through scipy's Student t quantile."""
+    import numpy as np
+    from scipy.stats import t as tdist
+
+    crit = np.zeros(max(max_outliers, 1), dtype=np.float32)
+    size = nb_frames
+    for j in range(max_outliers):
+        df = size - 2
+        if df <= 0:
+            crit[j] = np.inf
+            continue
+        tq = tdist.ppf(1.0 - alpha / (2.0 * size), df)
+        crit[j] = (size - 1) * tq / (np.sqrt(size) *
+                                     np.sqrt(size - 2 + tq * tq))
+        size -= 1
+    return crit
+
+
+def gesdt_max_outliers(n: int, fraction: float) -> int:
+    """The GESDT outlier budget: ⌊n · fraction⌋ (stacking.c)."""
+    return int(math.floor(n * fraction))
+
+
+def _select_at(xs, idx):
+    """xs[idx[p], p] per pixel; an index past the last row reads 0."""
+    N = xs.shape[0]
+    v = xs.gather(0, torch.clamp(idx, 0, N - 1).long()[None])[0]
+    return torch.where(idx < N, v, 0.0)
+
+
+def _gesdt(xs, s1, s2, nvalid, critical, max_outliers, n_full, work):
+    """GESDT (rejection_float.c:302-345 + confirm_outliers,
+    median_and_mean.c:685-701).  Walk: each step takes the Grubbs
+    statistic of the current sorted window and removes its farther end
+    (the low end on a tie); afterwards every step up to the last flagged
+    one (and at least step 1) is confirmed.  Two passes, as the Pallas
+    kernel (pallas/reject_stack.py:586-662): the first finds the last
+    flagged step, the second replays the walk.  A low removal rejects
+    the true sorted index; a high one the shrunk-array index size−1
+    (reference quirk, rejection_float.c:332).  Returns (keep, rej_low,
+    rej_high)."""
+    M = max(int(max_outliers), 1)
+    crit = torch.as_tensor(critical, dtype=torch.float32,
+                           device=xs.device).reshape(-1)[:M]
+    zero = torch.zeros_like(nvalid)
+    median0 = _window_median(xs, zero, nvalid)
+    removed = n_full - nvalid
+    budget_ok = removed < max_outliers
+
+    def walk(j, lo, hi):
+        size = hi - lo
+        mean, sd = _window_mean_sd(s1, s2, lo, hi)
+        first = _select_at(xs, lo)
+        last = _select_at(xs, torch.clamp_min(hi - 1, 0))
+        dev_low = mean - first
+        dev_high = last - mean
+        take_high = dev_high > dev_low
+        g = torch.where(take_high, dev_high, dev_low) / \
+            torch.clamp_min(sd, 1e-30)
+        valid = (j < (max_outliers - removed)) & (size > 1)
+        _count(work, "flops", lambda: 3 * torch.where(valid, size, 0).sum())
+        new_lo = torch.where(valid & ~take_high, lo + 1, lo)
+        new_hi = torch.where(valid & take_high, hi - 1, hi)
+        return size, g, take_high, first, last, valid, new_lo, new_hi
+
+    last_flag = torch.full_like(nvalid, -1)
+    lo, hi = zero, nvalid
+    for j in range(M):
+        size, g, _, _, _, valid, lo, hi = walk(j, lo, hi)
+        crit_j = crit[torch.clamp_max(removed + j, M - 1).long()]
+        flagged = (g > crit_j) & (size > 2) & valid
+        last_flag = torch.where(flagged, j, last_flag)
+    i_conf = torch.clamp_min(last_flag, min(1, M - 1))
+
+    rows = _rows(xs)
+    keep = rows < nvalid
+    rejl, rejh = zero, zero
+    lo, hi = zero, nvalid
+    for j in range(M):
+        size, _, take_high, first, last, valid, new_lo, new_hi = \
+            walk(j, lo, hi)
+        conf = (j <= i_conf) & valid & budget_ok
+        is_high = torch.where(take_high, last, first) >= median0
+        rejl = rejl + (conf & ~is_high).int()
+        rejh = rejh + (conf & is_high).int()
+        rec = torch.where(take_high, size - 1, lo)
+        keep = keep & ~((rows == rec) & conf)
+        lo, hi = new_lo, new_hi
+    return keep, rejl, rejh
+
+
 def _sort_compares(nvalid: torch.Tensor) -> int:
     """Comparisons a comparison sort needs for each pixel's valid values:
     ⌈log₂(n!)⌉, the information-theoretic least, summed over pixels."""
@@ -290,53 +477,92 @@ def _sort_compares(nvalid: torch.Tensor) -> int:
                           - 1e-9).clamp_min(0).sum())
 
 
+def _weighted_mean(x, weights, keep, values, nkept):
+    """The weighted mean (median_and_mean.c:1041-1095): the kept values'
+    range [pmin, pmax] selects entries of the ORIGINAL (unsorted)
+    normalized values x, zeros excluded, and their weights; a zero Σw or
+    Σx·w falls back to Σ(x > 0 in range) / nkept."""
+    pmin = torch.where(keep, values, _INF).amin(0)
+    pmax = torch.where(keep, values, -_INF).amax(0)
+    inrange = (x >= pmin) & (x <= pmax) & (x != 0.0)
+    w = weights.expand_as(x)
+    wsum = _colsum(x * w, inrange)
+    wnorm = _colsum(w, inrange)
+    fallback = _colsum(x, inrange & (x > 0.0)) / torch.clamp_min(nkept, 1.0)
+    return torch.where((wnorm != 0.0) & (wsum != 0.0), wsum / wnorm,
+                       fallback)
+
+
 def rejection_mean(stack: torch.Tensor, rtype: int, siglow: float,
-                   sighigh: float, work: Optional[dict] = None
+                   sighigh: float, weights: Optional[torch.Tensor] = None,
+                   critical=None, n_full: int = 0, max_outliers: int = 0,
+                   work: Optional[dict] = None,
+                   capped: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Reject + mean one tile.  ``stack``: (N, P) float32 normalized frame
     values.  Returns (mean f32, rej_low i32, rej_high i32), each (P,).
 
     Zero and non-finite entries are not data (rejection_float.c:115-136).
     A pixel with nothing kept takes the median of its whole column with
-    those entries counted as zeros.  ``work``, when given, accumulates the
-    float operations the data needed (``flops``) and the least number of
-    sort comparisons (``compares``), for the roofline bound of the
-    kernel."""
+    those entries counted as zeros.  ``weights`` ((N, P), or (N, 1) per
+    frame) turns the mean into the reference's weighted mean.  GESDT
+    takes its λ table (``critical``) and outlier budget; LINEARFIT and
+    GESDT take the full frame count ``n_full`` (default N).  ``work``,
+    when given, accumulates the float operations the data needed
+    (``flops``) and the least number of sort comparisons (``compares``),
+    for the roofline bound of the kernel.  ``capped``, an int64 scalar
+    tensor, gains the SIGMEDIAN pixels stopped at ``SIGMEDIAN_MAX_ROUNDS``."""
     check_rtype(rtype)
     N, P = stack.shape
+    n_full = n_full or N
     valid = (stack != 0.0) & torch.isfinite(stack)
     nvalid = valid.sum(0, dtype=torch.int32)
     xs = torch.sort(torch.where(valid, stack, _INF), dim=0).values
     s1 = torch.where(torch.isfinite(xs), xs, 0.0)
     s2 = s1 * s1
     _count(work, "compares", lambda: _sort_compares(nvalid))
+    rows = _rows(xs)
+    zero = torch.zeros_like(nvalid)
+    values = s1
 
-    if rtype == NO_REJEC:
-        win = _Window(nvalid)
-    elif rtype == PERCENTILE:
-        win = _percentile(xs, nvalid, siglow, sighigh)
-    elif rtype in (SIGMA, MAD):
-        win = _sigma_or_mad(xs, s1, s2, nvalid, siglow, sighigh,
-                            rtype == MAD, work)
+    if rtype in WINDOW_MODES:
+        if rtype == NO_REJEC:
+            win = _Window(nvalid)
+        elif rtype == PERCENTILE:
+            win = _percentile(xs, nvalid, siglow, sighigh)
+        elif rtype in (SIGMA, MAD):
+            win = _sigma_or_mad(xs, s1, s2, nvalid, siglow, sighigh,
+                                rtype == MAD, work)
+        else:
+            win = _winsorized(xs, s1, s2, nvalid, siglow, sighigh, work)
+        keep = ((rows >= win.lo) & (rows < win.hi)) | \
+            ((rows >= win.seg_lo) & (rows < win.seg_hi))
+        rejl, rejh = win.rejl, win.rejh
+    elif rtype == SIGMEDIAN:
+        v, rejl, rejh = _sigmedian(xs, nvalid, siglow, sighigh, work,
+                                   capped)
+        values = torch.where(torch.isfinite(v), v, 0.0)
+        keep = rows < nvalid
+    elif rtype == LINEARFIT:
+        keep, rejl, rejh = _linearfit(xs, nvalid, siglow, sighigh, n_full,
+                                      work)
     else:
-        win = _winsorized(xs, s1, s2, nvalid, siglow, sighigh, work)
+        keep, rejl, rejh = _gesdt(xs, s1, s2, nvalid, critical,
+                                  max_outliers, n_full, work)
 
     # kept ≤ 1 before rejection → keep as is (rejection_float.c:141)
     trivial = nvalid <= 1
-    zero = torch.zeros_like(nvalid)
-    lo = torch.where(trivial, zero, win.lo)
-    hi = torch.where(trivial, nvalid, win.hi)
-    seg_hi = torch.where(trivial, zero, win.seg_hi)
-    rows = _rows(xs)
-    keep = ((rows >= lo) & (rows < hi)) | \
-        ((rows >= win.seg_lo) & (rows < seg_hi))
+    keep = torch.where(trivial, rows < nvalid, keep)
     nkept = keep.sum(0).float()
-    mean = _colsum(s1, keep) / torch.clamp_min(nkept, 1.0)
+    mean = _colsum(values, keep) / torch.clamp_min(nkept, 1.0)
     _count(work, "flops", lambda: nkept.sum())
 
     # nothing kept → median of the column, invalid entries as zeros
     allv = torch.sort(torch.where(valid, stack, 0.0), dim=0).values
     med_all = 0.5 * (allv[(N - 1) // 2] + allv[N // 2])
+    if weights is not None:
+        mean = _weighted_mean(stack, weights, keep, values, nkept)
+        _count(work, "flops", lambda: 5 * N * P)
     mean = torch.where(nkept > 0, mean, med_all)
-    return (mean, torch.where(trivial, zero, win.rejl),
-            torch.where(trivial, zero, win.rejh))
+    return (mean, torch.where(trivial, zero, rejl),
+            torch.where(trivial, zero, rejh))

@@ -1,15 +1,25 @@
-"""Robust per-frame estimators — counterpart of
-``siril_tpu/ops/statistics.py`` (``hist_median_jax``:344,
-``norm_estimators_hist_jax``:413, and their lite form).
+"""Image statistics and robust per-frame estimators — counterpart of
+``siril_tpu/ops/statistics.py``: ``ImStats`` (:52), the basic statistics
+of ``compute_stats_np(…, STATS_BASIC)`` (:223) with the background noise
+``bgnoise_np`` (:177) / ``_bgnoise_dense`` (:132), ``hist_median_jax``
+(:344) and ``norm_estimators_hist_jax`` (:413).
 
 The reference's median is the lower-median sample for odd counts and the
 mean of the middle pair for even counts, 0 for an empty row.  The TPU
 version reaches that order statistic by an 8-way value bisection because
 scatter-add ran serially there (statistics.py:350-359); on the GPU a sort
 gives the same order statistic directly.
+
+The JAX package computes the basic statistics on the host in numpy; here
+they are torch code that runs where the frame lies (on the card, the
+frame of the resident stack), keeping the reference's float64
+accumulations.
 """
 
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass
 
 import torch
 
@@ -60,3 +70,127 @@ def norm_estimators(frames: torch.Tensor, lite: bool = False) -> dict:
     scale = torch.sqrt(bwmv) * 0.991
     return {"median": med, "mad": mad, "location": loc,
             "scale": torch.where(scale > 0, scale, 1.5 * mad)}
+
+
+@dataclass
+class ImStats:
+    """Per-layer image statistics (imstats, siril.h:407-413)."""
+
+    total: float = 0
+    ngoodpix: float = 0
+    mean: float = 0.0
+    median: float = 0.0
+    sigma: float = 0.0
+    avgdev: float = 0.0
+    mad: float = 0.0
+    sqrtbwmv: float = 0.0
+    location: float = 0.0
+    scale: float = 0.0
+    min: float = 0.0
+    max: float = 0.0
+    normvalue: float = 1.0
+    bgnoise: float = 0.0
+
+
+def _median_f64(v: torch.Tensor) -> float:
+    """np.median of a 1-D float64 tensor (mean of the middle pair)."""
+    s = torch.sort(v).values
+    n = s.numel()
+    return float(0.5 * (s[(n - 1) // 2] + s[n // 2]))
+
+
+def bgnoise(layer2d: torch.Tensor) -> float:
+    """FnNoise1 (quantize.c): per row, the 5σ-clipped (3 passes) standard
+    deviation of the first differences between consecutive valid
+    (non-zero, non-NaN) pixels, over √2; the median over rows.
+
+    All rows at once, as ``_bgnoise_dense`` does for a layer with no
+    invalid pixel; a layer with invalid pixels follows the per-row loop
+    of ``bgnoise_np``: rows with fewer than 3 valid pixels are skipped,
+    and deviations are taken in float64 where the dense path takes them
+    in float32.  Sums are float64 as in the reference."""
+    SIGMA_CLIP, NITER = 5.0, 3
+    ny, nx = layer2d.shape
+    if nx < 3:
+        return 0.0
+    x = layer2d.float()
+    good = (x != 0.0) & ~torch.isnan(x)
+    dense = bool(good.all())
+    if dense:
+        d = x[:, :-1] - x[:, 1:]
+        keep = torch.ones_like(d, dtype=torch.bool)
+    else:
+        # valid pixels of each row first, in their order
+        order = torch.argsort((~good).to(torch.uint8), dim=1, stable=True)
+        vals = x.gather(1, order)
+        ngood = good.sum(1)
+        d = vals[:, :-1] - vals[:, 1:]
+        col = torch.arange(nx - 1, device=x.device)
+        keep = col[None, :] < (ngood - 1)[:, None]
+        rows = ngood >= 3
+        d, keep = d[rows], keep[rows]
+        if d.shape[0] == 0:
+            return 0.0
+
+    def moments(keep):
+        cnt = keep.sum(1)
+        mean = torch.where(keep, d, 0.0).double().sum(1) / \
+            torch.clamp_min(cnt, 1)
+        if dense:
+            dev = torch.where(keep, d - mean.float()[:, None], 0.0)
+            vsum = (dev * dev).double().sum(1)
+        else:
+            dev = torch.where(keep, d.double() - mean[:, None], 0.0)
+            vsum = (dev * dev).sum(1)
+        return cnt, mean, torch.sqrt(vsum / torch.clamp_min(cnt - 1, 1))
+
+    cnt, mean, stdev = moments(keep)
+    frozen = stdev <= 0.0
+    for _ in range(NITER):
+        if bool(frozen.all()):
+            break
+        thr = (SIGMA_CLIP * stdev).float()
+        nkeep = keep & (torch.abs(d - mean.float()[:, None]) < thr[:, None])
+        changed = ~frozen & (nkeep != keep).any(1)
+        frozen = frozen | ~changed
+        keep = torch.where(changed[:, None], nkeep, keep)
+        ncnt, nmean, nstd = moments(keep)
+        small = changed & (ncnt < 2)     # < 2 survivors: keep last stdev
+        frozen = frozen | small
+        upd = changed & ~small
+        mean = torch.where(upd, nmean, mean)
+        stdev = torch.where(upd, nstd, stdev)
+    return _median_f64(stdev / math.sqrt(2.0))
+
+
+def sd_f64(good: torch.Tensor) -> float:
+    """Sample sd (N−1) with float64 sums over float32 deviations from a
+    float32 mean (statistics.h:82-106, ``sd_np``)."""
+    n = good.numel()
+    if n < 2:
+        return 0.0
+    mean = (good.double().sum() / n).float()
+    d = (good - mean).double()
+    return float(torch.sqrt((d * d).sum() / (n - 1)).float())
+
+
+def compute_stats_basic(layer2d: torch.Tensor) -> ImStats:
+    """imstats of one layer with STATS_BASIC (``compute_stats_np``:223):
+    mean, sigma, min, max, background noise and median of the non-zero,
+    non-NaN pixels."""
+    st = ImStats()
+    flat = layer2d.reshape(-1).float()
+    st.total = flat.numel()
+    good = flat[(flat != 0.0) & ~torch.isnan(flat)]
+    st.ngoodpix = good.numel()
+    if good.numel() == 0:
+        return st
+    st.mean = float(good.double().sum() / good.numel())
+    st.sigma = sd_f64(good)
+    st.min = float(good.min())
+    st.max = float(good.max())
+    st.bgnoise = bgnoise(layer2d)
+    s = torch.sort(good).values
+    n = s.numel()
+    st.median = float(0.5 * (s[(n - 1) // 2] + s[n // 2]))
+    return st

@@ -14,10 +14,13 @@ same rows of every chunk into one (N, rows·W) stack of about 256 MiB.
 Each stage ends with a device synchronize and its seconds are kept in
 ``StackResult.stage_s``.
 
-Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: calibration masters and cosmetic correction, transforms other than
-shift (and so the rotation/affine/perspective/homography warps), the K1
-variants SIGMEDIAN, LINEARFIT, GESDT and frame weights.
+Every rejection mode runs; GESDT gets its outlier budget and λ table as
+in ``siril_tpu/pipeline.py:366-376``.  Not ported yet, each raising
+``NotImplementedError`` that names its ROADMAP item: calibration masters
+and cosmetic correction, and transforms other than shift (and so the
+rotation/affine/perspective/homography warps).  Frame weights are not
+supported on the fused path, as in the JAX package (its fused block
+kernel is built without weights, ``siril_tpu/pipeline.py:441-442``).
 """
 
 from __future__ import annotations
@@ -26,15 +29,14 @@ import concurrent.futures as cf
 import logging
 import os
 import time
-from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from siril_tpu_torch.core.sequence import Sequence, raw_chunk_reader
-from siril_tpu_torch.device import DeviceLike, resolve_device, synchronize
+from siril_tpu_torch.device import DeviceLike, resolve_device
 from siril_tpu_torch.ops import rejection as rj
 from siril_tpu_torch.ops.interp import (
     INTERP_LANCZOS4,
@@ -42,16 +44,14 @@ from siril_tpu_torch.ops.interp import (
     warp_translation_batch,
 )
 from siril_tpu_torch.ops.normalization import (
-    ADDITIVE,
-    ADDITIVE_SCALING,
-    MULTIPLICATIVE,
-    MULTIPLICATIVE_SCALING,
     NO_NORM,
     NormCoeffs,
+    factors_from_estimators,
 )
 from siril_tpu_torch.ops.stacking import (
     NO_WEIGHT,
     StackArgs,
+    StageClock,
     StackResult,
     decode_i16,
     finalize_metadata,
@@ -106,23 +106,8 @@ def check_supported(args: FusedArgs) -> None:
         rj.check_rtype(sa.rejection)
     if sa.weighting != NO_WEIGHT:
         raise NotImplementedError(
-            "weighted stacking (K1e) is not ported yet (ROADMAP §2)")
-
-
-class _StageClock:
-    """Seconds per named stage, each stage ended by a device sync."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.seconds: Dict[str, float] = {}
-
-    @contextmanager
-    def __call__(self, name: str):
-        t = time.perf_counter()
-        yield
-        synchronize(self.device)
-        self.seconds[name] = self.seconds.get(name, 0.0) + \
-            time.perf_counter() - t
+            "the fused path stacks without frame weights, as the JAX "
+            "package does; use the staged stack command for weights")
 
 
 def fused_preprocess_stack(seq: Sequence, args: Optional[FusedArgs] = None,
@@ -132,7 +117,7 @@ def fused_preprocess_stack(seq: Sequence, args: Optional[FusedArgs] = None,
     args = args or FusedArgs()
     check_supported(args)
     t0 = time.perf_counter()
-    clock = _StageClock(dev)
+    clock = StageClock(dev)
     indices = seq.selected_indices()
     n = len(indices)
     if n == 0:
@@ -255,8 +240,17 @@ def fused_preprocess_stack(seq: Sequence, args: Optional[FusedArgs] = None,
     # ---- 3. normalize + reject + mean, streamed over row blocks ---------
     rows = max(1, min(H, BLOCK_BYTES // max(n * W * 4, 1)))
     rtype = sa.rejection if sa.method == "rej" else rj.NO_REJEC
+    # GESDT needs its outlier budget and λ table (as the staged path)
+    max_outliers, critical = 0, None
+    if rtype == rj.GESDT:
+        max_outliers = rj.gesdt_max_outliers(n, sa.siglow)
+        critical = rj.gesdt_critical_values(n, sa.sighigh, max_outliers)
     kernel = make_block_kernel(rtype, sa.normalize if do_norm else NO_NORM,
-                               float(sa.siglow), float(sa.sighigh))
+                               float(sa.siglow), float(sa.sighigh), n,
+                               max_outliers, critical)
+    from siril_tpu_torch.kernels import reject_stack as k1
+
+    capped0 = k1.capped_pixels() if rtype == rj.SIGMEDIAN else 0
     means = []
     tot_l = torch.zeros((), dtype=torch.int64, device=dev)
     tot_h = torch.zeros((), dtype=torch.int64, device=dev)
@@ -284,9 +278,10 @@ def fused_preprocess_stack(seq: Sequence, args: Optional[FusedArgs] = None,
     img.log_history("Fused register+stack (device-resident)")
     _log.info("fused pipeline: %d frames → stack in %.2fs, rejected %d/%d "
               "px", n, time.perf_counter() - t0, *tot)
+    capped = k1.capped_pixels() - capped0 if rtype == rj.SIGMEDIAN else 0
     return StackResult(image=img, total_rejected=tot,
                        elapsed_s=time.perf_counter() - t0,
-                       stage_s=clock.seconds)
+                       stage_s=clock.seconds, sigmedian_capped=capped)
 
 
 def _device_norm_coeffs(frames, n: int, L: int, sa: StackArgs,
@@ -305,22 +300,10 @@ def _device_norm_coeffs(frames, n: int, L: int, sa: StackArgs,
                 parts.append(torch.stack([e["location"], e["scale"]]))
         cols.append(torch.cat(parts, dim=1))
     host = torch.stack(cols).cpu().numpy().astype(np.float64)  # [L, 2, N]
-    loc = host[:, 0]
-    sca = host[:, 1]
     ref_abs = seq.get_reference()
     hit = np.nonzero(indices == ref_abs)[0]
     ref_pos = int(hit[0]) if hit.size else 0
-    offset = np.zeros((L, n))
-    scale = np.ones((L, n))
-    mul = np.ones((L, n))
-    for c in range(L):
-        loc0, sca0 = loc[c, ref_pos], sca[c, ref_pos]
-        if sa.normalize in (ADDITIVE_SCALING, MULTIPLICATIVE_SCALING):
-            s = sca[c]
-            scale[c] = np.where(s == 0, 1.0, sca0 / np.where(s == 0, 1, s))
-        if sa.normalize in (ADDITIVE, ADDITIVE_SCALING):
-            offset[c] = scale[c] * loc[c] - loc0
-        elif sa.normalize in (MULTIPLICATIVE, MULTIPLICATIVE_SCALING):
-            lv = loc[c]
-            mul[c] = np.where(lv == 0, 1.0, loc0 / np.where(lv == 0, 1, lv))
+    # the fused path equalizes each layer on itself, as the JAX one does
+    offset, scale, mul = factors_from_estimators(
+        host[:, 0], host[:, 1], sa.normalize, ref_pos)
     return NormCoeffs(offset, mul, scale)

@@ -3,7 +3,8 @@ and ``siril_tpu/pipeline.py:49`` (``_hbm_budget_bytes``).
 
 The budget is the card's memory from ``torch.cuda.mem_get_info`` times the
 ``setmem`` ratio (0.9 by default, settings.h:402-404).  On the CPU the
-fused path keeps the JAX package's fixed 6 GiB working-set budget.
+fused path keeps the JAX package's fixed 6 GiB working-set budget and the
+resident stack path its 4 GiB cap.
 """
 
 from __future__ import annotations
@@ -30,3 +31,13 @@ def fused_budget_bytes(device: torch.device) -> int:
     if total is None:
         return CPU_BUDGET_BYTES
     return int(total * MEMORY_RATIO)
+
+
+def resident_budget_bytes(device: torch.device) -> int:
+    """Raw bytes the resident stack path may hold: a third of the memory
+    budget, since decode and sort scratch peak near 3× the raw size
+    (``resident_stack_budget``, siril_tpu/utils/devmem.py:91)."""
+    total = device_memory_bytes(device)
+    if total is None:
+        return 4 << 30
+    return int(total * MEMORY_RATIO) // 3

@@ -7,11 +7,13 @@ JAX):
     python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 - the reject_stack kernel against its plain version on the same card
-  tensors: rejection counts equal on ≥ 99.999 % of pixels, |Δmean| ≤ 2e-6
-  where they agree (chip_smoke.py holds the same comparison at the main
-  path's sizes);
-- a CUDA stack of more frames than the kernel's shared-memory layout holds
-  is refused with a ValueError that names the limit;
+  tensors, for every mode (K1a-K1d) and with per-frame and per-pixel
+  weights (K1e): rejection counts equal on ≥ 99.999 % of pixels,
+  |Δmean| ≤ 2e-6 where they agree (chip_smoke.py holds the same
+  comparison at the main path's sizes);
+- a stack of 1000 frames, more than the shared-memory layout holds, runs
+  with its columns in global scratch memory and matches the plain
+  version;
 - the fused pipeline on the card against the same pipeline on the CPU:
   shifts within 0.01 px, interior max |Δ| ≤ 1e-3 and rejection totals
   within 0.5 % (the reasons of tests/test_torch_pipeline.py: float32 LM
@@ -39,6 +41,8 @@ from siril_tpu_torch.registration.starfinder import StarFinderParams
 WINDOW = [(rj.NO_REJEC, 3.0, 3.0), (rj.PERCENTILE, 0.2, 0.1),
           (rj.SIGMA, 3.0, 3.0), (rj.MAD, 3.0, 3.0),
           (rj.WINSORIZED, 3.0, 3.0)]
+MASKED = [(rj.SIGMEDIAN, 3.0, 3.0), (rj.LINEARFIT, 3.0, 3.0),
+          (rj.GESDT, 0.3, 0.05)]
 
 
 def _need_card():
@@ -55,8 +59,22 @@ def _mkstack(rng, n, p):
     return np.clip(stack, 0.0, 1.0).astype(np.float32)
 
 
+def _gesdt_kw(rtype, n, sl):
+    if rtype != rj.GESDT:
+        return {}
+    mo = rj.gesdt_max_outliers(n, sl)
+    return dict(max_outliers=mo,
+                critical=rj.gesdt_critical_values(n, 0.05, mo))
+
+
+def _agree(got, ref, p):
+    agree = (got[1] == ref[1]) & (got[2] == ref[2])
+    assert int((~agree).sum()) <= 1e-5 * p
+    assert float((got[0] - ref[0]).abs()[agree].max()) <= 2e-6
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rtype,sl,sh", WINDOW)
+@pytest.mark.parametrize("rtype,sl,sh", WINDOW + MASKED)
 def test_kernel_vs_plain_on_card(rtype, sl, sh):
     _need_card()
     rng = np.random.default_rng(5)
@@ -66,28 +84,51 @@ def test_kernel_vs_plain_on_card(rtype, sl, sh):
     coef = [torch.from_numpy(a.astype(np.float32)).cuda() for a in (
         1.0 + 0.05 * rng.standard_normal(n), 0.01 * rng.standard_normal(n),
         1.0 + 0.03 * rng.standard_normal(n))]
+    kw = dict(rtype=rtype, siglow=sl, sighigh=sh, **_gesdt_kw(rtype, n, sl))
     for stack in (f32, i16):
         for mode in (NO_NORM, ADDITIVE_SCALING, MULTIPLICATIVE):
-            before = k1.launch_count
-            got = k1.reject_mean(stack, *coef, rtype=rtype, mode=mode,
-                                 siglow=sl, sighigh=sh)
-            assert k1.launch_count == before + 1
-            ref = reject_stack_plain(stack, *coef, rtype=rtype, mode=mode,
-                                     siglow=sl, sighigh=sh)
-            agree = (got[1] == ref[1]) & (got[2] == ref[2])
-            assert int((~agree).sum()) <= 1e-5 * p
-            assert float((got[0] - ref[0]).abs()[agree].max()) <= 2e-6
+            before = sum(k1.launches.values())
+            got = k1.reject_mean(stack, *coef, mode=mode, **kw)
+            assert sum(k1.launches.values()) == before + 1
+            ref = reject_stack_plain(stack, *coef, mode=mode, **kw)
+            _agree(got, ref, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rtype,sl,sh", [(rj.WINSORIZED, 3.0, 3.0),
+                                         (rj.SIGMA, 3.0, 3.0)] + MASKED)
+def test_kernel_weights_vs_plain_on_card(rtype, sl, sh):
+    """K1e: per-frame weights (pixel stride 0) and per-pixel weights."""
+    _need_card()
+    rng = np.random.default_rng(6)
+    n, p = 24, 1 << 15
+    stack = torch.from_numpy(_mkstack(rng, n, p)).cuda()
+    coef = [torch.from_numpy(a.astype(np.float32)).cuda() for a in (
+        1.0 + 0.05 * rng.standard_normal(n), 0.01 * rng.standard_normal(n),
+        np.ones(n))]
+    kw = dict(rtype=rtype, mode=ADDITIVE_SCALING, siglow=sl, sighigh=sh,
+              **_gesdt_kw(rtype, n, sl))
+    for w in (0.5 + rng.random((n, 1)), 0.5 + rng.random((n, p))):
+        w = torch.from_numpy(w.astype(np.float32)).cuda()
+        got = k1.reject_mean(stack, *coef, weights=w, **kw)
+        ref = reject_stack_plain(stack, *coef, weights=w, **kw)
+        _agree(got, ref, p)
 
 
 @pytest.mark.cuda
 def test_kernel_frame_limit():
+    """1000 frames: the columns move to global scratch memory."""
     _need_card()
-    n = k1.MAX_FRAMES + 1
-    st = torch.rand(n, 64, device="cuda")
+    rng = np.random.default_rng(8)
+    n, p = 1000, 4096
+    st = torch.from_numpy(_mkstack(rng, n, p)).cuda()
     one = torch.ones(n, device="cuda")
-    with pytest.raises(ValueError, match=f"at most {k1.MAX_FRAMES} frames"):
-        k1.reject_mean(st, one, one * 0, one, rtype=rj.NO_REJEC,
-                       mode=NO_NORM, siglow=3, sighigh=3)
+    for rtype, sl, sh in ((rj.WINSORIZED, 3.0, 3.0), (rj.GESDT, 0.3, 0.05)):
+        kw = dict(rtype=rtype, mode=NO_NORM, siglow=sl, sighigh=sh,
+                  **_gesdt_kw(rtype, n, sl))
+        got = k1.reject_mean(st, one, one * 0, one, **kw)
+        ref = reject_stack_plain(st, one, one * 0, one, **kw)
+        _agree(got, ref, p)
 
 
 def _write_sequence(d, rng, shifts, h=160, w=192):
@@ -119,9 +160,9 @@ def test_fused_on_card_vs_cpu(tmp_path):
     runs = {}
     for dev in ("cpu", "cuda"):
         seq = Sequence.scan("fl_", str(tmp_path))
-        before = k1.launch_count
+        before = sum(k1.launches.values())
         res = fused_preprocess_stack(seq, args, device=dev)
-        runs[dev] = (seq, res, k1.launch_count - before)
+        runs[dev] = (seq, res, sum(k1.launches.values()) - before)
     (cseq, cres, claunch), (gseq, gres, glaunch) = runs["cpu"], runs["cuda"]
     assert claunch == 0 and glaunch == 1
     np.testing.assert_allclose(gseq.reg(0).H[:, :2, 2],

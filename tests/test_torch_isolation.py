@@ -53,7 +53,7 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     code = ("import shutil\n"
             "assert shutil.which('nvcc') is None\n"
             "import siril_tpu_torch.kernels.reject_stack as k\n"
-            "assert k.launch_count == 0\n"
+            "assert sum(k.launches.values()) == 0\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO, PATH=str(tmp_path))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -74,6 +74,18 @@ def test_default_device_is_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         fused_preprocess_stack(Sequence("none"))
+    from siril_tpu_torch.ops.stacking import StackArgs, stack_sequence
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stack_sequence(Sequence("none"), StackArgs())
+    from siril_tpu_torch.ops.normalization import (
+        ADDITIVE_SCALING,
+        compute_normalization,
+    )
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compute_normalization(Sequence("none"), np.arange(2),
+                              ADDITIVE_SCALING)
 
 
 def test_convert_round_trips():

@@ -73,17 +73,18 @@ def test_fused_vs_jax(both):
 
 def test_cli_fusedstack_writes_fits(both):
     d = both[0]
-    before = k1.launch_count
+    before = sum(k1.launches.values())
     session = cli.run(["-d", str(d), "--device", "cpu", "fusedstack", "fl_",
                        "-out=final"])
-    assert k1.launch_count == before          # plain version on the CPU
+    assert sum(k1.launches.values()) == before   # plain version on the CPU
     out = os.path.join(d, "final.fit")
     assert os.path.exists(out)
     img = read_fits(out)
     np.testing.assert_array_equal(img.host(), session.result.image.host())
     assert session.sequence.reg(0).valid.sum() == 5
     assert img.keywords.stackcnt == 5
-    assert cli.main(["-d", str(d), "--device", "cpu", "stack", "fl_"]) == 1
+    assert cli.main(["-d", str(d), "--device", "cpu", "register",
+                     "fl_"]) == 1
 
 
 def test_unported_options_raise(both):
@@ -91,10 +92,10 @@ def test_unported_options_raise(both):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpipe.fused_preprocess_stack(
             tseq, tpipe.FusedArgs(calib=object()), device="cpu")
-    with pytest.raises(NotImplementedError, match="K1d"):
+    with pytest.raises(NotImplementedError, match="frame weights"):
         tpipe.fused_preprocess_stack(
             tseq, tpipe.FusedArgs(stack=tpipe.StackArgs(
-                rejection=7)), device="cpu")
+                weighting=3)), device="cpu")
     with pytest.raises(NotImplementedError, match="calibration"):
         cli.run(["-d", str(d), "--device", "cpu", "fusedstack", "fl_",
                  "-dark=master"])

@@ -1,18 +1,21 @@
-"""Parity: the port's kernel K1a (window rejection modes) against the JAX
-package, on the same numpy inputs made from a seed.
+"""Parity: the port's kernel K1 (every rejection mode, K1a-K1d, and the
+weighted mean, K1e) against the JAX package, on the same numpy inputs made
+from a seed.
 
 - the plain PyTorch version (``ops/stacking.reject_stack_plain``, the CPU
   path of ``kernels/reject_stack.reject_mean``) against the JAX
   normalize+reject+mean block kernel (``siril_tpu.ops.stacking.
   make_block_kernel``: ``_norm_apply`` + ``rejection.rejection_mean`` under
-  one jit), for every window mode × normalization × {float32, int16}:
-  rejection counts equal, means within atol 2e-6 (the reference's parity
-  contract, tests/test_pallas_reject.py);
+  one jit), for every mode × normalization × {float32, int16}, with and
+  without per-frame and per-pixel weights: rejection counts equal, means
+  within atol 2e-6 (the reference's parity contract,
+  tests/test_pallas_reject.py);
 - against the Pallas kernel itself, run in interpret mode on the CPU as
   tests/test_pallas_reject.py runs it — same tolerance;
-- against the frozen window-mode goldens (tests/golden/rejection_golden.npz)
-  exactly as tests/test_rejection_golden.py checks the JAX kernels:
-  counts exact, means within rtol 2e-5 / atol 2e-6;
+- against the frozen goldens (tests/golden/rejection_golden.npz) exactly as
+  tests/test_rejection_golden.py checks the JAX kernels: counts exact
+  (SIGMEDIAN's within 4, its counts depend on the iteration path), means
+  within rtol 2e-5 / atol 2e-6;
 - the CUDA kernel against the plain version on the card: see
   tests/test_torch_cuda.py.
 """
@@ -44,6 +47,8 @@ ATOL = 2e-6
 WINDOW = [(rj.NO_REJEC, 3.0, 3.0), (rj.PERCENTILE, 0.2, 0.1),
           (rj.SIGMA, 3.0, 3.0), (rj.MAD, 3.0, 3.0),
           (rj.WINSORIZED, 3.0, 3.0)]
+MASKED = [(rj.SIGMEDIAN, 3.0, 3.0), (rj.LINEARFIT, 3.0, 3.0),
+          (rj.GESDT, 0.3, 0.05)]
 NORMS = [NO_NORM, ADDITIVE_SCALING, MULTIPLICATIVE]
 
 
@@ -122,6 +127,116 @@ def test_plain_vs_pallas_interpret(rtype, mode, dtype):
     _assert_parity(got, ref)
 
 
+def _gesdt_kw(rtype, n, sl, sh):
+    """GESDT's outlier budget and λ table, as stack_sequence builds them."""
+    if rtype != rj.GESDT:
+        return 0, np.zeros(1, np.float32)
+    mo = int(np.floor(n * sl))
+    return mo, jrj.gesdt_critical_values(n, sh, mo)
+
+
+def _weights(rng, kind, n, p):
+    if kind == "frame":
+        return (0.5 + rng.random((n, 1))).astype(np.float32)
+    if kind == "pixel":
+        return (0.5 + rng.random((n, p))).astype(np.float32)
+    return None
+
+
+def _jax_block(stack, scale, offset, mul, rtype, mode, sl, sh, w):
+    n, p = stack.shape
+    mo, crit = _gesdt_kw(rtype, n, sl, sh)
+    kern = make_block_kernel(rtype, mode, sl, sh, n, mo, w is not None,
+                             want_maps=True)
+    wj = jnp.zeros((1, 1), jnp.float32) if w is None else \
+        jnp.asarray(np.broadcast_to(w, (n, p)).copy())
+    return kern(jnp.asarray(stack), jnp.asarray(scale), jnp.asarray(offset),
+                jnp.asarray(mul), wj, jnp.asarray(crit))
+
+
+def _port_full(stack, scale, offset, mul, rtype, mode, sl, sh, w):
+    n = stack.shape[0]
+    mo, crit = _gesdt_kw(rtype, n, sl, sh)
+    out = k1.reject_mean(
+        torch.from_numpy(stack), torch.from_numpy(scale),
+        torch.from_numpy(offset), torch.from_numpy(mul), rtype=rtype,
+        mode=mode, siglow=sl, sighigh=sh,
+        weights=None if w is None else torch.from_numpy(w),
+        critical=crit, max_outliers=mo)
+    return [o.numpy() for o in out]
+
+
+def _case_stack(seed, n, p, dtype):
+    rng = np.random.default_rng(seed)
+    stack = _mkstack(rng, n=n, p=p)
+    if dtype == "i16":
+        stack = (np.round(stack * 65535.0).astype(np.int64)
+                 - 32768).astype(np.int16)
+    return rng, stack
+
+
+@pytest.mark.parametrize("dtype", ["f32", "i16"])
+@pytest.mark.parametrize("mode", NORMS)
+@pytest.mark.parametrize("rtype,sl,sh", MASKED)
+def test_plain_k1bcd_vs_jax_block_kernel(rtype, sl, sh, mode, dtype):
+    """K1b SIGMEDIAN, K1c LINEARFIT, K1d GESDT against the jnp path."""
+    rng, stack = _case_stack(2000 + 10 * rtype + mode, 12, 600, dtype)
+    scale, offset, mul = _coeffs(rng, 12)
+    ref = _jax_block(stack, scale, offset, mul, rtype, mode, sl, sh, None)
+    got = _port_full(stack, scale, offset, mul, rtype, mode, sl, sh, None)
+    _assert_parity(got, ref)
+    assert got[1].sum() + got[2].sum() > 0
+
+
+@pytest.mark.parametrize("wkind", ["frame", "pixel"])
+@pytest.mark.parametrize("dtype", ["f32", "i16"])
+@pytest.mark.parametrize("rtype,sl,sh", [(rj.WINSORIZED, 3.0, 3.0),
+                                         (rj.SIGMA, 3.0, 3.0),
+                                         (rj.LINEARFIT, 3.0, 3.0),
+                                         (rj.GESDT, 0.3, 0.05),
+                                         (rj.SIGMEDIAN, 3.0, 3.0),
+                                         (rj.NO_REJEC, 3.0, 3.0)])
+def test_plain_k1e_weights_vs_jax_block_kernel(rtype, sl, sh, dtype, wkind):
+    """K1e: the weighted mean over the kept values' [pmin, pmax] range."""
+    rng, stack = _case_stack(3000 + rtype, 12, 500, dtype)
+    scale, offset, mul = _coeffs(rng, 12)
+    w = _weights(rng, wkind, 12, 500)
+    ref = _jax_block(stack, scale, offset, mul, rtype, ADDITIVE_SCALING, sl,
+                     sh, w)
+    got = _port_full(stack, scale, offset, mul, rtype, ADDITIVE_SCALING, sl,
+                     sh, w)
+    _assert_parity(got, ref)
+    plain = _port_full(stack, scale, offset, mul, rtype, ADDITIVE_SCALING,
+                       sl, sh, None)
+    assert np.abs(got[0] - plain[0]).max() > 1e-6   # the weights act
+
+
+@pytest.mark.parametrize("rtype,sl,sh,mode,dtype,wkind", [
+    (rj.SIGMEDIAN, 3.0, 3.0, ADDITIVE_SCALING, "i16", None),
+    (rj.LINEARFIT, 3.0, 3.0, NO_NORM, "f32", None),
+    (rj.LINEARFIT, 2.0, 2.0, MULTIPLICATIVE, "i16", "pixel"),
+    (rj.GESDT, 0.3, 0.05, ADDITIVE_SCALING, "f32", "frame"),
+    (rj.GESDT, 0.2, 0.01, NO_NORM, "i16", None),
+    (rj.WINSORIZED, 3.0, 3.0, ADDITIVE_SCALING, "i16", "pixel"),
+])
+def test_plain_k1bcde_vs_pallas_interpret(rtype, sl, sh, mode, dtype,
+                                          wkind):
+    """The JAX package's Pallas kernel (interpret mode on the CPU)."""
+    rng, stack = _case_stack(70 + rtype, 10, 300, dtype)
+    scale, offset, mul = _coeffs(rng, 10)
+    w = _weights(rng, wkind, 10, 300)
+    mo, crit = _gesdt_kw(rtype, 10, sl, sh)
+    ref = pallas_reject_mean(
+        jnp.asarray(stack), jnp.asarray(scale), jnp.asarray(offset),
+        jnp.asarray(mul),
+        None if w is None else jnp.asarray(np.broadcast_to(w, (10, 300))
+                                           .copy()),
+        jnp.asarray(crit), rtype=rtype, mode=mode, siglow=sl, sighigh=sh,
+        with_weights=w is not None, n_full=10, max_outliers=mo)
+    got = _port_full(stack, scale, offset, mul, rtype, mode, sl, sh, w)
+    _assert_parity(got, ref)
+
+
 def test_edge_cases_and_guard_truncation():
     """All-zero, single-valid and extreme-spread columns; and stacks whose
     N−r≤4 guard truncates the high side (kept-top segment), against the
@@ -176,20 +291,36 @@ GOLDEN_MODES = [("percentile", rj.PERCENTILE, 0.5, 0.5),
                 ("sigma", rj.SIGMA, 3.0, 3.0),
                 ("sigma_asym", rj.SIGMA, 1.5, 2.0),
                 ("mad", rj.MAD, 3.0, 3.0),
-                ("winsorized", rj.WINSORIZED, 3.0, 3.0)]
+                ("winsorized", rj.WINSORIZED, 3.0, 3.0),
+                ("sigmedian", rj.SIGMEDIAN, 2.0, 2.0),
+                ("linearfit", rj.LINEARFIT, 2.0, 2.0),
+                ("gesdt", rj.GESDT, 0.3, 0.05)]
 
 
 @pytest.mark.parametrize("mname,rtype,sl,sh", GOLDEN_MODES)
 def test_window_goldens(mname, rtype, sl, sh):
+    """Every mode against the frozen goldens, checked as
+    tests/test_rejection_golden.py checks the JAX kernels (the GESDT
+    budget there is max(N // 3, 1) with a λ table at α 0.05)."""
     from tests.test_rejection_golden import GOLDEN, _stacks
 
     exp = np.load(GOLDEN)
     for cname, stack in _stacks().items():
         tag = f"{cname}.{mname}"
+        N = stack.shape[0]
+        kw = {}
+        if mname == "gesdt":
+            mo = max(N // 3, 1)
+            kw = dict(critical=rj.gesdt_critical_values(N, 0.05, mo),
+                      max_outliers=mo)
         mean, rl, rh = rj.rejection_mean(torch.from_numpy(stack), rtype,
-                                         sl, sh)
+                                         sl, sh, n_full=N, **kw)
         np.testing.assert_allclose(mean.numpy(), exp[f"{tag}.mean"],
                                    rtol=2e-5, atol=2e-6, err_msg=tag)
+        if mname == "sigmedian":
+            assert (np.abs(rl.numpy() - exp[f"{tag}.rl"]) <= 4).all(), tag
+            assert (np.abs(rh.numpy() - exp[f"{tag}.rh"]) <= 4).all(), tag
+            continue
         np.testing.assert_array_equal(rl.numpy().astype(np.int64),
                                       exp[f"{tag}.rl"], err_msg=tag)
         np.testing.assert_array_equal(rh.numpy().astype(np.int64),
@@ -197,7 +328,8 @@ def test_window_goldens(mname, rtype, sl, sh):
 
 
 def test_wrapper_checks():
-    """The wrapper validates its inputs and names unported modes."""
+    """The wrapper validates its inputs: types, shapes, an unknown mode,
+    weights of the wrong shape, GESDT without its λ table."""
     st = torch.rand(6, 50)
     one, zero = torch.ones(6), torch.zeros(6)
     with pytest.raises(TypeError):
@@ -206,16 +338,21 @@ def test_wrapper_checks():
     with pytest.raises(ValueError):
         k1.reject_mean(st, one[:5], zero, one, rtype=rj.SIGMA,
                        mode=NO_NORM, siglow=3, sighigh=3)
-    for rt in (rj.SIGMEDIAN, rj.LINEARFIT, rj.GESDT):
-        with pytest.raises(NotImplementedError, match="K1"):
-            k1.reject_mean(st, one, zero, one, rtype=rt, mode=NO_NORM,
-                           siglow=3, sighigh=3)
-    before = k1.launch_count
+    with pytest.raises(ValueError, match="unknown rejection"):
+        k1.reject_mean(st, one, zero, one, rtype=8, mode=NO_NORM,
+                       siglow=3, sighigh=3)
+    with pytest.raises(ValueError, match="weights"):
+        k1.reject_mean(st, one, zero, one, rtype=rj.SIGMA, mode=NO_NORM,
+                       siglow=3, sighigh=3, weights=torch.ones(6, 7))
+    with pytest.raises(ValueError, match="λ table"):
+        k1.reject_mean(st, one, zero, one, rtype=rj.GESDT, mode=NO_NORM,
+                       siglow=0.3, sighigh=0.05, max_outliers=2)
+    before = sum(k1.launches.values())
     got = k1.reject_mean(st, one, zero, one, rtype=rj.WINSORIZED,
                          mode=ADDITIVE_SCALING, siglow=3, sighigh=3)
     ref = reject_stack_plain(st, one, zero, one, rtype=rj.WINSORIZED,
                              mode=ADDITIVE_SCALING, siglow=3, sighigh=3)
-    assert k1.launch_count == before          # CPU: plain version, no launch
+    assert sum(k1.launches.values()) == before   # CPU: plain version
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
 
@@ -242,14 +379,79 @@ def test_work_count():
 
 
 def test_frame_limit():
-    """The kernel's shared-memory layout caps the frame count; the plain
-    version on the CPU has no such limit."""
-    assert 2 * k1.MAX_FRAMES * 32 * 4 <= 227 * 1024
-    assert 2 * (k1.MAX_FRAMES + 1) * 32 * 4 > 227 * 1024
-    n = k1.MAX_FRAMES + 1
-    st = 0.5 + 0.01 * torch.rand(n, 3, generator=torch.Generator()
-                                 .manual_seed(0))
-    one, zero = torch.ones(n), torch.zeros(n)
-    mean, rl, rh = k1.reject_mean(st, one, zero, one, rtype=rj.NO_REJEC,
-                                  mode=NO_NORM, siglow=3, sighigh=3)
-    torch.testing.assert_close(mean, st.mean(0), atol=1e-6, rtol=0)
+    """There is no frame limit: a stack of 1000 frames (more than two
+    [N][32] float arrays of shared memory hold, where the kernel moves its
+    columns to global scratch memory) goes through the wrapper and
+    matches the JAX package."""
+    rng = np.random.default_rng(0)
+    n = 1000
+    stack = _mkstack(rng, n=n, p=8)
+    one, zero = np.ones(n, np.float32), np.zeros(n, np.float32)
+    for rtype, sl, sh in ((rj.NO_REJEC, 3.0, 3.0), (rj.WINSORIZED, 3.0, 3.0),
+                          (rj.GESDT, 0.3, 0.05)):
+        got = _port_full(stack, one, zero, one, rtype, NO_NORM, sl, sh,
+                         None)
+        ref = _jax_block(stack, one, zero, one, rtype, NO_NORM, sl, sh,
+                         None)
+        _assert_parity(got, ref)
+        assert got[1].sum() + got[2].sum() > 0 or rtype == rj.NO_REJEC
+
+
+@pytest.mark.parametrize("rtype,sl,sh", MASKED)
+def test_work_count_masked_modes(rtype, sl, sh):
+    """SIGMEDIAN, LINEARFIT and GESDT count the work their data needed,
+    pixel by pixel."""
+    rng = np.random.default_rng(9)
+    st = torch.from_numpy(_mkstack(rng, n=12, p=200))
+    mo, crit = _gesdt_kw(rtype, 12, sl, sh)
+    kw = dict(critical=crit, max_outliers=mo)
+    work, parts = {}, [{}, {}]
+    rj.rejection_mean(st, rtype, sl, sh, work=work, **kw)
+    for w, cols in zip(parts, (slice(0, 100), slice(100, 200))):
+        rj.rejection_mean(st[:, cols].contiguous(), rtype, sl, sh, work=w,
+                          **kw)
+    assert work["flops"] > 200 * 12
+    for key in ("flops", "compares"):
+        assert work[key] == parts[0][key] + parts[1][key]
+
+
+def test_kernel_source_constants_match():
+    """The CUDA source repeats the mode numbers, the normalization modes
+    and the SIGMEDIAN round bound of the Python side; they must agree."""
+    import re
+
+    from siril_tpu_torch.kernels import build
+    from siril_tpu_torch.ops import normalization as nm
+
+    src = open(f"{build.CSRC}/reject_stack.cu").read()
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (\w+) = (\d+);", src)}
+    for name in ("NO_REJEC", "PERCENTILE", "SIGMA", "MAD", "SIGMEDIAN",
+                 "WINSORIZED", "LINEARFIT", "GESDT",
+                 "SIGMEDIAN_MAX_ROUNDS"):
+        assert consts[name] == getattr(rj, name), name
+    for name in ("NO_NORM", "ADDITIVE", "ADDITIVE_SCALING"):
+        assert consts[name] == getattr(nm, name), name
+
+
+def test_sigmedian_cap_counted(monkeypatch):
+    """A pixel whose SIGMEDIAN loop stops at SIGMEDIAN_MAX_ROUNDS while it
+    is still replacing values is counted (the reference would run it on);
+    a pixel that converged is not."""
+    rng = np.random.default_rng(77)
+    n = 12
+    stack = _mkstack(rng, n=n, p=400)
+    scale, offset, mul = _coeffs(rng, n)
+    k1.reset_counts()
+    full = _port(stack, scale, offset, mul, rj.SIGMEDIAN, NO_NORM, 2.0, 2.0)
+    assert k1.capped_pixels() == 0
+    monkeypatch.setattr(rj, "SIGMEDIAN_MAX_ROUNDS", 1)
+    k1.reset_counts()
+    one = _port(stack, scale, offset, mul, rj.SIGMEDIAN, NO_NORM, 2.0, 2.0)
+    replaced = (one[1] + one[2]) > 0        # still replacing at round 1
+    assert k1.capped_pixels() == int(replaced.sum()) > 0
+    differs = (one[0] != full[0]) | (one[1] != full[1]) | \
+        (one[2] != full[2])
+    assert differs.any() and not (differs & ~replaced).any()
+    k1.reset_counts()
+    assert k1.capped_pixels() == 0

@@ -1,0 +1,308 @@
+"""Parity: the port's staged ``stack`` path against the JAX package, on the
+CPU, on the same small FITS sequences made from a seed with numpy.
+
+- ``ops/stacking.stack_sequence`` against ``siril_tpu.ops.stacking.
+  stack_sequence``: the device-resident path on u16 and on f32 frames,
+  the streamed row-block path with rejection maps and with integer shifts
+  set through ``regparam``, every weighting type, SIGMEDIAN / LINEARFIT /
+  GESDT, and the median stack.  The image within atol 1e-5 (the
+  estimators are the same order statistics reached by a sort here and by
+  bisection or interpolation there, within one float32 ulp, and sums of
+  ~3e3 terms run in another order), rejection totals equal;
+- the GESDT λ table bit-equal;
+- the background noise against ``bgnoise_np``, rtol 1e-5, on the dense
+  path and on the path with zero pixels;
+- ``stack`` through the CLI writes the image, its STACKCNT and the
+  rejection maps;
+- ``fusedstack`` with SIGMEDIAN, LINEARFIT and GESDT against the JAX
+  fused path (tolerances of tests/test_torch_pipeline.py).
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from siril_tpu.core.sequence import Sequence as JSequence
+from siril_tpu.ops import rejection as jrj
+from siril_tpu.ops import stacking as jst
+from siril_tpu.ops.statistics import bgnoise_np
+from siril_tpu_torch import cli, convert
+from siril_tpu_torch.core.image import SirilImage
+from siril_tpu_torch.core.sequence import Sequence
+from siril_tpu_torch.io.fits_io import read_fits, write_fits
+from siril_tpu_torch.kernels import reject_stack as k1
+from siril_tpu_torch.ops import rejection as rj
+from siril_tpu_torch.ops import stacking as tst
+from siril_tpu_torch.ops.statistics import bgnoise
+
+torch.set_num_threads(1)
+
+N, H, W = 7, 40, 48
+
+
+def _write(d, prefix, bitdepth, seed=21):
+    """N frames of one scene with noise that differs frame to frame (so
+    noise weights differ), cosmic rays, a dead corner, and per-frame
+    stack counts and exposures."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W]
+    scene = 0.1 + 0.02 * rng.random((H, W)).astype(np.float32)
+    for _ in range(5):
+        x0, y0 = rng.uniform(8, W - 8), rng.uniform(8, H - 8)
+        scene += 0.4 * np.exp(-((xx - x0) ** 2 + (yy - y0) ** 2) / 4.0)
+    for i in range(N):
+        sig = 0.004 * (1 + 0.3 * i)
+        f = 1.02 ** i * scene + 0.003 * i + \
+            rng.normal(0, sig, (H, W)).astype(np.float32)
+        f[rng.integers(0, H, 12), rng.integers(0, W, 12)] = 0.97
+        f[:3, :3] = 0.0
+        img = SirilImage(data=np.clip(f, 0, 1)[None].astype(np.float32))
+        img.keywords.exposure = 30.0
+        img.keywords.stackcnt = 1 + i % 3
+        write_fits(img, os.path.join(d, f"{prefix}{i + 1:05d}.fit"),
+                   bitdepth=bitdepth)
+    return scene
+
+
+@pytest.fixture(scope="module")
+def seqdir(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("stackseq"))
+    _write(d, "u_", 16)
+    _write(d, "f_", -32)
+    return d
+
+
+def _both(d, prefix, shifts=None, reg=None):
+    jseq = JSequence.scan(prefix, d)
+    tseq = Sequence.scan(prefix, d)
+    for seq in (jseq, tseq):
+        r = seq.reg(0)
+        if shifts is not None:
+            for k, (dx, dy) in enumerate(shifts):
+                r.H[k, 0, 2], r.H[k, 1, 2] = dx, dy
+            r.valid[:] = True
+        if reg is not None:
+            r.weighted_fwhm[:] = reg["wfwhm"]
+            r.number_of_stars[:] = reg["nstars"]
+    return jseq, tseq
+
+
+CASES = {
+    # name: (prefix, StackArgs fields, shifts)
+    "resident_u16_winsorized": ("u_", dict(normalize=3), None),
+    "resident_f32_winsorized": ("f_", dict(normalize=3), None),
+    # at N = 7 one outlier lies at most (N−1)/√N = 2.27 σ from the mean,
+    # so the σ-based modes clip at 2σ to reject anything
+    "resident_u16_sigmedian": ("u_", dict(normalize=3, rejection=4,
+                                          siglow=2.0, sighigh=2.0), None),
+    "resident_u16_linearfit": ("u_", dict(normalize=3, rejection=6), None),
+    "resident_f32_gesdt": ("f_", dict(normalize=3, rejection=7,
+                                      siglow=0.3, sighigh=0.05), None),
+    "resident_mul_sigma": ("u_", dict(normalize=2, rejection=2, siglow=2.0,
+                                      sighigh=2.0), None),
+    "streamed_rejmaps": ("u_", dict(normalize=3, create_rejmaps=True),
+                         None),
+    "streamed_rejmaps_merged_gesdt": (
+        "f_", dict(normalize=3, rejection=7, siglow=0.3, sighigh=0.05,
+                   create_rejmaps=True, merge_rejmaps=True), None),
+    "streamed_shifts": ("u_", dict(normalize=3),
+                        [(0, 0), (2, -1), (-3, 1), (1, 2), (0, -2), (3, 3),
+                         (-1, 0)]),
+    "weight_noise": ("u_", dict(normalize=3, weighting=3), None),
+    "weight_noise_streamed": ("f_", dict(normalize=3, weighting=3,
+                                         create_rejmaps=True), None),
+    "weight_wfwhm": ("u_", dict(normalize=3, weighting=2), None),
+    "weight_nbstars": ("u_", dict(normalize=3, weighting=1), None),
+    "weight_nbstack": ("f_", dict(normalize=3, weighting=4), None),
+    "median": ("u_", dict(method="med"), None),
+    "median_streamed": ("f_", dict(method="med", create_rejmaps=True),
+                        [(1, 0)] * N),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_stack_sequence_vs_jax(seqdir, case):
+    prefix, fields, shifts = CASES[case]
+    reg = dict(wfwhm=np.linspace(2.0, 3.5, N), nstars=np.arange(N) * 7 + 30)
+    jseq, tseq = _both(seqdir, prefix, shifts, reg)
+    jargs = jst.StackArgs(**fields)
+    ref = jst.stack_sequence(jseq, jargs)
+    before = sum(k1.launches.values())
+    got = tst.stack_sequence(
+        tseq, convert.stack_args(dataclasses.asdict(jargs)), device="cpu")
+    assert sum(k1.launches.values()) == before   # plain version on the CPU
+    a, b = ref.image.host(), got.image.host()
+    assert b.shape == a.shape == (1, H, W)
+    np.testing.assert_allclose(b, a, rtol=0, atol=1e-5)
+    assert tuple(got.total_rejected) == tuple(ref.total_rejected)
+    assert got.sigmedian_capped == 0
+    if jargs.create_rejmaps and jargs.method == "rej":
+        np.testing.assert_array_equal(got.rejmap_low.host(),
+                                      ref.rejmap_low.host())
+        assert (got.rejmap_high is None) == (ref.rejmap_high is None)
+        if ref.rejmap_high is not None:
+            np.testing.assert_array_equal(got.rejmap_high.host(),
+                                          ref.rejmap_high.host())
+    if jargs.method == "rej" and jargs.rejection != rj.NO_REJEC:
+        assert sum(got.total_rejected) > 0
+    assert got.image.keywords.stackcnt == N
+    assert got.image.keywords.livetime == pytest.approx(30.0 * N)
+    if jargs.weighting == 3:
+        for k in range(N):
+            assert tseq.get_frame_stats(0, k).bgnoise == pytest.approx(
+                jseq.get_frame_stats(0, k).bgnoise, rel=1e-5)
+
+
+def test_plan_blocks_and_shifts(seqdir):
+    assert tst.plan_blocks(4096, 4096, 24, 1843) == \
+        jst.plan_blocks(4096, 4096, 24, 1843)
+    assert tst.plan_blocks(40, 48, 7, 1) == jst.plan_blocks(40, 48, 7, 1)
+    jseq, tseq = _both(seqdir, "u_", [(2, -1)] * N)
+    idx = np.arange(N)
+    for a, b in zip(tst.frame_shifts(tseq, idx, 0),
+                    jst._frame_shifts(jseq, idx, 0)):
+        np.testing.assert_array_equal(a, b)
+    for y0, y1, sh in ((0, 17, (2, -1)), (30, 40, (-5, 7)), (5, 9, None)):
+        np.testing.assert_array_equal(
+            tst.read_block(tseq, 0, 3, y0, y1, sh, W),
+            jst._read_block(jseq, 0, 3, y0, y1, sh, W))
+
+
+@pytest.mark.parametrize("n,alpha,frac", [(7, 0.05, 0.3), (24, 0.05, 0.3),
+                                          (50, 0.01, 0.2)])
+def test_gesdt_table_bit_equal(n, alpha, frac):
+    mo = rj.gesdt_max_outliers(n, frac)
+    assert mo == int(np.floor(n * frac))
+    got = rj.gesdt_critical_values(n, alpha, mo)
+    ref = jrj.gesdt_critical_values(n, alpha, mo)
+    assert got.dtype == ref.dtype == np.float32
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("zeros", [False, True])
+def test_bgnoise_vs_jax(zeros):
+    rng = np.random.default_rng(17 + zeros)
+    img = (0.2 + 0.01 * rng.standard_normal((64, 80))).astype(np.float32)
+    img[rng.integers(0, 64, 40), rng.integers(0, 80, 40)] = 0.9
+    if zeros:
+        img[rng.random(img.shape) < 0.1] = 0.0
+        img[5, :78] = 0.0                      # a row with too few pixels
+        img[9, 3] = np.nan
+    got = bgnoise(torch.from_numpy(img))
+    ref = bgnoise_np(img)
+    assert ref > 0
+    assert got == pytest.approx(ref, rel=1e-5)
+
+
+def test_compute_stats_basic_vs_jax():
+    from siril_tpu.ops.statistics import STATS_BASIC, compute_stats_np
+    from siril_tpu_torch.ops.statistics import compute_stats_basic
+
+    rng = np.random.default_rng(4)
+    img = (0.3 + 0.02 * rng.standard_normal((50, 61))).astype(np.float32)
+    img[rng.random(img.shape) < 0.05] = 0.0
+    got = compute_stats_basic(torch.from_numpy(img))
+    ref = compute_stats_np(img, STATS_BASIC)
+    for key in ("total", "ngoodpix", "mean", "median", "sigma", "min",
+                "max", "bgnoise"):
+        assert getattr(got, key) == pytest.approx(getattr(ref, key),
+                                                  rel=1e-5), key
+
+
+def test_cli_stack_writes_outputs(tmp_path):
+    d = str(tmp_path)
+    _write(d, "r_light_", -32)
+    before = sum(k1.launches.values())
+    s = cli.run(["-d", d, "--device", "cpu", "stack", "r_light_", "rej",
+                 "g", "0.3", "0.05", "-norm=addscale", "-rejmaps",
+                 "-out=result"])
+    assert sum(k1.launches.values()) == before
+    img = read_fits(os.path.join(d, "result.fit"))
+    np.testing.assert_array_equal(img.host(), s.result.image.host())
+    assert img.keywords.stackcnt == N
+    for name in ("rejmap_low", "rejmap_high"):
+        rm = read_fits(os.path.join(d, name + ".fit")).host()
+        assert rm.shape == (1, H, W)
+    low = read_fits(os.path.join(d, "rejmap_low.fit")).host()
+    high = read_fits(os.path.join(d, "rejmap_high.fit")).host()
+    assert int(round((low.sum() + high.sum()) * 65535)) == \
+        sum(s.result.total_rejected)
+    s = cli.run(["-d", d, "--device", "cpu", "stack", "r_light_", "rej",
+                 "a", "3", "3", "-norm=addscale", "-16b"])
+    assert read_fits(os.path.join(d, "r_light_stacked.fit")).orig_bitdepth \
+        == 20
+    with pytest.raises(cli.CommandError, match="between 0 and 1"):
+        cli.run(["-d", d, "--device", "cpu", "stack", "r_light_", "rej",
+                 "g", "3", "3"])
+
+
+def test_stack_args_from_flags_vs_jax():
+    from siril_tpu.cli.commands import _stack_args_from_flags
+
+    for words in (["s", "rej", "g"], ["s", "rej", "p"],
+                  ["s", "rej", "l", "2", "4", "-norm=mulscale",
+                   "-weight_from_wfwhm", "-rejmap=merged", "-16b"],
+                  ["s", "med", "-weight_from_nbstack", "-fastnorm"],
+                  ["s", "mean", "-rgb_equal", "-output_norm",
+                   "-weight_from_noise", "-rejmaps"]):
+        pos, flags = cli.parse_flags(words)
+        want = dataclasses.asdict(_stack_args_from_flags(pos, flags))
+        assert dataclasses.asdict(cli.stack_args_from_flags(pos, flags)) \
+            == want
+
+
+def test_stack_unported_raise(seqdir):
+    for words in (["u_", "sum"], ["u_", "-feather=5"], ["u_", "-drizzle"],
+                  ["u_", "-filter-fwhm=80%"], ["u_", "-maximize"],
+                  ["u_", "-overlap_norm"], ["u_", "-upscale"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cli.run(["-d", seqdir, "--device", "cpu", "stack", *words])
+
+
+@pytest.fixture(scope="module")
+def fused_dir(tmp_path_factory):
+    from tests.test_pipeline import make_seq
+
+    d = tmp_path_factory.mktemp("fused_algs")
+    _, base = make_seq(d, np.random.default_rng(3),
+                       [(0, 0), (4, 2), (-3, 5), (6, -4), (2, 2)])
+    return d, base
+
+
+@pytest.mark.parametrize("rtype,sl,sh", [(rj.SIGMEDIAN, 2.0, 2.0),
+                                         (rj.LINEARFIT, 2.0, 2.0),
+                                         (rj.GESDT, 0.3, 0.05)])
+def test_fusedstack_rejections_vs_jax(fused_dir, rtype, sl, sh):
+    """The fused path with the K1b-K1d modes (tolerances of
+    tests/test_torch_pipeline.py: float32 LM fits and lanczos weights)."""
+    from siril_tpu.ops.normalization import ADDITIVE_SCALING
+    from siril_tpu.pipeline import FusedArgs, fused_preprocess_stack
+    from siril_tpu.registration.starfinder import StarFinderParams
+    from siril_tpu_torch import pipeline as tpipe
+
+    d, base = fused_dir
+    args = FusedArgs(stack=jst.StackArgs(method="rej", rejection=rtype,
+                                         siglow=sl, sighigh=sh,
+                                         normalize=ADDITIVE_SCALING),
+                     starfinder=StarFinderParams(radius=6))
+    ref = fused_preprocess_stack(JSequence.scan("fl_", str(d)), args)
+    got = tpipe.fused_preprocess_stack(
+        Sequence.scan("fl_", str(d)),
+        convert.fused_args(dataclasses.asdict(args)), device="cpu")
+    inner = np.s_[20:-20, 20:-20]
+    a, b = ref.image.host()[0], got.image.host()[0]
+    d = np.abs(a[inner] - b[inner])
+    # shifts that differ by ~1e-5 px move values by ~1e-8; where that
+    # flips a decision (a GESDT step whose two ends lie almost equally far
+    # from the mean removes the other end) the 5-frame mean moves by up to
+    # the column's spread / 4, a few noise σ (0.002)
+    assert (d > 1e-4).sum() <= 5e-4 * d.size
+    assert d.max() <= 5e-3
+    for r, g in zip(ref.total_rejected, got.total_rejected):
+        assert abs(r - g) <= 0.005 * r
+    assert sum(got.total_rejected) > 0
+    assert got.sigmedian_capped == 0
+    assert np.abs(b[inner] - base[inner]).mean() < 0.01
