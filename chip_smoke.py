@@ -4,11 +4,15 @@
 
 Phases, each printing a flushed start and end line with elapsed seconds:
   1. card   — device name, count, and nvidia-smi's name and power limit;
-  2. build  — every kernel of the main path, from an empty build directory;
+  2. build  — every kernel of the main path, from an empty build directory,
+              with ptxas's registers, shared memory and spills for each
+              instantiation (the register path must not spill);
   3. k1a    — the reject_stack kernel against its plain PyTorch version on
               the card: every window mode × {float32, int16} × {no norm,
               additive+scaling, multiplicative} at N=24, P=2^20, then one
-              full row block of the main path (N=FRAMES, P=682·SIZE);
+              full row block of the main path (N=FRAMES, P=682·SIZE) with
+              the winsorized σ steps its pixels took, and winsorized at
+              N=64, P=2^20 (the shared-memory path);
   k1     — the variants K1b SIGMEDIAN, K1c LINEARFIT, K1d GESDT over the
               same dtypes and normalizations at N=24, P=2^20; K1e (weights,
               per frame and per pixel) over winsorized, sigma, linearfit
@@ -46,11 +50,6 @@ T0 = time.perf_counter()
 # the main path's session: 24 mono 16-bit frames of 4096×4096 (bench.py:36)
 FRAMES = 24
 SIZE = 4096
-
-# K1a tolerance (both versions run on the card, same inputs)
-COUNT_AGREE = 0.99999        # rejection counts equal on ≥ this share
-MEAN_ATOL_AGREE = 2e-6       # |Δmean| where the counts agree
-MEAN_ATOL_FLIP = 2e-3        # |Δmean| where a candidate at kσ flipped
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_OPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
@@ -92,6 +91,50 @@ def phase_card():
     return name, card
 
 
+def ptxas_report(text: str) -> dict:
+    """{kernel: {registers, smem, stack, spill_stores, spill_loads}} from
+    the ``-Xptxas -v`` output of a build."""
+    import re
+
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return {k: v for k, v in out.items() if "registers" in v}
+
+
+def _kernel_label(mangled: str) -> str:
+    """reg_window_kernel<float, NMAX, weighted, winsorized> from a mangled
+    name."""
+    import re
+
+    m = re.search(r"(reg_window_kernel|reject_stack_kernel)I([fs])"
+                  r"(?:Li(\d+)E)?Lb([01])E(?:Lb([01])E)?", mangled)
+    if not m:
+        return mangled
+    name, t, nmax, flag, winsor = m.groups()
+    t = "float" if t == "f" else "int16"
+    if nmax:
+        return (f"{name}<{t}, NMAX={nmax}, weighted={flag == '1'}, "
+                f"winsorized={winsor == '1'}>")
+    return f"{name}<{t}, global={flag == '1'}>"
+
+
 def phase_build():
     from siril_tpu_torch.kernels import build
 
@@ -99,11 +142,22 @@ def phase_build():
     t = time.perf_counter()
     paths = build.build(["reject_stack"])
     dt = time.perf_counter() - t
+    spilled = []
     for name, path in paths.items():
         log(f"built {name} → {os.path.relpath(path)} in {dt:.2f}s")
-        for line in build.build_log.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+        for kern, r in sorted(ptxas_report(
+                build.build_log.get(name, "")).items()):
+            label = _kernel_label(kern)
+            log(f"  ptxas {label}: {r['registers']} registers, "
+                f"{r['smem']} B static smem, stack {r.get('stack', 0)} B, "
+                f"spill stores {r.get('spill_stores', 0)} B, loads "
+                f"{r.get('spill_loads', 0)} B")
+            if "reg_window_kernel" in kern and (
+                    r.get("spill_stores", 0) or r.get("spill_loads", 0)
+                    or r.get("stack", 0)):
+                spilled.append(label)
+    if spilled:
+        raise RuntimeError(f"the register path spills: {spilled}")
     return dt
 
 
@@ -152,12 +206,12 @@ def compare_k1(name, stack, scale, offset, mul, rtype, mode, siglow,
     import torch
 
     from siril_tpu_torch.kernels import reject_stack as k1
-    from siril_tpu_torch.ops.rejection import SIGMEDIAN
+    from siril_tpu_torch.ops.rejection import SIGMEDIAN, WINSORIZED
     from siril_tpu_torch.ops.stacking import reject_stack_plain
 
     kw = dict(rtype=rtype, mode=mode, siglow=siglow, sighigh=sighigh,
               **extra)
-    # SIGMEDIAN pixels stopped at the round cap, by each version
+    # loops stopped at their mode's bound, by each version
     capped0 = k1.capped_pixels()
     got = k1.reject_mean(stack, scale, offset, mul, **kw)
     capped_kernel = k1.capped_pixels() - capped0
@@ -171,27 +225,38 @@ def compare_k1(name, stack, scale, offset, mul, rtype, mode, siglow,
     ref = refs[0]
     torch.cuda.synchronize()
     capped_plain = int(capped_plain)
-    agree = (got[1] == ref[1]) & (got[2] == ref[2])
-    nbad = int((~agree).sum())
-    d = (got[0] - ref[0]).abs()
-    err_agree = float(d[agree].max()) if bool(agree.any()) else 0.0
-    err_flip = float(d[~agree].max()) if nbad else 0.0
+    # the kernel computes what the plain version computes, bit for bit
+    nbad = int(((got[1] != ref[1]) | (got[2] != ref[2])).sum())
+    err = float((got[0] - ref[0]).abs().max())
     p = stack.shape[1]
-    ok = (nbad <= (1.0 - COUNT_AGREE) * p and err_agree <= MEAN_ATOL_AGREE
-          and err_flip < MEAN_ATOL_FLIP and bool(torch.isfinite(got[0]).all())
-          and capped_kernel == capped_plain)
+    ok = (nbad == 0 and err == 0.0 and bool(torch.isfinite(got[0]).all())
+          and capped_kernel == capped_plain == 0)
     for _ in range(2):
         k1.reject_mean(stack, scale, offset, mul, **kw)
     ms = _events_ms(lambda: k1.reject_mean(stack, scale, offset, mul, **kw),
                     10)
-    log(f"  {name}: count mismatches {nbad}/{p}, max|Δmean| agree "
-        f"{err_agree:.3g} flip {err_flip:.3g}, rej {int(got[1].sum())}/"
-        f"{int(got[2].sum())}, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms"
-        + (f", stopped at the SIGMEDIAN round cap: kernel {capped_kernel} "
-           f"plain {capped_plain} px" if rtype == SIGMEDIAN else "")
-        + ('' if ok else '  <-- OUT OF TOLERANCE'))
-    return dict(ok=ok, nbad=nbad, max_abs_err=max(err_agree, err_flip),
-                ms=ms, plain_ms=plain_ms, capped=capped_kernel)
+    log(f"  {name}: count mismatches {nbad}/{p}, max|Δmean| {err:.3g}, rej "
+        f"{int(got[1].sum())}/{int(got[2].sum())}, kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.1f} ms"
+        + (f", loops stopped at their bound: kernel {capped_kernel} plain "
+           f"{capped_plain}" if rtype in (SIGMEDIAN, WINSORIZED) else "")
+        + ('' if ok else '  <-- DIFFERS FROM THE PLAIN VERSION'))
+    return dict(ok=ok, nbad=nbad, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                capped=capped_kernel)
+
+
+def log_steps(name: str, work: dict, p: int) -> None:
+    """The winsorized σ steps the plain version counted for a call: per
+    pixel on average, the most one pixel took, and the mean over warps of
+    32 consecutive pixels of their slowest pixel's (what a warp with one
+    pixel a lane would run)."""
+    if not work.get("winsor_warps"):
+        return
+    log(f"  {name} winsorized σ steps: {work['winsor_steps']} in all, "
+        f"{work['winsor_steps'] / p:.2f} a pixel, at most "
+        f"{work['winsor_steps_max']}, warp-of-32 maximum "
+        f"{work['winsor_warp_steps'] / work['winsor_warps']:.2f} on "
+        f"average")
 
 
 def phase_k1a(seed: int):
@@ -251,8 +316,25 @@ def phase_k1a(seed: int):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
     log(f"  main-path block bound: {nbytes / 1e6:.1f} MB → {bytes_ms:.4f} "
         f"ms; {ops / 1e9:.2f} G float ops → {ops_ms:.4f} ms; kernel "
-        f"{full['ms']:.3f} ms, plain {full['plain_ms']:.1f} ms, no library "
-        "call computes this function")
+        f"{full['ms']:.3f} ms = {full['ms'] / full['bound_ms']:.2f}x the "
+        f"bound, plain {full['plain_ms']:.1f} ms, no library call computes "
+        "this function")
+    log_steps("main-path block", work, pb)
+    del block
+
+    # winsorized at 64 frames: the shared-memory path
+    n64 = 64
+    st64 = make_stack(gen, n64, p, dev)
+    c64 = 1.0 + 0.02 * torch.randn(n64, generator=gen, device=dev)
+    work64 = {}
+    r64 = compare_k1(f"winsorized/f32/addscale N={n64} P={p} (shared "
+                     "memory)", st64, c64, c64 * 0.1 - 0.1,
+                     torch.ones_like(c64), rj.WINSORIZED, ADDITIVE_SCALING,
+                     3.0, 3.0, work=work64)
+    log_steps(f"N={n64}", work64, p)
+    if not r64["ok"]:
+        failures.append(f"winsorized N={n64}")
+    del st64
     if failures:
         raise RuntimeError(f"K1a out of tolerance: {failures}")
     return full
@@ -389,12 +471,13 @@ def phase_k1(seed: int):
             f"→ {r['bytes_ms']:.4f} ms; {r['ops'] / 1e9:.2f} G operations "
             f"→ {r['ops_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}); kernel {r['ms']:.3f} ms = "
-            f"{r['ms'] / r['bound_ms']:.1f}x the bound; plain "
+            f"{r['ms'] / r['bound_ms']:.2f}x the bound; plain "
             f"{r['plain_ms']:.1f} ms; count mismatches over all its "
             f"configurations {nbad[var]}"
-            + (f", pixels stopped at the SIGMEDIAN round cap {capped[var]}"
-               if var == "K1b" else "")
+            + (f", loops stopped at their bound {capped[var]}"
+               if var in ("K1b", "K1e") else "")
             + "; no library call computes this function")
+        log_steps(f"{var} at the stack call size", work, pf)
         results[var] = r
     del full
     if failures:
@@ -537,6 +620,7 @@ def phase_fusedstack(seed: int):
                 launches == want_blocks,
             "interior mean |Δ| < noise/3": err < sigma_n / 3,
             "cosmic rays rejected (rej_high > 0)": rh > 0,
+            "no loop stopped at its bound": res.capped == 0,
             "result max well below the ray value":
                 float(out.max()) < 0.8 * ray,
             "result finite, expected shape":
@@ -608,9 +692,8 @@ def phase_stack(seed: int):
             log(f"  stack r_light_ {cmd}: wall {wall:.2f}s, launches "
                 f"{ {k: v for k, v in counts.items() if v} }, interior "
                 f"mean |Δ| {err:.5f} (noise {sigma_n}), rejected low/high "
-                f"{rl}/{rh}, max {float(out.max()):.4f}"
-                + (f", pixels stopped at the SIGMEDIAN round cap "
-                   f"{res.sigmedian_capped}" if var == "K1b" else ""))
+                f"{rl}/{rh}, max {float(out.max()):.4f}, loops stopped at "
+                f"their bound {res.capped}")
             log("    stages: " + ", ".join(
                 f"{k} {v:.3f}s" for k, v in res.stage_s.items()))
             checks = {
@@ -622,6 +705,7 @@ def phase_stack(seed: int):
                     bool(np.isfinite(out).all())
                     and out.shape == (size, size),
                 f"{var} launched": counts[var] > 0,
+                "no loop stopped at its bound": res.capped == 0,
                 "result file written": os.path.exists(
                     os.path.join(tmp, "r_light_stacked.fit")),
             }

@@ -25,7 +25,10 @@ from typing import Callable, Dict, List, Optional
 
 from siril_tpu_torch.core.image import FLOAT_IMG, SirilImage
 from siril_tpu_torch.core.sequence import Sequence
-from siril_tpu_torch.ops.rejection import SIGMEDIAN_MAX_ROUNDS
+from siril_tpu_torch.ops.rejection import (
+    SIGMEDIAN_MAX_ROUNDS,
+    WINSOR_MAX_STEPS,
+)
 from siril_tpu_torch.ops.stacking import StackResult
 
 
@@ -108,10 +111,10 @@ def cmd_fusedstack(ctx: Session, args: List[str]) -> None:
             raise NotImplementedError(
                 f"fusedstack -{k}=: calibration is not ported yet "
                 "(ROADMAP §1, calibration + cosmetic)")
-    if "transf" in flags:
+    if flags.get("transf") == "homography":
         raise NotImplementedError(
-            "fusedstack -transf=: only shift registration is ported "
-            "(ROADMAP §1, the warp ladder)")
+            "fusedstack -transf=homography: only shift registration is "
+            "ported (ROADMAP §1, the warp ladder)")
     seq = ctx.load_sequence(pos[0])
     ctx.sequence = seq
     sa = StackArgs(method="rej")
@@ -142,11 +145,11 @@ def cmd_fusedstack(ctx: Session, args: List[str]) -> None:
 
 
 def _warn_capped(res) -> None:
-    if res.sigmedian_capped:
+    if res.capped:
         logging.getLogger(__name__).warning(
-            "%d px stopped at the SIGMEDIAN round cap (%d rounds) while "
-            "still replacing values", res.sigmedian_capped,
-            SIGMEDIAN_MAX_ROUNDS)
+            "%d rejection loops stopped at their bound (SIGMEDIAN %d "
+            "rounds, winsorized %d σ steps) before settling", res.capped,
+            SIGMEDIAN_MAX_ROUNDS, WINSOR_MAX_STEPS)
 
 
 def stack_args_from_flags(pos: List[str], flags: dict):

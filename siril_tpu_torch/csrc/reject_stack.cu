@@ -8,42 +8,64 @@
 //   K1e  weighted mean over the kept values' [pmin, pmax] range
 //
 // Replaces the TPU kernel siril_tpu/pallas/reject_stack.py::
-// pallas_reject_mean (pallas_call at :804, body _build_kernel :202; K1b
-// :478, K1c :521, K1d :586, K1e :719).  Its plain PyTorch version is
-// siril_tpu_torch/ops/stacking.py::reject_stack_plain.
-//
-// Design for Hopper, not a block-by-block copy of the Pallas kernel:
-// - one thread per pixel column, so every pixel iterates and converges on
-//   its own (the Pallas tile iterated until its slowest lane converged);
-// - the column's N values live in shared memory laid out [N][threads]
-//   (element k of thread t at k*threads + t): consecutive threads hit
-//   consecutive banks, free of bank conflicts.  When two such arrays do
-//   not fit a block of 32 threads (N > 908), the columns live in a global
-//   scratch buffer laid out [N][cols] instead, coalesced across threads,
-//   and the launcher walks the pixels in chunks of `cols` columns;
-// - values are insertion-sorted as they are loaded, in place of the
-//   pltpu.roll bitonic network.  The second array holds the MAD
-//   deviations, the winsorized accumulated values, or the keep flags of
-//   the mask modes (LINEARFIT, GESDT), whose ranks and N-r<=4 guard come
-//   from running counts in the thread's serial loop instead of the
-//   Hillis-Steele prefix sums;
-// - SIGMEDIAN re-sorts the column in place after each replacement round
-//   (insertion sort of a nearly sorted column);
-// - GESDT reads its λ table through the read-only cache; pass 1 records
-//   only the last flagged walk step, pass 2 replays the walk;
-// - the weighted mean re-reads the column's original values from global
-//   memory (a second read of the stack, mostly from L2, which the
-//   function does not need and the bound does not count) and the weights
-//   through their (frame, pixel) strides: per-frame weights come with a
-//   pixel stride of 0 and are never materialized per pixel.
+// pallas_reject_mean (pallas_call at :804, body _build_kernel :202; K1a
+// :269-477, K1b :478, K1c :521, K1d :586, K1e :719).  Its plain PyTorch
+// version is siril_tpu_torch/ops/stacking.py::reject_stack_plain.
 //
 // What bounds it on an H100: one read of the stack (4 or 2 bytes per
-// value), the weights actually read, and 12 bytes written per pixel is
-// ~90 us of HBM time for a main-path block (24 x 2.8 Mpix f32).  The
-// arithmetic the data needs (the rejection loops and the sort) is less
-// than that at the f32 peak, so memory sets the bound.  The kernel runs
-// well above it: each thread's serial loop over shared memory, not either
-// roofline, limits it.
+// value), the weights, and 12 bytes written per pixel: ~90 us of HBM time
+// for a main-path block (24 x 2.8 Mpix f32).  The float operations the
+// data needs (~2,400 a pixel at N = 24, most of them in the winsorized σ
+// iteration) take about as long at the f32 peak.  The kernel is held back
+// by instruction issue and latency instead: every sum runs in row order,
+// one lane per pixel, to stay bit-equal to the plain version, so each σ
+// step is two chains of N dependent adds, and the winsorized iteration
+// takes from 1 to ~1000 steps a pixel (~14 on average).
+//
+// Two paths.
+// 1. Registers: the window modes (K1a, and K1e over them) at N <= 32
+//    (reg_window_kernel, templated on NMAX = 8, 16, 24, 32, on the
+//    weighting, and on winsorized or not, so that neither kernel carries
+//    the other's code and registers).
+//    - The column lives in registers, padded with +inf, sorted by an
+//      odd-even merge network; loops over rows are unrolled and predicated
+//      on a row mask, the median is a tree of selects, so nothing spills.
+//      The N loads of a column are issued before any is used: one memory
+//      latency a column, not N.
+//    - The winsorized accumulated values are clamp(xs[k], L, H): clamps
+//      compose on a sorted column, so two floats per pixel replace the
+//      w array.
+//    - Against divergence, warps take pixels from one counter for the
+//      whole grid, and each warp runs the σ iteration as a loop of single
+//      steps; when READY_LANES of its lanes have settled, those lanes clip,
+//      start their next round or write their result and take the next
+//      pixel together, while the others keep their state.  A lane whose
+//      pixel settled early so works on instead of idling until the warp's
+//      slowest pixel settles, and no block idles while others still have
+//      pixels to take.
+//    - A weighted mean keeps the normalized column in frame order in
+//      shared memory: the stack is read once.  Per-frame weights (pixel
+//      stride 0) are staged in shared memory, never materialized per
+//      pixel.
+//    - The column is read straight from global memory: the lanes of a
+//      warp that take pixels together get consecutive ones, so each row
+//      read is a run of consecutive words.  Results are stored per pixel.
+// 2. Shared memory: SIGMEDIAN, LINEARFIT, GESDT at any N and the window
+//    modes at N > 32 (reject_stack_kernel), one thread per pixel column.
+//    - The column's N values live in shared memory laid out [N][threads]
+//      (element k of thread t at k*threads + t: no bank conflicts), with a
+//      second such array where the mode needs one (MAD deviations, the
+//      keep flags of LINEARFIT and GESDT) or, for a weighted mean in the
+//      other modes, the original values.  When they do not fit a block of
+//      32 threads, the columns live in a global scratch buffer laid out
+//      [N][cols], and the launcher walks the pixels in chunks of `cols`.
+//    - Values are insertion-sorted as they are loaded; the mask modes
+//      count ranks and the N-r<=4 guard in the thread's serial loop;
+//      SIGMEDIAN re-sorts in place after each replacement round; GESDT
+//      reads its λ table through the read-only cache, pass 1 records the
+//      last flagged walk step, pass 2 replays the walk.
+//    - A weighted mean in LINEARFIT, GESDT or MAD re-reads the column's
+//      original values from global memory (mostly from L2).
 //
 // Arithmetic follows the plain version operation by operation: sums run
 // in row order, the multiply-adds XLA contracts in the reference are
@@ -73,8 +95,9 @@ constexpr int NO_NORM = 0;
 constexpr int ADDITIVE = 1;
 constexpr int ADDITIVE_SCALING = 3;
 
-// ops/rejection.py SIGMEDIAN_MAX_ROUNDS
+// ops/rejection.py SIGMEDIAN_MAX_ROUNDS, WINSOR_MAX_STEPS
 constexpr int SIGMEDIAN_MAX_ROUNDS = 1000;
+constexpr int WINSOR_MAX_STEPS = 1000;
 
 constexpr float INV_U16 = (float)(1.0 / 65535.0);
 
@@ -100,7 +123,8 @@ struct Params {
   int* rejh;
   float* scratch;            // global columns when shared memory is short
   int cols;                  // columns of the scratch buffer
-  unsigned long long* capped;  // SIGMEDIAN pixels stopped at the round cap
+  unsigned long long* capped;  // loops stopped at their mode's bound
+  unsigned* queue;             // register path: the next pixel to hand out
 };
 
 // One pixel column: element k at p[k * stride] — in shared memory
@@ -153,45 +177,36 @@ __device__ float mad_spread(Col xs, Col d, int lo, int hi, float med) {
   return window_median(d, hi - lo, 0, hi - lo);
 }
 
-// Iterated winsorized sigma (rejection_float.c:222-236) with the
-// reference's schedule: 3 plain steps, a guarded Aitken jump, the freeze
-// check, at most 48 steps.  w holds the accumulated clipped values.
-__device__ float winsor_sd(Col xs, Col w, int lo, int hi, float med) {
+// Iterated winsorized sigma (rejection_float.c:222-236), the exact C
+// iteration: no extrapolation, at most WINSOR_MAX_STEPS steps (``capped``
+// is set when a column is still moving after them).  The accumulated
+// clipped values are clamp(xs[k], L, H): the column is sorted and nested
+// clamps compose, so two floats replace the w array.
+__device__ float winsor_sd(Col xs, int lo, int hi, float med, bool& capped) {
   float sigma = window_sd(xs, lo, hi);
+  if (hi - lo <= 1) return sigma;
   float n = fmaxf((float)(hi - lo), 1.f);
   float nm1 = fmaxf(n - 1.f, 1.f);
-  for (int k = lo; k < hi; ++k) w[k] = xs[k];
-  float h1 = sigma + 1.f, h2 = 0.f;
-  bool frozen = (hi - lo) <= 1;
-  for (int it = 0; !frozen && it < 48; it += 3) {
-    for (int s = 0; s < 3 && !frozen; ++s) {
-      float m0 = __fmaf_rn(-1.5f, sigma, med);
-      float m1 = __fmaf_rn(1.5f, sigma, med);
-      float t1 = 0.f;
-      for (int k = lo; k < hi; ++k) {
-        float v = fminf(fmaxf(w[k], m0), m1);
-        w[k] = v;
-        t1 += v;
-      }
-      float mean = t1 / n;
-      float t2 = 0.f;
-      for (int k = lo; k < hi; ++k) {
-        float dv = w[k] - mean;
-        t2 += dv * dv;
-      }
-      float ns = 1.134f * sqrtf(fmaxf(t2 / nm1, 0.f));
-      frozen = fabsf(ns - sigma) <= sigma * 5e-4f;
-      h2 = h1;
-      h1 = sigma;
-      sigma = ns;
+  float L = -INFINITY, H = INFINITY;
+  for (int it = 0; it < WINSOR_MAX_STEPS; ++it) {
+    float m0 = __fmaf_rn(-1.5f, sigma, med);
+    float m1 = __fmaf_rn(1.5f, sigma, med);
+    L = fminf(fmaxf(L, m0), m1);
+    H = fminf(fmaxf(H, m0), m1);
+    float t1 = 0.f;
+    for (int k = lo; k < hi; ++k) t1 += fminf(fmaxf(xs[k], L), H);
+    float mean = t1 / n;
+    float t2 = 0.f;
+    for (int k = lo; k < hi; ++k) {
+      float dv = fminf(fmaxf(xs[k], L), H) - mean;
+      t2 += dv * dv;
     }
-    if (frozen) break;
-    float den = sigma - 2.f * h1 + h2;
-    float num = (sigma - h1) * (sigma - h1);
-    bool ok = fabsf(den) > 1e-12f;
-    float sa = sigma - num / (ok ? den : 1.f);
-    if (ok && sa > 0.f && fabsf(sa - sigma) < sigma) sigma = sa;
+    float ns = 1.134f * sqrtf(fmaxf(t2 / nm1, 0.f));
+    bool conv = fabsf(ns - sigma) <= sigma * 5e-4f;
+    sigma = ns;
+    if (conv) return sigma;
   }
+  capped = true;
   return sigma;
 }
 
@@ -437,6 +452,18 @@ __device__ float load_value(const Params& a, int k, int px) {
   return x;
 }
 
+// Whether a mode keeps a second per-column array (MAD deviations, the keep
+// flags of LINEARFIT and GESDT); in the other modes the second array, when
+// there is one, holds a weighted mean's original values.
+__host__ __device__ bool uses_aux(int rtype) {
+  return rtype == MAD || rtype == LINEARFIT || rtype == GESDT;
+}
+
+// Per-column arrays of the shared-memory and global layouts.
+__host__ __device__ int column_arrays(int rtype, bool weighted) {
+  return uses_aux(rtype) || weighted ? 2 : 1;
+}
+
 template <typename T, bool GLOBAL>
 __global__ void reject_stack_kernel(Params a, int p0, int p1) {
   extern __shared__ float smem[];
@@ -444,6 +471,9 @@ __global__ void reject_stack_kernel(Params a, int p0, int p1) {
   int px = p0 + blockIdx.x * blockDim.x + t;
   if (px >= p1) return;
   const int n = a.n;
+  // a weighted mean keeps the original values in the second array when
+  // the mode leaves it free, so the stack is read once
+  const bool orig_in_aux = a.weights != nullptr && !uses_aux(a.rtype);
   Col xs, aux;
   if (GLOBAL) {
     float* base = a.scratch + (px - p0);
@@ -460,6 +490,7 @@ __global__ void reject_stack_kernel(Params a, int p0, int p1) {
   int nvalid = 0, n_neg = 0;
   for (int k = 0; k < n; ++k) {
     float x = load_value<T>(a, k, px);
+    if (orig_in_aux) aux[k] = x;
     if (x != 0.f && isfinite(x)) {
       int j = nvalid++;
       while (j > 0 && xs[j - 1] > x) {
@@ -510,7 +541,9 @@ __global__ void reject_stack_kernel(Params a, int p0, int p1) {
     bool active = nvalid > 1;
     while (active) {
       float med = window_median(xs, n, w.lo, w.hi);
-      float sig = winsor_sd(xs, aux, w.lo, w.hi, med);
+      bool capped = false;
+      float sig = winsor_sd(xs, w.lo, w.hi, med, capped);
+      if (capped && a.capped != nullptr) atomicAdd(a.capped, 1ULL);
       active = clip_round(xs, w, med, sig, siglow, sighigh) &&
                (w.hi - w.lo) > 3;
     }
@@ -553,7 +586,7 @@ __global__ void reject_stack_kernel(Params a, int p0, int p1) {
     // K1e: weighted mean over the original values in [pmin, pmax]
     float wsum = 0.f, wnorm = 0.f, fb = 0.f;
     for (int k = 0; k < n; ++k) {
-      float x = load_value<T>(a, k, px);
+      float x = orig_in_aux ? aux[k] : load_value<T>(a, k, px);
       if (x >= pmin && x <= pmax && x != 0.f) {
         float wk = __ldg(a.weights + k * a.w_sn + px * a.w_sp);
         wsum += x * wk;
@@ -587,21 +620,594 @@ __global__ void reject_stack_kernel(Params a, int p0, int p1) {
   a.rejh[px] = w.rejh;
 }
 
-// Threads per block when the columns fit shared memory (two [n][threads]
-// float arrays, at least 32 threads), else 0: global scratch columns.
-int smem_threads(int n) {
+// ---------------------------------------------------------------------------
+// K1a / K1e register path: the window modes at N <= 32 frames
+// ---------------------------------------------------------------------------
+
+constexpr unsigned FULL_WARP = 0xffffffffu;
+constexpr int REG_THREADS = 128;
+// pixels a lane should get at least, when sizing the grid
+constexpr int REG_PIXELS_PER_LANE = 8;
+// A warp leaves its σ steps once this many lanes wait to act.  On the
+// main-path block 16 refills too often and 32 lets lanes idle too long
+// (scripts/k1_variants.py; PERF.md §6).
+constexpr int READY_LANES = 24;
+
+// Bits [lo, hi) of a row mask, 0 <= lo, hi <= 32 (empty when hi <= lo).
+__device__ __forceinline__ unsigned span_mask(int lo, int hi) {
+  return (unsigned)(((1ull << hi) - 1ull) & ~((1ull << lo) - 1ull));
+}
+
+__device__ __forceinline__ bool row_in(unsigned mask, int k) {
+  return (mask >> k) & 1u;
+}
+
+// Register arrays are padded to a power of two for the networks below.
+// (Every loop over them has a constant trip count, so that it unrolls and
+// no array is indexed at run time.)
+__host__ __device__ constexpr int pow2_up(int n) {
+  return n <= 8 ? 8 : n <= 16 ? 16 : 32;
+}
+
+__host__ __device__ constexpr int log2_of(int p2) {
+  return p2 == 8 ? 3 : p2 == 16 ? 4 : 5;
+}
+
+// Batcher's odd-even merge sort over NMAX registers, ascending.  Every
+// comparator puts the smaller value at the lower index, so the network for
+// the next power of two, less its comparators that touch an index past
+// NMAX (an +inf pad that never moves), sorts NMAX values.  With invalid
+// entries at +inf and no NaN it yields the multiset of the insertion
+// sort, bit for bit.
+template <int NMAX>
+__device__ __forceinline__ void sort_net(float (&v)[NMAX]) {
+  constexpr int P2 = pow2_up(NMAX), L2 = log2_of(P2);
+#pragma unroll
+  for (int lp = 0; lp < L2; ++lp) {
+#pragma unroll
+    for (int lk = L2 - 1; lk >= 0; --lk) {
+      const int p = 1 << lp, k = 1 << lk, j0 = k % p;
+#pragma unroll
+      for (int lo = 0; lo < NMAX; ++lo) {
+        const int hi = lo + k;
+        if (lk <= lp && lo >= j0 && (lo - j0) % (2 * k) < k && hi < NMAX &&
+            lo / (2 * p) == hi / (2 * p)) {
+          float a = v[lo], b = v[hi];
+          v[lo] = fminf(a, b);
+          v[hi] = fmaxf(a, b);
+        }
+      }
+    }
+  }
+}
+
+// v[i] by a tree of selects on the bits of i (no dynamic index, depth
+// log2 NMAX); 0 when i >= n.
+template <int NMAX>
+__device__ __forceinline__ float reg_at(const float (&v)[NMAX], int i,
+                                        int n) {
+  constexpr int P2 = pow2_up(NMAX), L2 = log2_of(P2);
+  float t[P2 / 2];
+#pragma unroll
+  for (int k = 0; k < P2 / 2; ++k) {
+    float lo = 2 * k < NMAX ? v[2 * k] : 0.f;
+    float hi = 2 * k + 1 < NMAX ? v[2 * k + 1] : 0.f;
+    t[k] = (i & 1) ? hi : lo;
+  }
+#pragma unroll
+  for (int lev = 1; lev < L2; ++lev) {
+#pragma unroll
+    for (int k = 0; k < P2 / 4; ++k) {
+      if (k < (P2 >> (lev + 1))) {
+        t[k] = ((i >> lev) & 1) ? t[2 * k + 1] : t[2 * k];
+      }
+    }
+  }
+  return i < n ? t[0] : 0.f;
+}
+
+template <int NMAX>
+__device__ __forceinline__ float reg_median(const float (&xs)[NMAX],
+                                            int n_all, int lo, int hi) {
+  int n = max(hi - lo, 1);
+  return 0.5f * (reg_at(xs, lo + (n - 1) / 2, n_all) +
+                 reg_at(xs, lo + n / 2, n_all));
+}
+
+// Loops over rows k < n skip whole groups of 8 past the frame count n
+// (the same n for every lane, so the skip does not diverge).
+template <int NMAX>
+__device__ __forceinline__ float reg_window_sd(const float (&xs)[NMAX],
+                                               int n_rows, int lo, int hi) {
+  const unsigned wm = span_mask(lo, hi);
+  float t1 = 0.f, t2 = 0.f;
+#pragma unroll
+  for (int g = 0; g < NMAX; g += 8) {
+    if (g < n_rows) {
+#pragma unroll
+      for (int k = g; k < g + 8; ++k) {
+        if (row_in(wm, k)) {
+          float v = xs[k];
+          t1 += v;
+          t2 += v * v;
+        }
+      }
+    }
+  }
+  float n = (float)(hi - lo);
+  float mean = t1 / fmaxf(n, 1.f);
+  float var = __fmaf_rn(-t1, mean, t2) / fmaxf(n - 1.f, 1.f);
+  float sd = sqrtf(fmaxf(var, 0.f));
+  return n > 1.f ? sd : 0.f;
+}
+
+// Median of |x - med| over the window: the deviations sorted in registers.
+template <int NMAX>
+__device__ __forceinline__ float reg_mad(const float (&xs)[NMAX], int lo,
+                                         int hi, float med) {
+  const unsigned wm = span_mask(lo, hi);
+  float d[NMAX];
+#pragma unroll
+  for (int k = 0; k < NMAX; ++k) {
+    d[k] = row_in(wm, k) ? fabsf(xs[k] - med) : INFINITY;
+  }
+  sort_net(d);
+  int m = hi - lo;
+  return reg_median(d, m, 0, m);
+}
+
+template <int NMAX>
+__device__ __forceinline__ bool reg_clip_round(const float (&xs)[NMAX],
+                                               int n_rows, Window& w,
+                                               float center, float spread,
+                                               float siglow, float sighigh) {
+  const unsigned wm = span_mask(w.lo, w.hi);
+  int ncl = 0, nch = 0;
+#pragma unroll
+  for (int g = 0; g < NMAX; g += 8) {
+    if (g < n_rows) {
+#pragma unroll
+      for (int k = g; k < g + 8; ++k) {
+        if (row_in(wm, k)) {
+          float v = xs[k];
+          if ((center - v) > spread * siglow) ++ncl;
+          if ((v - center) > spread * sighigh) ++nch;
+        }
+      }
+    }
+  }
+  int max_acc = max(w.hi - w.lo - w.r - 4, 0);
+  int n_low = min(ncl, max_acc);
+  int n_high = min(nch, max_acc - n_low);
+  bool trunc = n_high > 0 && n_high < nch;
+  if (trunc) {
+    w.seg_lo = w.hi - nch + n_high;
+    w.seg_hi = w.hi;
+  }
+  w.lo += n_low;
+  w.hi -= trunc ? nch : n_high;
+  w.r += n_low + n_high;
+  w.rejl += n_low;
+  w.rejh += n_high;
+  return n_low + n_high > 0;
+}
+
+// One lane's pixel: its sorted column (and, for a weighted mean, its
+// normalized values in frame order), the kept window, and the state of
+// the winsorized σ iteration between steps.
+template <int NMAX, bool WEIGHTED>
+struct Lane {
+  float xs[NMAX];
+  int px, nvalid, n_neg;
+  Window w;
+  float med, sigma, L, H, fn, nm1;
+  unsigned wm;
+  int steps;
+};
+
+// Normalize frame k's raw value x with the per-frame coefficients in
+// shared memory.
+template <typename T>
+__device__ __forceinline__ float norm_value(const Params& a, const float* sc,
+                                            const float* off,
+                                            const float* mu, int k,
+                                            float x) {
+  float s = sc[k];
+  if (sizeof(T) == 2) {
+    x = x + 32768.f;
+    if (a.mode == NO_NORM) x = x * INV_U16;
+    else s = s * INV_U16;
+  }
+  if (a.mode == ADDITIVE || a.mode == ADDITIVE_SCALING) {
+    float o = __fmaf_rn(x, s, -off[k]);
+    x = x != 0.f ? o : 0.f;
+  } else if (a.mode != NO_NORM) {
+    x = x * s * mu[k];
+  }
+  return x;
+}
+
+// A weighted mean keeps the lane's normalized column in frame order in
+// shared memory, element k at xcol[k * REG_THREADS] (no bank conflicts).
+template <typename T, int NMAX, bool WEIGHTED>
+__device__ __forceinline__ void lane_load(const Params& a, const float* sc,
+                                          const float* off, const float* mu,
+                                          float* xcol,
+                                          Lane<NMAX, WEIGHTED>& s) {
+  const int n = a.n;
+  // every load first, none behind a branch on another's value, so the
+  // column costs one memory latency; rows past n re-read row n-1
+  float raw[NMAX];
+#pragma unroll
+  for (int g = 0; g < NMAX; g += 8) {
+    if (g < n) {
+#pragma unroll
+      for (int k = g; k < g + 8; ++k) {
+        raw[k] = (float)((const T*)a.stack)[(size_t)min(k, n - 1) * a.p +
+                                            s.px];
+      }
+    }
+  }
+  int nvalid = 0, n_neg = 0;
+#pragma unroll
+  for (int k = 0; k < NMAX; ++k) {
+    float x = k < n ? norm_value<T>(a, sc, off, mu, k, raw[k]) : 0.f;
+    if constexpr (WEIGHTED) {
+      if (k < n) xcol[k * REG_THREADS] = x;
+    }
+    bool ok = k < n && x != 0.f && isfinite(x);
+    s.xs[k] = ok ? x : INFINITY;
+    nvalid += ok;
+    n_neg += ok && x < 0.f;
+  }
+  sort_net(s.xs);
+  s.nvalid = nvalid;
+  s.n_neg = n_neg;
+  s.w = Window{0, nvalid, 0, 0, 0, 0, 0};
+}
+
+// NO_REJEC, PERCENTILE, SIGMA and MAD: the whole rejection at once.
+template <int NMAX, bool WEIGHTED>
+__device__ __forceinline__ void lane_reject(const Params& a,
+                                            Lane<NMAX, WEIGHTED>& s) {
+  const int n = a.n, nvalid = s.nvalid, rtype = a.rtype;
+  const float siglow = a.siglow, sighigh = a.sighigh;
+  Window& w = s.w;
+  if (rtype == PERCENTILE) {
+    float med = reg_median(s.xs, n, 0, nvalid);
+    bool dead = med == 0.f || nvalid <= 1;
+    int nl = 0, nh = 0;
+#pragma unroll
+    for (int k = 0; k < NMAX; ++k) {
+      if (k < nvalid) {
+        float v = s.xs[k];
+        if ((med - v) > med * siglow) ++nl;
+        if ((v - med) > med * sighigh) ++nh;
+      }
+    }
+    w.lo = dead ? 0 : nl;
+    w.hi = dead ? 0 : nvalid - nh;
+    w.rejl = dead ? 0 : nl;
+    w.rejh = dead ? 0 : nh;
+  } else if (rtype == SIGMA || rtype == MAD) {
+    float med = reg_median(s.xs, n, 0, nvalid);
+    bool dead = med == 0.f || nvalid <= 1;
+    bool active = !dead, first = true;
+    while (active) {
+      float spread = rtype == MAD ? reg_mad(s.xs, w.lo, w.hi, med)
+                                  : reg_window_sd(s.xs, n, w.lo, w.hi);
+      if (!first) med = reg_median(s.xs, n, w.lo, w.hi);
+      first = false;
+      active = reg_clip_round(s.xs, n, w, med, spread, siglow, sighigh) &&
+               (w.hi - w.lo) > 3;
+    }
+    if (dead) w.lo = w.hi = w.seg_hi = 0;
+  }
+}
+
+// A winsorized clipping round begins: its median, σ0 and (L, H).
+template <int NMAX, bool WEIGHTED>
+__device__ __forceinline__ bool lane_round_start(int n_rows,
+                                                 Lane<NMAX, WEIGHTED>& s) {
+  s.med = reg_median(s.xs, n_rows, s.w.lo, s.w.hi);
+  s.sigma = reg_window_sd(s.xs, n_rows, s.w.lo, s.w.hi);
+  s.fn = fmaxf((float)(s.w.hi - s.w.lo), 1.f);
+  s.nm1 = fmaxf(s.fn - 1.f, 1.f);
+  s.L = -INFINITY;
+  s.H = INFINITY;
+  s.wm = span_mask(s.w.lo, s.w.hi);
+  s.steps = 0;
+  return s.w.hi - s.w.lo > 1;
+}
+
+// One step of the winsorized σ iteration.  Returns false once σ settled
+// or the step bound is reached (then counted in ``capped``).
+template <int NMAX, bool WEIGHTED>
+__device__ __forceinline__ bool lane_sigma_step(const Params& a,
+                                                Lane<NMAX, WEIGHTED>& s) {
+  const int n = a.n;
+  float m0 = __fmaf_rn(-1.5f, s.sigma, s.med);
+  float m1 = __fmaf_rn(1.5f, s.sigma, s.med);
+  float L = fminf(fmaxf(s.L, m0), m1);
+  float H = fminf(fmaxf(s.H, m0), m1);
+  float wv[NMAX];
+  float t1 = 0.f;
+#pragma unroll
+  for (int g = 0; g < NMAX; g += 8) {
+    if (g < n) {
+#pragma unroll
+      for (int k = g; k < g + 8; ++k) {
+        wv[k] = fminf(fmaxf(s.xs[k], L), H);
+        if (row_in(s.wm, k)) t1 += wv[k];
+      }
+    }
+  }
+  float mean = t1 / s.fn;
+  float t2 = 0.f;
+#pragma unroll
+  for (int g = 0; g < NMAX; g += 8) {
+    if (g < n) {
+#pragma unroll
+      for (int k = g; k < g + 8; ++k) {
+        if (row_in(s.wm, k)) {
+          float dv = wv[k] - mean;
+          t2 += dv * dv;
+        }
+      }
+    }
+  }
+  float ns = 1.134f * sqrtf(fmaxf(t2 / s.nm1, 0.f));
+  bool conv = fabsf(ns - s.sigma) <= s.sigma * 5e-4f;
+  s.L = L;
+  s.H = H;
+  s.sigma = ns;
+  if (conv) return false;
+  if (++s.steps < WINSOR_MAX_STEPS) return true;
+  if (a.capped != nullptr) atomicAdd(a.capped, 1ULL);
+  return false;
+}
+
+// The (weighted) mean of the kept values, written out.
+template <typename T, int NMAX, bool WEIGHTED>
+__device__ __forceinline__ void lane_finish(const Params& a,
+                                            const float* xcol,
+                                            const float* wframe,
+                                            Lane<NMAX, WEIGHTED>& s) {
+  const int n = a.n, nvalid = s.nvalid;
+  Window w = s.w;
+  if (nvalid <= 1) {  // kept <= 1 before rejection: keep as is
+    w.lo = 0;
+    w.hi = nvalid;
+    w.seg_hi = 0;
+    w.rejl = w.rejh = 0;
+  }
+  const unsigned km = span_mask(w.lo, w.hi) | span_mask(w.seg_lo, w.seg_hi);
+  float sum = 0.f, pmin = INFINITY, pmax = -INFINITY;
+  int nkept = 0;
+#pragma unroll
+  for (int g = 0; g < NMAX; g += 8) {
+    if (g < n) {
+#pragma unroll
+      for (int k = g; k < g + 8; ++k) {
+        if (row_in(km, k)) {
+          float v = s.xs[k];
+          sum += v;
+          ++nkept;
+          pmin = fminf(pmin, v);
+          pmax = fmaxf(pmax, v);
+        }
+      }
+    }
+  }
+  float result = sum / (float)max(nkept, 1);
+  if constexpr (WEIGHTED) {
+    if (nkept > 0) {
+      // K1e: weighted mean over the original values in [pmin, pmax];
+      // per-frame weights come from shared memory, per-pixel ones are
+      // loaded first, all together
+      float wt[NMAX];
+#pragma unroll
+      for (int g = 0; g < NMAX; g += 8) {
+        if (g < n) {
+#pragma unroll
+          for (int k = g; k < g + 8; ++k) {
+            wt[k] = a.w_sp == 0 ? wframe[min(k, n - 1)]
+                                : __ldg(a.weights + min(k, n - 1) * a.w_sn +
+                                        s.px * a.w_sp);
+          }
+        }
+      }
+      float wsum = 0.f, wnorm = 0.f, fb = 0.f;
+#pragma unroll
+      for (int k = 0; k < NMAX; ++k) {
+        float x = k < n ? xcol[k * REG_THREADS] : 0.f;
+        if (x >= pmin && x <= pmax && x != 0.f) {
+          float wk = wt[k];
+          wsum += x * wk;
+          wnorm += wk;
+          if (x > 0.f) fb += x;
+        }
+      }
+      result = (wnorm != 0.f && wsum != 0.f) ? wsum / wnorm
+                                             : fb / (float)nkept;
+    }
+  }
+  if (nkept == 0) {
+    // median of the whole column, invalid entries counted as zeros
+    int nz = n - nvalid;
+    float v[2];
+    int ks[2] = {(n - 1) / 2, n / 2};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      int k = ks[i];
+      int idx = k < s.n_neg ? k : k - nz;
+      v[i] = (k >= s.n_neg && k < s.n_neg + nz)
+                 ? 0.f
+                 : reg_at(s.xs, min(max(idx, 0), n - 1), n);
+    }
+    result = 0.5f * (v[0] + v[1]);
+  }
+  a.mean[s.px] = result;
+  a.rejl[s.px] = w.rejl;
+  a.rejh[s.px] = w.rejh;
+}
+
+// The window modes with the column in registers.  Warps take pixels from
+// one counter for the grid (``queue``, zeroed before the launch); every
+// lane works its own pixel.  The winsorized σ iteration runs as a
+// warp-wide loop of single steps while fewer than READY_LANES lanes have
+// finished theirs; then those lanes, together, clip, start their next
+// round or write their result and take a new pixel.  A lane whose pixel
+// settled early so works on instead of idling until the warp's slowest
+// pixel settles.  Per pixel the operations and their order are those of
+// the plain version, whatever pixels share a warp.
+template <typename T, int NMAX, bool WEIGHTED, bool WINSOR>
+__global__ void __launch_bounds__(REG_THREADS)
+    reg_window_kernel(Params a) {
+  __shared__ float sc[NMAX], off[NMAX], mu[NMAX];
+  __shared__ float xv[WEIGHTED ? NMAX * REG_THREADS : 1];
+  __shared__ float wt[NMAX];  // per-frame weights (pixel stride 0)
+  const int lane = threadIdx.x & 31;
+  float* const xcol = xv + (WEIGHTED ? threadIdx.x : 0);
+  const unsigned p1 = (unsigned)a.p;
+  for (int k = threadIdx.x; k < a.n; k += blockDim.x) {
+    sc[k] = a.scale[k];
+    off[k] = a.offset[k];
+    mu[k] = a.mul[k];
+    if (WEIGHTED && a.w_sp == 0) wt[k] = a.weights[k * a.w_sn];
+  }
+  __syncthreads();
+
+  Lane<NMAX, WEIGHTED> s;
+  bool has = false, stepping = false, done = false;
+  for (;;) {
+    // the lanes that are not stepping act together until each steps or
+    // has run dry: a lane whose σ iteration ended clips its window, then
+    // starts its next round or writes its result; a lane without a pixel
+    // takes the next one, loads and sorts it, and starts its first round
+    for (;;) {
+      const bool act = !stepping && !done;
+      if (__ballot_sync(FULL_WARP, act) == 0) break;
+      bool round = false;
+      if (WINSOR && act && has) {
+        round = reg_clip_round(s.xs, a.n, s.w, s.med, s.sigma, a.siglow,
+                               a.sighigh) &&
+                (s.w.hi - s.w.lo) > 3;
+        if (!round) {
+          lane_finish<T>(a, xcol, wt, s);
+          has = false;
+        }
+      }
+      const unsigned want = __ballot_sync(FULL_WARP, act && !has);
+      bool fresh = false;
+      if (want != 0) {
+        const int leader = __ffs(want) - 1;
+        unsigned base = 0;
+        if (lane == leader) base = atomicAdd(a.queue, (unsigned)__popc(want));
+        base = __shfl_sync(FULL_WARP, base, leader);
+        if ((want >> lane) & 1u) {
+          unsigned q = base + __popc(want & ((1u << lane) - 1u));
+          if (q < p1) {
+            s.px = (int)q;
+            has = fresh = true;
+          } else {
+            done = true;
+          }
+        }
+      }
+      if (fresh) {
+        lane_load<T>(a, sc, off, mu, xcol, s);
+        if constexpr (WINSOR) {
+          // a column of at most one value goes to the clip, which keeps it
+          round = s.nvalid > 1;
+          s.med = s.sigma = 0.f;
+        } else {
+          lane_reject(a, s);
+          lane_finish<T>(a, xcol, wt, s);
+          has = false;
+        }
+      }
+      if (round) stepping = lane_round_start(a.n, s);
+    }
+    if (__ballot_sync(FULL_WARP, stepping) == 0) break;  // all lanes done
+    // σ steps until enough lanes wait to act
+    for (;;) {
+      if (__ballot_sync(FULL_WARP, stepping) == 0) break;
+      if (__popc(__ballot_sync(FULL_WARP, has && !stepping)) >= READY_LANES) {
+        break;
+      }
+      if (stepping) stepping = lane_sigma_step(a, s);
+    }
+  }
+}
+
+template <typename T, int NMAX, bool WEIGHTED, bool WINSOR>
+cudaError_t launch_reg(const Params& a, cudaStream_t stream) {
+  auto kernel = reg_window_kernel<T, NMAX, WEIGHTED, WINSOR>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      REG_THREADS, 0);
+  }
+  if (e == cudaSuccess) e = cudaMemsetAsync(a.queue, 0, sizeof(unsigned), stream);
+  if (e != cudaSuccess) return e;
+  long long want = ((long long)a.p + REG_THREADS * REG_PIXELS_PER_LANE - 1) /
+                   (REG_THREADS * REG_PIXELS_PER_LANE);
+  int blocks = (int)std::max(1LL, std::min(want, (long long)sms * per_sm));
+  kernel<<<blocks, REG_THREADS, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, bool WEIGHTED, bool WINSOR>
+cudaError_t launch_reg_n(const Params& a, cudaStream_t stream) {
+  if (a.n <= 8) return launch_reg<T, 8, WEIGHTED, WINSOR>(a, stream);
+  if (a.n <= 16) return launch_reg<T, 16, WEIGHTED, WINSOR>(a, stream);
+  if (a.n <= 24) return launch_reg<T, 24, WEIGHTED, WINSOR>(a, stream);
+  return launch_reg<T, 32, WEIGHTED, WINSOR>(a, stream);
+}
+
+// One instantiation per column size, weighting and mode class: the
+// winsorized kernel has no MAD code, the others no σ iteration.
+template <typename T>
+cudaError_t launch_reg_mode(const Params& a, cudaStream_t stream) {
+  const bool w = a.weights != nullptr;
+  if (a.rtype == WINSORIZED) {
+    return w ? launch_reg_n<T, true, true>(a, stream)
+             : launch_reg_n<T, false, true>(a, stream);
+  }
+  return w ? launch_reg_n<T, true, false>(a, stream)
+           : launch_reg_n<T, false, false>(a, stream);
+}
+
+// Whether a call takes the register path: a window mode at N <= 32.
+bool register_path(int n, int rtype) {
+  return n <= 32 && (rtype == NO_REJEC || rtype == PERCENTILE ||
+                     rtype == SIGMA || rtype == MAD || rtype == WINSORIZED);
+}
+
+// Threads per block when the columns fit shared memory (`arrays`
+// [n][threads] float arrays, at least 32 threads), else 0: global scratch
+// columns.
+int smem_threads(int n, int arrays) {
   int threads = 128;
-  while (threads > 32 && 2 * (size_t)n * threads * 4 > SMEM_DEFAULT) {
+  while (threads > 32 && arrays * (size_t)n * threads * 4 > SMEM_DEFAULT) {
     threads /= 2;
   }
-  return 2 * (size_t)n * threads * 4 <= SMEM_OPTIN ? threads : 0;
+  return arrays * (size_t)n * threads * 4 <= SMEM_OPTIN ? threads : 0;
 }
 
 template <typename T>
 cudaError_t launch(const Params& a, cudaStream_t stream) {
-  int threads = smem_threads(a.n);
+  const bool weighted = a.weights != nullptr;
+  if (register_path(a.n, a.rtype)) return launch_reg_mode<T>(a, stream);
+  const int arrays = column_arrays(a.rtype, weighted);
+  int threads = smem_threads(a.n, arrays);
   if (threads > 0) {
-    size_t smem = 2 * (size_t)a.n * threads * sizeof(float);
+    size_t smem = arrays * (size_t)a.n * threads * sizeof(float);
     if (smem > SMEM_DEFAULT) {
       cudaError_t e = cudaFuncSetAttribute(
           reject_stack_kernel<T, false>,
@@ -627,18 +1233,24 @@ cudaError_t launch(const Params& a, cudaStream_t stream) {
 
 }  // namespace
 
-// Threads per block of the shared-memory layout for n frames, or 0 when
-// the kernel needs a global scratch buffer of 2 * n * cols floats.
-extern "C" int siril_reject_stack_smem_threads(int n) {
-  return smem_threads(n);
+// Whether a call of n frames in mode rtype (weighted or not) needs a
+// global scratch buffer of 2 * n * cols floats: its columns fit neither
+// registers nor shared memory.
+extern "C" int siril_reject_stack_needs_scratch(int n, int rtype,
+                                                int weighted) {
+  return !register_path(n, rtype) &&
+         smem_threads(n, column_arrays(rtype, weighted != 0)) == 0;
 }
 
 // C entry point bound through ctypes.  Pointers are device pointers
 // (`weights` may be null, `critical` is read only by GESDT, `scratch` only
-// when siril_reject_stack_smem_threads(n) is 0; `capped`, when not null,
+// when siril_reject_stack_needs_scratch says so; `capped`, when not null,
 // is a 64-bit counter to which SIGMEDIAN adds one for every pixel whose
-// loop stopped at SIGMEDIAN_MAX_ROUNDS); the launches go on `stream` and
-// do not synchronize.  Returns the CUDA error code of the
+// loop stopped at SIGMEDIAN_MAX_ROUNDS and WINSORIZED one for every
+// clipping round whose σ iteration stopped at WINSOR_MAX_STEPS; `queue`
+// is a 32-bit word for the register path's pixel counter, which the
+// launch sets to 0 on `stream` first); the launches go on `stream` and do
+// not synchronize.  Returns the CUDA error code of the
 // launch (0 on success).
 extern "C" int siril_reject_stack(
     const void* stack, int is_i16, int n, int p, const void* scale,
@@ -646,17 +1258,21 @@ extern "C" int siril_reject_stack(
     long long w_stride_n, long long w_stride_p, const void* critical,
     int rtype, int mode, float siglow, float sighigh, int n_full,
     int max_outliers, float m_x, float inv_mdx2, void* mean, void* rejl,
-    void* rejh, void* scratch, int cols, void* capped, void* stream) {
+    void* rejh, void* scratch, int cols, void* capped, void* queue,
+    void* stream) {
   if (n <= 0 || p <= 0 || rtype < NO_REJEC || rtype > GESDT) {
     return (int)cudaErrorInvalidValue;
   }
   if (rtype == GESDT && critical == nullptr) return (int)cudaErrorInvalidValue;
+  if (register_path(n, rtype) && queue == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
   Params a{stack, n, p, (const float*)scale, (const float*)offset,
            (const float*)mul, (const float*)weights, w_stride_n,
            w_stride_p, (const float*)critical, rtype, mode, siglow,
            sighigh, n_full, max_outliers, m_x, inv_mdx2, (float*)mean,
            (int*)rejl, (int*)rejh, (float*)scratch, cols,
-           (unsigned long long*)capped};
+           (unsigned long long*)capped, (unsigned*)queue};
   auto fn = is_i16 ? &launch<int16_t> : &launch<float>;
   return (int)fn(a, (cudaStream_t)stream);
 }

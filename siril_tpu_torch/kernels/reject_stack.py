@@ -6,9 +6,11 @@ K1d GESDT) and the weighted mean (K1e), written in CUDA C++ for Hopper
 Replaces the TPU kernel ``siril_tpu/pallas/reject_stack.py::
 pallas_reject_mean`` (:763).  Bound on an H100: the function reads the
 stack once (plus the weights) and writes 12 bytes per pixel (~90 µs for a
-main-path block of 24 × 2.8 Mpix float32); see the source's header.  Any
-frame count works: past 908 frames the columns leave shared memory for a
-global scratch buffer that this wrapper allocates.
+main-path block of 24 × 2.8 Mpix float32); see the source's header for
+its two paths (registers for the window modes at N ≤ 32, shared memory
+for the rest).  Any frame count works: where the columns fit no block's
+shared memory, they live in a global scratch buffer that this wrapper
+allocates.
 
 ``reject_mean`` takes a CPU tensor to the plain version
 (``ops/stacking.reject_stack_plain``) and a CUDA tensor to the kernel,
@@ -17,8 +19,10 @@ fallback from one to the other.  ``launches`` counts the calls that
 launched the kernel, by variant: "K1e" for a weighted mean, else "K1a"
 (window modes), "K1b", "K1c" or "K1d".  One call is one count, also where
 the global-scratch layout walks the pixels in several grids.
-``capped_pixels`` counts the SIGMEDIAN pixels, of either version, whose
-loop stopped at ``SIGMEDIAN_MAX_ROUNDS`` while still replacing values.
+``capped_pixels`` counts, for either version, the SIGMEDIAN pixels whose
+loop stopped at ``SIGMEDIAN_MAX_ROUNDS`` while still replacing values and
+the winsorized clipping rounds whose σ iteration stopped at
+``WINSOR_MAX_STEPS`` before σ settled.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from siril_tpu_torch.ops.stacking import reject_stack_plain
 
 #: kernel-launching calls by variant, K1a … K1e, since the last reset
 launches = dict.fromkeys(("K1a", "K1b", "K1c", "K1d", "K1e"), 0)
-#: per device, an int64 scalar: SIGMEDIAN pixels stopped at the round cap
+#: per device, an int64 scalar: loops stopped at their mode's bound
 _capped = {}
 
 
@@ -67,9 +71,11 @@ def _capped_counter(device: torch.device) -> torch.Tensor:
 
 
 def capped_pixels() -> int:
-    """SIGMEDIAN pixels whose loop stopped at ``SIGMEDIAN_MAX_ROUNDS``
-    while still replacing values, since the last reset: the reference
-    would have run them further.  Waits for the card."""
+    """Loops stopped at their bound since the last reset: SIGMEDIAN pixels
+    still replacing values after ``SIGMEDIAN_MAX_ROUNDS`` rounds, and
+    winsorized rounds whose σ had not settled after ``WINSOR_MAX_STEPS``
+    steps.  The reference would have run them further.  Waits for the
+    card."""
     return sum(int(t) for t in _capped.values())
 
 
@@ -85,7 +91,7 @@ _ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,  # n_full, max_out, m_x, 1/m_dx2
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,          # mean, rejl, rejh
     ctypes.c_void_p, ctypes.c_int,                              # scratch, cols
-    ctypes.c_void_p, ctypes.c_void_p,                           # capped, stream
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # capped, queue, stream
 ]
 
 
@@ -95,8 +101,8 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        lib.siril_reject_stack_smem_threads.argtypes = [ctypes.c_int]
-        lib.siril_reject_stack_smem_threads.restype = ctypes.c_int
+        lib.siril_reject_stack_needs_scratch.argtypes = [ctypes.c_int] * 3
+        lib.siril_reject_stack_needs_scratch.restype = ctypes.c_int
     return lib
 
 
@@ -169,12 +175,15 @@ def reject_mean(stack: torch.Tensor, scale: torch.Tensor,
                                device=dev).contiguous()
     m_x, inv_mdx2 = linearfit_constants(n_full)
     scratch, cols = None, 0
-    if lib.siril_reject_stack_smem_threads(n) == 0:
+    if lib.siril_reject_stack_needs_scratch(n, int(rtype),
+                                            int(weights is not None)):
         cols = max(128, min(p, SCRATCH_BYTES // (2 * n * 4)) // 128 * 128)
         scratch = torch.empty(2 * n * cols, dtype=torch.float32, device=dev)
-    # crit and scratch may be freed on return while the kernel runs: the
-    # caching allocator hands their memory only to later work on this
-    # stream, which runs after the kernel
+    # the register path's pixel counter, set to 0 on the stream before
+    # the kernel.  crit, scratch and queue may be freed on return while the
+    # kernel runs: the caching allocator hands their memory only to later
+    # work on this stream, which runs after the kernel
+    queue = torch.empty(1, dtype=torch.int32, device=dev)
     mean = torch.empty(p, dtype=torch.float32, device=dev)
     rejl = torch.empty(p, dtype=torch.int32, device=dev)
     rejh = torch.empty(p, dtype=torch.int32, device=dev)
@@ -188,7 +197,7 @@ def reject_mean(stack: torch.Tensor, scale: torch.Tensor,
             int(max_outliers), m_x, inv_mdx2, mean.data_ptr(),
             rejl.data_ptr(), rejh.data_ptr(),
             None if scratch is None else scratch.data_ptr(), cols,
-            _capped_counter(dev).data_ptr(), stream)
+            _capped_counter(dev).data_ptr(), queue.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"reject_stack kernel launch failed: CUDA "
                            f"error {rc}")

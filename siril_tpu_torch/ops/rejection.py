@@ -22,9 +22,9 @@ intercept ``m_y − m_x·a`` and line ``a·pos + b``; XLA:CPU does this in its
 elementwise fusions), this version computes it with one rounding too
 (``fma``), and so does the kernel (``__fmaf_rn``): the one-pass variance
 cancels badly in float32, and a different rounding there moves σ by ~1e-4
-relative, enough to flip a candidate near kσ.  The winsorized σ loop copies
-the reference's step schedule exactly: three plain steps, an Aitken Δ²
-jump, the convergence check, at most 48 steps (rejection.py:268-360).
+relative, enough to flip a candidate near kσ.  The winsorized σ loop is
+the exact C iteration (rejection_float.c:222-236), with no extrapolation
+and no early stop before ``WINSOR_MAX_STEPS``.
 """
 
 from __future__ import annotations
@@ -64,6 +64,12 @@ ALL_MODES = WINDOW_MODES | {SIGMEDIAN, LINEARFIT, GESDT}
 #: spinning a kernel thread forever.  The kernel uses the same bound, and
 #: both versions count the pixels that stop at it (``capped``).
 SIGMEDIAN_MAX_ROUNDS = 1000
+
+#: The winsorized σ iteration stops after this many steps of one clipping
+#: round.  The reference iterates until σ settles; the bound keeps a
+#: column from spinning forever.  The kernel uses the same bound, and both
+#: versions count the clipping rounds that stop at it (``capped``).
+WINSOR_MAX_STEPS = 1000
 
 _INF = float("inf")
 
@@ -221,64 +227,86 @@ def _percentile(xs, nvalid, plow, phigh):
     return win
 
 
-def _winsor_sd(xs, s1, s2, lo, hi, med, active, work):
+def _winsor_sd(xs, s1, s2, lo, hi, med, active, work, steps, capped):
     """Iterated winsorized σ — the exact C iteration
     (rejection_float.c:222-236): σ starts at the plain window sd, each
     step re-clips the ACCUMULATED w to med ± 1.5σ, σ ← 1.134·sd(w), and a
-    pixel freezes once |σ−σ0| ≤ 5e-4·σ0.  Every third step takes a
-    guarded Aitken Δ² jump on pixels not yet frozen; at most 48 steps.
-    Pixels whose clipping has stopped (not ``active``) start frozen: the
-    clip round ignores their σ."""
-    _, sd0 = _window_mean_sd(s1, s2, lo, hi)
+    pixel freezes once |σ−σ0| ≤ 5e-4·σ0.  Pixels whose clipping has
+    stopped (not ``active``) start frozen: the clip round ignores their σ.
+
+    The accumulated w is never stored.  The column is sorted and nested
+    clamps compose, clamp(clamp(x, L, H), m0, m1) =
+    clamp(x, clamp(L, m0, m1), clamp(H, m0, m1)), so w = clamp(xs, L, H)
+    with (L, H) starting at (−∞, +∞) and clamped each step: the same
+    values, selected without arithmetic.  ``steps`` (int32 per pixel)
+    gains each pixel's σ steps; pixels still unsettled after
+    ``WINSOR_MAX_STEPS`` steps are added to ``capped`` when it is given."""
+    _, sigma = _window_mean_sd(s1, s2, lo, hi)
     rows = _rows(xs)
     inwin = (rows >= lo) & (rows < hi)
     n = torch.clamp_min((hi - lo).float(), 1.0)
     nm1 = torch.clamp_min(n - 1.0, 1.0)
     size = hi - lo
-    w = xs
-    sigma, h1, h2 = sd0, sd0 + 1.0, torch.zeros_like(sd0)
+    low = torch.full_like(sigma, -_INF)
+    high = torch.full_like(sigma, _INF)
     frozen = (size <= 1) | ~active
-    it = 0
-    while it < 48 and not bool(frozen.all()):
-        for _ in range(3):
-            _count(work, "flops",
-                   lambda: 7 * torch.where(frozen, 0, size).sum())
-            m0 = fma(-1.5, sigma, med)
-            m1 = fma(1.5, sigma, med)
-            w2 = torch.minimum(torch.maximum(w, m0), m1)
-            mean = _colsum(w2, inwin) / n
-            d = w2 - mean
-            var = _colsum(d * d, inwin) / nm1
-            new_sig = 1.134 * torch.sqrt(torch.clamp_min(var, 0.0))
-            conv = torch.abs(new_sig - sigma) <= sigma * 5e-4
-            w = torch.where(frozen, w, w2)
-            h2, h1 = h1, sigma
-            sigma = torch.where(frozen, sigma, new_sig)
-            frozen = frozen | conv
-            it += 1
-        den = sigma - 2.0 * h1 + h2
-        num = (sigma - h1) * (sigma - h1)
-        ok = torch.abs(den) > 1e-12
-        sa = sigma - num / torch.where(ok, den, 1.0)
-        good = ok & (sa > 0.0) & (torch.abs(sa - sigma) < sigma) & ~frozen
-        sigma = torch.where(good, sa, sigma)
+    for _ in range(WINSOR_MAX_STEPS):
+        if bool(frozen.all()):
+            break
+        _count(work, "flops", lambda: 7 * torch.where(frozen, 0, size).sum())
+        m0 = fma(-1.5, sigma, med)
+        m1 = fma(1.5, sigma, med)
+        low2 = torch.minimum(torch.maximum(low, m0), m1)
+        high2 = torch.minimum(torch.maximum(high, m0), m1)
+        w = torch.minimum(torch.maximum(xs, low2), high2)
+        mean = _colsum(w, inwin) / n
+        d = w - mean
+        var = _colsum(d * d, inwin) / nm1
+        new_sig = 1.134 * torch.sqrt(torch.clamp_min(var, 0.0))
+        conv = torch.abs(new_sig - sigma) <= sigma * 5e-4
+        low = torch.where(frozen, low, low2)
+        high = torch.where(frozen, high, high2)
+        sigma = torch.where(frozen, sigma, new_sig)
+        steps += (~frozen).int()
+        frozen = frozen | conv
+    if capped is not None:
+        capped += (~frozen).sum().to(capped)
     return sigma
 
 
-def _winsorized(xs, s1, s2, nvalid, siglow, sighigh, work):
+def _winsorized(xs, s1, s2, nvalid, siglow, sighigh, work, capped):
     """WINSORIZED sigma clipping (rejection_float.c:222-257)."""
     win = _Window(nvalid)
     active = nvalid > 1
+    steps = torch.zeros_like(nvalid)
     while True:
         med = _window_median(xs, win.lo, win.hi)
-        sig = _winsor_sd(xs, s1, s2, win.lo, win.hi, med, active, work)
+        sig = _winsor_sd(xs, s1, s2, win.lo, win.hi, med, active, work,
+                         steps, capped)
         _count(work, "flops", lambda: 4 * torch.where(
             active, win.hi - win.lo, 0).sum())
         changed = win.clip(xs, med, sig, siglow, sighigh, active)
         active = active & changed & ((win.hi - win.lo) > 3)
         if not bool(changed.any()):
             break
+    if work is not None:
+        _count_steps(work, steps)
     return win
+
+
+def _count_steps(work: dict, steps: torch.Tensor) -> None:
+    """Winsorized σ steps of a call, for reading a kernel's divergence:
+    their sum (``winsor_steps``), the most one pixel took
+    (``winsor_steps_max``), and over groups of 32 consecutive pixels (a
+    warp, one pixel a lane) the sum of each group's most
+    (``winsor_warp_steps``) and the number of groups (``winsor_warps``)."""
+    groups = torch.nn.functional.pad(steps, (0, -steps.numel() % 32))
+    _count(work, "winsor_steps", lambda: steps.sum())
+    _count(work, "winsor_warp_steps",
+           lambda: groups.reshape(-1, 32).amax(1).sum())
+    _count(work, "winsor_warps", lambda: groups.numel() // 32)
+    work["winsor_steps_max"] = max(work.get("winsor_steps_max", 0),
+                                   int(steps.max()) if steps.numel() else 0)
 
 
 def _sigmedian(xs, nvalid, siglow, sighigh, work, capped):
@@ -510,8 +538,10 @@ def rejection_mean(stack: torch.Tensor, rtype: int, siglow: float,
     GESDT take the full frame count ``n_full`` (default N).  ``work``,
     when given, accumulates the float operations the data needed
     (``flops``) and the least number of sort comparisons (``compares``),
-    for the roofline bound of the kernel.  ``capped``, an int64 scalar
-    tensor, gains the SIGMEDIAN pixels stopped at ``SIGMEDIAN_MAX_ROUNDS``."""
+    for the roofline bound of the kernel, and the winsorized σ steps
+    (``_count_steps``).  ``capped``, an int64 scalar tensor, gains the
+    pixels whose loop stopped at its bound: SIGMEDIAN's
+    ``SIGMEDIAN_MAX_ROUNDS`` or the winsorized ``WINSOR_MAX_STEPS``."""
     check_rtype(rtype)
     N, P = stack.shape
     n_full = n_full or N
@@ -534,7 +564,8 @@ def rejection_mean(stack: torch.Tensor, rtype: int, siglow: float,
             win = _sigma_or_mad(xs, s1, s2, nvalid, siglow, sighigh,
                                 rtype == MAD, work)
         else:
-            win = _winsorized(xs, s1, s2, nvalid, siglow, sighigh, work)
+            win = _winsorized(xs, s1, s2, nvalid, siglow, sighigh, work,
+                              capped)
         keep = ((rows >= win.lo) & (rows < win.hi)) | \
             ((rows >= win.seg_lo) & (rows < win.seg_hi))
         rejl, rejh = win.rejl, win.rejh

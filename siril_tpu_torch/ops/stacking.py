@@ -85,9 +85,9 @@ class StackResult:
     elapsed_s: float = 0.0
     #: seconds per stage, each ended by a device synchronize
     stage_s: Dict[str, float] = field(default_factory=dict)
-    #: SIGMEDIAN pixels whose loop stopped at ``SIGMEDIAN_MAX_ROUNDS``
-    #: while still replacing values (the reference would run them on)
-    sigmedian_capped: int = 0
+    #: loops stopped at their mode's bound (``kernels/reject_stack.
+    #: capped_pixels``): the reference would have run them on
+    capped: int = 0
 
 
 class StageClock:
@@ -126,18 +126,12 @@ def norm_apply(stack: torch.Tensor, scale: torch.Tensor,
     return stack * scale[:, None] * mul[:, None]
 
 
-def reject_stack_plain(stack: torch.Tensor, scale: torch.Tensor,
-                       offset: torch.Tensor, mul: torch.Tensor, *,
-                       rtype: int, mode: int, siglow: float, sighigh: float,
-                       weights: Optional[torch.Tensor] = None,
-                       critical=None, n_full: int = 0,
-                       max_outliers: int = 0, work: Optional[dict] = None,
-                       capped: Optional[torch.Tensor] = None):
-    """Plain PyTorch version of kernel K1: decode (int16 input), per-frame
-    normalization, rejection and (weighted) mean of an (N, P) stack.
-
-    With int16 input and a normalization, the decode's 1/65535 folds into
-    the per-frame scale — ``(raw + 32768)·(scale/65535)`` — the
+def normalize_block(stack: torch.Tensor, scale: torch.Tensor,
+                    offset: torch.Tensor, mul: torch.Tensor,
+                    mode: int) -> torch.Tensor:
+    """Decode (int16 input) and normalize an (N, P) block as kernel K1
+    does.  With int16 input and a normalization, the decode's 1/65535
+    folds into the per-frame scale — ``(raw + 32768)·(scale/65535)`` — the
     association XLA compiles the reference's decode-then-normalize into."""
     if stack.dtype == torch.int16 and mode != NO_NORM:
         x = stack.float() + 32768.0
@@ -146,7 +140,21 @@ def reject_stack_plain(stack: torch.Tensor, scale: torch.Tensor,
         x = decode_i16(stack)
     else:
         x = stack.float()
-    return rj.rejection_mean(norm_apply(x, scale, offset, mul, mode),
+    return norm_apply(x, scale, offset, mul, mode)
+
+
+def reject_stack_plain(stack: torch.Tensor, scale: torch.Tensor,
+                       offset: torch.Tensor, mul: torch.Tensor, *,
+                       rtype: int, mode: int, siglow: float, sighigh: float,
+                       weights: Optional[torch.Tensor] = None,
+                       critical=None, n_full: int = 0,
+                       max_outliers: int = 0, work: Optional[dict] = None,
+                       capped: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of kernel K1: decode (int16 input), per-frame
+    normalization (``normalize_block``), rejection and (weighted) mean of
+    an (N, P) stack."""
+    return rj.rejection_mean(normalize_block(stack, scale, offset, mul,
+                                             mode),
                              rtype, siglow, sighigh, weights=weights,
                              critical=critical, n_full=n_full,
                              max_outliers=max_outliers, work=work,
@@ -378,8 +386,7 @@ def stack_sequence(seq, args: StackArgs, indices: Optional[np.ndarray] = None,
 
     dev = resolve_device(device)
     _check_stack_args(args)
-    sigmedian = args.method == "rej" and args.rejection == rj.SIGMEDIAN
-    capped0 = k1.capped_pixels() if sigmedian else 0
+    capped0 = k1.capped_pixels()
     t0 = time.perf_counter()
     if indices is None:
         indices = seq.selected_indices()
@@ -396,8 +403,7 @@ def stack_sequence(seq, args: StackArgs, indices: Optional[np.ndarray] = None,
     res = _resident_stack(seq, args, indices, dev, clock)
     if res is None:
         res = _streamed_stack(seq, args, indices, dev, clock, L, H, W)
-    if sigmedian:
-        res.sigmedian_capped = k1.capped_pixels() - capped0
+    res.capped = k1.capped_pixels() - capped0
     res.elapsed_s = time.perf_counter() - t0
     res.stage_s = clock.seconds
     return res

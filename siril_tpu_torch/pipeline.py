@@ -250,7 +250,7 @@ def fused_preprocess_stack(seq: Sequence, args: Optional[FusedArgs] = None,
                                max_outliers, critical)
     from siril_tpu_torch.kernels import reject_stack as k1
 
-    capped0 = k1.capped_pixels() if rtype == rj.SIGMEDIAN else 0
+    capped0 = k1.capped_pixels()
     means = []
     tot_l = torch.zeros((), dtype=torch.int64, device=dev)
     tot_h = torch.zeros((), dtype=torch.int64, device=dev)
@@ -278,10 +278,10 @@ def fused_preprocess_stack(seq: Sequence, args: Optional[FusedArgs] = None,
     img.log_history("Fused register+stack (device-resident)")
     _log.info("fused pipeline: %d frames → stack in %.2fs, rejected %d/%d "
               "px", n, time.perf_counter() - t0, *tot)
-    capped = k1.capped_pixels() - capped0 if rtype == rj.SIGMEDIAN else 0
+    capped = k1.capped_pixels() - capped0
     return StackResult(image=img, total_rejected=tot,
                        elapsed_s=time.perf_counter() - t0,
-                       stage_s=clock.seconds, sigmedian_capped=capped)
+                       stage_s=clock.seconds, capped=capped)
 
 
 def _device_norm_coeffs(frames, n: int, L: int, sa: StackArgs,

@@ -14,6 +14,10 @@ JAX):
 - a stack of 1000 frames, more than the shared-memory layout holds, runs
   with its columns in global scratch memory and matches the plain
   version;
+- the window modes on both of their paths (registers at N ≤ 32, for each
+  column size NMAX = 8, 16, 32; shared memory above), unweighted and
+  weighted, bit-equal to the plain version, with no winsorized loop
+  stopped at its bound;
 - the fused pipeline on the card against the same pipeline on the CPU:
   shifts within 0.01 px, interior max |Δ| ≤ 1e-3 and rejection totals
   within 0.5 % (the reasons of tests/test_torch_pipeline.py: float32 LM
@@ -113,6 +117,33 @@ def test_kernel_weights_vs_plain_on_card(rtype, sl, sh):
         got = k1.reject_mean(stack, *coef, weights=w, **kw)
         ref = reject_stack_plain(stack, *coef, weights=w, **kw)
         _agree(got, ref, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 8, 12, 16, 24, 32, 33, 64])
+def test_kernel_paths_bit_equal_on_card(n):
+    _need_card()
+    rng = np.random.default_rng(100 + n)
+    p = 1 << 14
+    f32 = torch.from_numpy(_mkstack(rng, n, p)).cuda()
+    i16 = (torch.round(f32 * 65535.0) - 32768.0).to(torch.int16)
+    coef = [torch.from_numpy(a.astype(np.float32)).cuda() for a in (
+        1.0 + 0.05 * rng.standard_normal(n), 0.01 * rng.standard_normal(n),
+        np.ones(n))]
+    wf = torch.from_numpy((0.5 + rng.random((n, 1))).astype(np.float32))
+    for rtype, sl, sh in WINDOW:
+        for stack in (f32, i16):
+            for w in (None, wf.cuda()):
+                kw = dict(rtype=rtype, mode=ADDITIVE_SCALING, siglow=sl,
+                          sighigh=sh, weights=w)
+                k1.reset_counts()
+                got = k1.reject_mean(stack, *coef, **kw)
+                capped = torch.zeros((), dtype=torch.int64, device="cuda")
+                ref = reject_stack_plain(stack, *coef, capped=capped, **kw)
+                assert torch.equal(got[0], ref[0])
+                assert torch.equal(got[1], ref[1])
+                assert torch.equal(got[2], ref[2])
+                assert k1.capped_pixels() == int(capped) == 0
 
 
 @pytest.mark.cuda

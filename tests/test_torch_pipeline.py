@@ -7,9 +7,15 @@ Tolerances, each with its reason:
 - registration shifts within 0.01 px: the same star lists up to the
   float32 LM fit (tests/test_torch_registration.py);
 - interior max |Δ| ≤ 1e-3: shifts that differ by ~1e-5 px move lanczos
-  weights by ~1e-5, and a cosmic ray or star peak can flip one rejection
-  decision at kσ, which moves that pixel's mean by ~1e-3 at most;
+  weights by ~1e-5, and a star peak can flip one rejection decision at
+  kσ; on this sequence no such flip moves a mean by more;
 - rejection totals within 0.5 %: the same flips, counted.
+Except where the JAX package's winsorized σ loop leaves the C iteration:
+there a ray the JAX package keeps moves a 5-frame mean by ~0.2.  Those
+pixels are found on the block the port stacked, where the port must equal
+the C-control-flow oracle and the JAX package must not
+(tests/test_torch_rejection.winsorized_vs_jax); the totals are compared
+without their counts.
 """
 
 import os
@@ -29,6 +35,7 @@ from siril_tpu_torch.core.sequence import Sequence
 from siril_tpu_torch.io.fits_io import read_fits
 from siril_tpu_torch.kernels import reject_stack as k1
 from tests.test_pipeline import make_seq
+from tests.test_torch_stacking import spy_k1, winsorized_block_vs_jax
 
 torch.set_num_threads(1)
 
@@ -47,21 +54,29 @@ def both(tmp_path_factory):
 
     targs = convert.fused_args(dataclasses.asdict(args))
     tseq = Sequence.scan("fl_", str(d))
-    got = tpipe.fused_preprocess_stack(tseq, targs, device="cpu")
-    return d, base, seq, ref, tseq, got
+    with pytest.MonkeyPatch.context() as mp:
+        calls = spy_k1(mp)
+        got = tpipe.fused_preprocess_stack(tseq, targs, device="cpu")
+    return d, base, seq, ref, tseq, got, calls
 
 
 def test_fused_vs_jax(both):
-    _, base, seq, ref, tseq, got = both
+    _, base, seq, ref, tseq, got, calls = both
     np.testing.assert_allclose(tseq.reg(0).H[:, :2, 2],
                                seq.reg(0).H[:, :2, 2], atol=0.01)
     assert tseq.reg(0).valid.sum() == 5
     a = ref.image.host()[0]
     b = got.image.host()[0]
-    inner = np.s_[20:-20, 20:-20]
-    assert np.abs(a[inner] - b[inner]).max() <= 1e-3
-    for r, g in zip(ref.total_rejected, got.total_rejected):
-        assert abs(r - g) <= 0.005 * r
+    idx, _, pcount, jcount = winsorized_block_vs_jax(calls)
+    same = np.ones(a.size, bool)
+    same[idx] = False
+    same = same.reshape(a.shape)
+    inner = np.zeros(a.shape, bool)
+    inner[20:-20, 20:-20] = True
+    assert np.abs(a - b)[inner & same].max() <= 1e-3
+    for r, g, pc, jc in zip(ref.total_rejected, got.total_rejected, pcount,
+                            jcount):
+        assert abs((r - jc) - (g - pc)) <= 0.005 * r
     # and the result is right: aligned, cosmic rays rejected
     assert np.abs(b[inner] - base[inner]).mean() < 0.01
     assert b[inner].max() < 0.9
@@ -88,7 +103,7 @@ def test_cli_fusedstack_writes_fits(both):
 
 
 def test_unported_options_raise(both):
-    d, _, _, _, tseq, _ = both
+    d, _, _, _, tseq, _, _ = both
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpipe.fused_preprocess_stack(
             tseq, tpipe.FusedArgs(calib=object()), device="cpu")
@@ -99,3 +114,29 @@ def test_unported_options_raise(both):
     with pytest.raises(NotImplementedError, match="calibration"):
         cli.run(["-d", str(d), "--device", "cpu", "fusedstack", "fl_",
                  "-dark=master"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.run(["-d", str(d), "--device", "cpu", "fusedstack", "fl_",
+                 "-transf=homography"])
+
+
+@pytest.fixture(scope="module")
+def cli_plain(both):
+    """fusedstack through the CLI with no -transf= flag."""
+    return cli.run(["-d", str(both[0]), "--device", "cpu", "fusedstack",
+                    "fl_", "-out=plain"])
+
+
+@pytest.mark.parametrize("transf", ["shift", "similarity"])
+def test_cli_fusedstack_transf_runs_shift(both, cli_plain, transf):
+    """Any -transf= but homography runs shift registration, as the JAX
+    command does (siril_tpu/cli/commands2.py:877-878): the same result as
+    without the flag."""
+    d, plain = both[0], cli_plain
+    flag = cli.run(["-d", str(d), "--device", "cpu", "fusedstack", "fl_",
+                    f"-transf={transf}", f"-out={transf}"])
+    np.testing.assert_array_equal(flag.result.image.host(),
+                                  plain.result.image.host())
+    np.testing.assert_array_equal(flag.sequence.reg(0).H,
+                                  plain.sequence.reg(0).H)
+    assert tuple(flag.result.total_rejected) == \
+        tuple(plain.result.total_rejected)

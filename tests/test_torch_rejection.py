@@ -16,6 +16,13 @@ from a seed.
   tests/test_rejection_golden.py checks the JAX kernels: counts exact
   (SIGMEDIAN's within 4, its counts depend on the iteration path), means
   within rtol 2e-5 / atol 2e-6;
+- winsorized against the C-control-flow oracle (tests/reference_impl.py)
+  on random stacks with cosmic rays: counts equal, means within 2e-6.  The
+  port iterates σ as the C loop does; the JAX package takes an Aitken jump
+  every third step and stops at 48, and so keeps some rays the C loop
+  rejects.  Where the port and the JAX package differ in winsorized, the
+  comparison (``winsorized_vs_jax``) checks that the JAX package differs
+  from the oracle there and the port does not;
 - the CUDA kernel against the plain version on the card: see
   tests/test_torch_cuda.py.
 """
@@ -38,7 +45,8 @@ from siril_tpu_torch.ops.normalization import (
     MULTIPLICATIVE,
     NO_NORM,
 )
-from siril_tpu_torch.ops.stacking import reject_stack_plain
+from siril_tpu_torch.ops.stacking import normalize_block, reject_stack_plain
+from tests import reference_impl as oracle
 
 torch.set_num_threads(1)
 
@@ -84,6 +92,61 @@ def _assert_parity(got, ref):
                                atol=ATOL)
 
 
+def oracle_winsorized(col, siglow, sighigh, w=None):
+    """(rej_low, rej_high, mean) of the C-control-flow oracle on one
+    normalized column; with weights ``w`` (N,) the mean is the reference's
+    weighted mean over the oracle's kept range (median_and_mean.c:
+    1041-1095)."""
+    kept, rl, rh, mean = oracle.reject_pixel(col, "winsorized", siglow,
+                                             sighigh)
+    if w is not None and kept.size:
+        x = np.asarray(col, np.float64)
+        w = np.asarray(w, np.float64)
+        inr = (x >= kept.min()) & (x <= kept.max()) & (x != 0.0)
+        wsum, wnorm = (x * w)[inr].sum(), w[inr].sum()
+        mean = wsum / wnorm if wnorm != 0 and wsum != 0 else \
+            x[inr & (x > 0)].sum() / kept.size
+    return int(rl), int(rh), float(mean)
+
+
+def winsorized_vs_jax(got, ref, xnorm, siglow, sighigh, w=None):
+    """The port's winsorized result ``got`` against the JAX package's
+    ``ref`` on the same normalized (N, P) block ``xnorm``, each a tuple
+    (mean, rej_low, rej_high) of (P,) arrays.  Every pixel keeps the
+    parity check (counts equal, means within ATOL) except where the JAX
+    package differs from the oracle: there the oracle, run on the column,
+    must give the port's counts and mean and not the JAX package's.
+    Returns the differing pixels' indices and the (low, high) rejection
+    counts of the port and of the JAX package summed over them."""
+    gm, gl, gh = (np.asarray(v) for v in got)
+    rm, rl, rh = (np.asarray(v) for v in ref)
+    idx = np.nonzero((gl != rl) | (gh != rh) | (np.abs(gm - rm) > ATOL))[0]
+    wfull = None if w is None else np.broadcast_to(np.asarray(w),
+                                                   xnorm.shape)
+    for p in idx:
+        ol, oh, om = oracle_winsorized(
+            xnorm[:, p], siglow, sighigh,
+            None if wfull is None else wfull[:, p])
+        assert (gl[p], gh[p]) == (ol, oh), (p, "port counts != oracle")
+        assert abs(float(gm[p]) - om) <= ATOL, (p, "port mean != oracle")
+        assert (rl[p], rh[p]) != (ol, oh) or abs(float(rm[p]) - om) > ATOL, \
+            (p, "the JAX package agrees with the oracle here")
+    return (idx, (int(gl[idx].sum()), int(gh[idx].sum())),
+            (int(rl[idx].sum()), int(rh[idx].sum())))
+
+
+def jax_winsorized(xnorm, siglow, sighigh, w=None):
+    """The JAX package's winsorized rejection (its jnp path, which its
+    stack commands run off the TPU) on a normalized (N, P) block."""
+    n, p = xnorm.shape
+    wj = None if w is None else jnp.asarray(
+        np.broadcast_to(np.asarray(w), (n, p)).copy())
+    out = jrj.rejection_mean(jnp.asarray(xnorm), jrj.WINSORIZED, siglow,
+                             sighigh, weights=wj, n_full=n,
+                             with_weights=w is not None)
+    return tuple(np.asarray(o) for o in out)
+
+
 @pytest.mark.parametrize("dtype", ["f32", "i16"])
 @pytest.mark.parametrize("mode", NORMS)
 @pytest.mark.parametrize("rtype,sl,sh", WINDOW)
@@ -101,7 +164,12 @@ def test_plain_vs_jax_block_kernel(rtype, sl, sh, mode, dtype):
                jnp.asarray(mul), jnp.zeros((1, 1), jnp.float32),
                jnp.zeros(1, jnp.float32))
     got = _port(stack, scale, offset, mul, rtype, mode, sl, sh)
-    _assert_parity(got, ref)
+    if rtype == rj.WINSORIZED:
+        xn = normalize_block(*(torch.from_numpy(v) for v in
+                               (stack, scale, offset, mul)), mode).numpy()
+        winsorized_vs_jax(got, ref, xn, sl, sh)
+    else:
+        _assert_parity(got, ref)
     assert got[1].sum() + got[2].sum() > 0 or rtype == rj.NO_REJEC
 
 
@@ -376,6 +444,14 @@ def test_work_count():
                           work=w)
     assert parts[0]["flops"] != parts[1]["flops"]
     assert work["flops"] == parts[0]["flops"] + parts[1]["flops"]
+    # the winsorized σ steps: their sum adds up, the most is the parts'
+    # most, and 7 groups of 32 pixels take at least their share each
+    assert work["winsor_steps"] == sum(w["winsor_steps"] for w in parts)
+    assert work["winsor_steps_max"] == max(w["winsor_steps_max"]
+                                           for w in parts) > 1
+    assert work["winsor_warps"] == 7
+    assert work["winsor_steps"] / 32 <= work["winsor_warp_steps"] <= \
+        7 * work["winsor_steps_max"]
 
 
 def test_frame_limit():
@@ -416,8 +492,9 @@ def test_work_count_masked_modes(rtype, sl, sh):
 
 
 def test_kernel_source_constants_match():
-    """The CUDA source repeats the mode numbers, the normalization modes
-    and the SIGMEDIAN round bound of the Python side; they must agree."""
+    """The CUDA source repeats the mode numbers, the normalization modes,
+    the SIGMEDIAN round bound and the winsorized step bound of the Python
+    side; they must agree."""
     import re
 
     from siril_tpu_torch.kernels import build
@@ -428,7 +505,7 @@ def test_kernel_source_constants_match():
         r"constexpr int (\w+) = (\d+);", src)}
     for name in ("NO_REJEC", "PERCENTILE", "SIGMA", "MAD", "SIGMEDIAN",
                  "WINSORIZED", "LINEARFIT", "GESDT",
-                 "SIGMEDIAN_MAX_ROUNDS"):
+                 "SIGMEDIAN_MAX_ROUNDS", "WINSOR_MAX_STEPS"):
         assert consts[name] == getattr(rj, name), name
     for name in ("NO_NORM", "ADDITIVE", "ADDITIVE_SCALING"):
         assert consts[name] == getattr(nm, name), name
@@ -453,5 +530,96 @@ def test_sigmedian_cap_counted(monkeypatch):
     differs = (one[0] != full[0]) | (one[1] != full[1]) | \
         (one[2] != full[2])
     assert differs.any() and not (differs & ~replaced).any()
+    k1.reset_counts()
+    assert k1.capped_pixels() == 0
+
+
+PINNED = np.array([0.04703686, 0.04947018, 0.04986295, 0.05015909,
+                   0.05094436, 0.05327371, 0.9499962], np.float32)
+
+
+def test_winsorized_pinned_column():
+    """A column on which the JAX package's Aitken-accelerated σ loop
+    undershoots and keeps the 0.95 ray (mean 0.2749, 1 low / 2 high):
+    the port rejects what the C loop rejects."""
+    _, orl, orh, om = oracle.reject_pixel(PINNED, "winsorized", 3.0, 3.0)
+    assert (orl, orh) == (0, 1)
+    mean, rl, rh = rj.rejection_mean(torch.from_numpy(PINNED[:, None]),
+                                     rj.WINSORIZED, 3.0, 3.0)
+    assert (int(rl[0]), int(rh[0])) == (0, 1)
+    assert abs(float(mean[0]) - 0.0501245) <= 2e-6
+    assert abs(float(mean[0]) - om) <= 2e-6
+
+
+@pytest.mark.parametrize("n,p", [(5, 1500), (7, 1500), (12, 1200),
+                                 (24, 800)])
+def test_winsorized_vs_oracle(n, p):
+    """Background 0.1 with noise σ 0.01 and cosmic rays at 1.0 in 1 % of
+    the values: every pixel's counts equal the oracle's and its mean is
+    within 2e-6."""
+    rng = np.random.default_rng(500 + n)
+    x = (0.1 + 0.01 * rng.standard_normal((n, p))).astype(np.float32)
+    x[rng.random((n, p)) < 0.01] = 1.0
+    mean, rl, rh = rj.rejection_mean(torch.from_numpy(x), rj.WINSORIZED,
+                                     3.0, 3.0)
+    mismatch, dmax = 0, 0.0
+    for i in range(p):
+        _, orl, orh, om = oracle.reject_pixel(x[:, i], "winsorized", 3.0,
+                                              3.0)
+        mismatch += (int(rl[i]), int(rh[i])) != (orl, orh)
+        dmax = max(dmax, abs(float(mean[i]) - om))
+    assert mismatch == 0
+    assert dmax <= 2e-6
+    assert int(rh.sum()) > 0
+
+
+def test_winsor_bounds_equal_accumulated_clip():
+    """On sorted columns, the accumulated winsorized values w (each step
+    clamps the previous w) equal clamp(xs, L, H) with (L, H) clamped each
+    step, bit for bit: the form the plain version and the kernel keep."""
+    rng = np.random.default_rng(11)
+    n, p = 24, 20000
+    xs = torch.from_numpy(np.sort(rng.normal(0.3, 0.1, (n, p)).astype(
+        np.float32), axis=0))
+    w = xs
+    low = torch.full((p,), -float("inf"))
+    high = torch.full((p,), float("inf"))
+    for _ in range(12):
+        c = torch.from_numpy(rng.normal(0.3, 0.05, p).astype(np.float32))
+        h = torch.from_numpy(np.abs(rng.normal(0, 0.1, p)).astype(
+            np.float32))
+        m0, m1 = c - h, c + h
+        w = torch.minimum(torch.maximum(w, m0), m1)
+        low = torch.minimum(torch.maximum(low, m0), m1)
+        high = torch.minimum(torch.maximum(high, m0), m1)
+        form = torch.minimum(torch.maximum(xs, low), high)
+        assert torch.equal(form.view(torch.int32), w.view(torch.int32))
+
+
+def test_winsor_cap_counted(monkeypatch):
+    """A clipping round whose σ iteration stops at WINSOR_MAX_STEPS before
+    σ settled is counted (the reference would run it on); a round that
+    settled is not."""
+    rng = np.random.default_rng(78)
+    n = 12
+    stack = _mkstack(rng, n=n, p=400)
+    stack[:, :5] = 0.5                 # σ0 = 0: settles at its first step
+    scale, offset, mul = _coeffs(rng, n)
+    k1.reset_counts()
+    full = _port(stack, scale, offset, mul, rj.WINSORIZED, NO_NORM, 3.0,
+                 3.0)
+    assert k1.capped_pixels() == 0
+    monkeypatch.setattr(rj, "WINSOR_MAX_STEPS", 1)
+    k1.reset_counts()
+    work = {}
+    one = reject_stack_plain(*(torch.from_numpy(v) for v in
+                               (stack, scale, offset, mul)),
+                             rtype=rj.WINSORIZED, mode=NO_NORM, siglow=3.0,
+                             sighigh=3.0, work=work,
+                             capped=k1._capped_counter(torch.device("cpu")))
+    rounds = work["winsor_steps"]      # one step a round at this bound
+    assert 0 < k1.capped_pixels() <= rounds - 5
+    differs = (one[0].numpy() != full[0])
+    assert differs.any() and not differs[:5].any()
     k1.reset_counts()
     assert k1.capped_pixels() == 0
