@@ -6,7 +6,8 @@ Phases, each printing a flushed start and end line with elapsed seconds:
   1. card   — device name, count, and nvidia-smi's name and power limit;
   2. build  — every kernel of the main path, from an empty build directory,
               with ptxas's registers, shared memory and spills for each
-              instantiation (the register path must not spill);
+              instantiation (every register-path instantiation must be
+              there, and none may spill or keep a stack frame);
   3. k1a    — the reject_stack kernel against its plain PyTorch version on
               the card: every window mode × {float32, int16} × {no norm,
               additive+scaling, multiplicative} at N=24, P=2^20, then one
@@ -14,12 +15,15 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               the winsorized σ steps its pixels took, and winsorized at
               N=64, P=2^20 (the shared-memory path);
   k1     — the variants K1b SIGMEDIAN, K1c LINEARFIT, K1d GESDT over the
-              same dtypes and normalizations at N=24, P=2^20; K1e (weights,
-              per frame and per pixel) over winsorized, sigma, linearfit
-              and GESDT × {float32, int16}; one stack of 1000 frames; and
-              each of K1b-K1e at the stack command's call size (N=FRAMES,
-              P=SIZE², float32, additive+scaling), with its bound; for
-              SIGMEDIAN, the pixels each version stopped at its round cap;
+              same dtypes and normalizations at N=24, P=2^20; K1b and K1c
+              at N=8, 16, 32 (each register-path column size) and 33 (the
+              shared-memory path); K1e (weights, per frame and per pixel)
+              over winsorized, sigma, sigmedian, linearfit and GESDT ×
+              {float32, int16}; one stack of 1000 frames; and each of
+              K1b-K1e at the stack command's call size (N=FRAMES, P=SIZE²,
+              float32, additive+scaling), with its bound and, for K1b and
+              K1c, the rounds its pixels ran; for SIGMEDIAN, the pixels
+              each version stopped at its round cap;
   4. fusedstack — the main path through the CLI entry point
               (``python -m siril_tpu_torch.cli -d <dir> fusedstack light_``)
               on FRAMES synthetic SIZE×SIZE 16-bit frames, checked against the
@@ -118,20 +122,27 @@ def ptxas_report(text: str) -> dict:
     return {k: v for k, v in out.items() if "registers" in v}
 
 
+#: the register path's kernel and its mode classes (csrc/reject_stack.cu
+#: CLASS_*); one instantiation per class, weighting, NMAX and input type
+REGISTER_KERNEL = "register_kernel"
+CLASSES = ("window", "winsorized", "sigmedian", "linearfit")
+REGISTER_INSTANTIATIONS = len(CLASSES) * 2 * 4 * 2
+
+
 def _kernel_label(mangled: str) -> str:
-    """reg_window_kernel<float, NMAX, weighted, winsorized> from a mangled
-    name."""
+    """register_kernel<float, NMAX, weighted, class> or
+    reject_stack_kernel<float, global> from a mangled name."""
     import re
 
-    m = re.search(r"(reg_window_kernel|reject_stack_kernel)I([fs])"
-                  r"(?:Li(\d+)E)?Lb([01])E(?:Lb([01])E)?", mangled)
+    m = re.search(rf"({REGISTER_KERNEL}|reject_stack_kernel)I([fs])"
+                  r"(?:Li(\d+)E)?Lb([01])E(?:Li(\d+)E)?", mangled)
     if not m:
         return mangled
-    name, t, nmax, flag, winsor = m.groups()
+    name, t, nmax, flag, cls = m.groups()
     t = "float" if t == "f" else "int16"
     if nmax:
         return (f"{name}<{t}, NMAX={nmax}, weighted={flag == '1'}, "
-                f"winsorized={winsor == '1'}>")
+                f"{CLASSES[int(cls)]}>")
     return f"{name}<{t}, global={flag == '1'}>"
 
 
@@ -142,7 +153,7 @@ def phase_build():
     t = time.perf_counter()
     paths = build.build(["reject_stack"])
     dt = time.perf_counter() - t
-    spilled = []
+    spilled, registers = [], 0
     for name, path in paths.items():
         log(f"built {name} → {os.path.relpath(path)} in {dt:.2f}s")
         for kern, r in sorted(ptxas_report(
@@ -152,10 +163,15 @@ def phase_build():
                 f"{r['smem']} B static smem, stack {r.get('stack', 0)} B, "
                 f"spill stores {r.get('spill_stores', 0)} B, loads "
                 f"{r.get('spill_loads', 0)} B")
-            if "reg_window_kernel" in kern and (
-                    r.get("spill_stores", 0) or r.get("spill_loads", 0)
-                    or r.get("stack", 0)):
-                spilled.append(label)
+            if REGISTER_KERNEL in kern:
+                registers += 1
+                if (r.get("spill_stores", 0) or r.get("spill_loads", 0)
+                        or r.get("stack", 0)):
+                    spilled.append(label)
+    log(f"  {registers} register-path instantiations, built in {dt:.2f}s")
+    if registers != REGISTER_INSTANTIATIONS:
+        raise RuntimeError(f"ptxas reported {registers} register-path "
+                           f"instantiations, not {REGISTER_INSTANTIATIONS}")
     if spilled:
         raise RuntimeError(f"the register path spills: {spilled}")
     return dt
@@ -246,17 +262,21 @@ def compare_k1(name, stack, scale, offset, mul, rtype, mode, siglow,
 
 
 def log_steps(name: str, work: dict, p: int) -> None:
-    """The winsorized σ steps the plain version counted for a call: per
-    pixel on average, the most one pixel took, and the mean over warps of
-    32 consecutive pixels of their slowest pixel's (what a warp with one
+    """The steps of each per-pixel loop the plain version counted for a
+    call (winsorized σ steps, SIGMEDIAN and LINEARFIT rounds): per pixel
+    on average, the most one pixel took, and the mean over warps of 32
+    consecutive pixels of their slowest pixel's (what a warp with one
     pixel a lane would run)."""
-    if not work.get("winsor_warps"):
-        return
-    log(f"  {name} winsorized σ steps: {work['winsor_steps']} in all, "
-        f"{work['winsor_steps'] / p:.2f} a pixel, at most "
-        f"{work['winsor_steps_max']}, warp-of-32 maximum "
-        f"{work['winsor_warp_steps'] / work['winsor_warps']:.2f} on "
-        f"average")
+    for loop, unit, what in (("winsor", "steps", "winsorized σ steps"),
+                             ("sigmedian", "rounds", "SIGMEDIAN rounds"),
+                             ("linearfit", "rounds", "LINEARFIT rounds")):
+        if not work.get(f"{loop}_warps"):
+            continue
+        total = work[f"{loop}_{unit}"]
+        log(f"  {name} {what}: {total} in all, {total / p:.2f} a pixel, at "
+            f"most {work[f'{loop}_{unit}_max']}, warp-of-32 maximum "
+            f"{work[f'{loop}_warp_{unit}'] / work[f'{loop}_warps']:.2f} on "
+            f"average")
 
 
 def phase_k1a(seed: int):
@@ -376,10 +396,10 @@ def phase_k1(seed: int):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
 
-    def coeffs(n):
-        return (1.0 + 0.05 * torch.randn(n, generator=gen, device=dev),
-                0.01 * torch.randn(n, generator=gen, device=dev),
-                1.0 + 0.03 * torch.randn(n, generator=gen, device=dev))
+    def coeffs(n, g=gen):
+        return (1.0 + 0.05 * torch.randn(n, generator=g, device=dev),
+                0.01 * torch.randn(n, generator=g, device=dev),
+                1.0 + 0.03 * torch.randn(n, generator=g, device=dev))
 
     def gesdt_kw(rtype, n, sl, sh):
         if rtype != rj.GESDT:
@@ -413,10 +433,25 @@ def phase_k1(seed: int):
                 record(var, tag, compare_k1(
                     tag, data, scale, offset, mul, rtype, mode, sl, sh,
                     **gesdt_kw(rtype, n, sl, sh)))
+    # K1b and K1c at each register-path column size NMAX = 8, 16, 32 and
+    # past it (N = 33: shared memory), on data of their own generator
+    gen_n = torch.Generator(device=dev)
+    gen_n.manual_seed(seed + 2)
+    for nn in (8, 16, 32, 33):
+        st = make_stack(gen_n, nn, p, dev)
+        sraw = (torch.round(st * 65535.0) - 32768.0).to(torch.int16)
+        cs, co, cm = coeffs(nn, gen_n)
+        for var, label, rtype, sl, sh, _ in STACK_VARIANTS[:2]:
+            for dname, data in (("f32", st), ("i16", sraw)):
+                tag = f"{var} {label}/{dname}/addscale N={nn} P={p}"
+                record(var, tag, compare_k1(tag, data, cs, co, cm, rtype,
+                                            ADDITIVE_SCALING, sl, sh))
+        del st, sraw
     wf = 0.5 + torch.rand(n, 1, generator=gen, device=dev)
     wp = 0.5 + torch.rand(n, p, generator=gen, device=dev)
     for label, rtype, sl, sh in (("winsorized", rj.WINSORIZED, 3.0, 3.0),
                                  ("sigma", rj.SIGMA, 3.0, 3.0),
+                                 ("sigmedian", rj.SIGMEDIAN, 3.0, 3.0),
                                  ("linearfit", rj.LINEARFIT, 3.0, 3.0),
                                  ("gesdt", rj.GESDT, 0.3, 0.05)):
         for dname, data in (("f32", stack), ("i16", raw)):
@@ -456,9 +491,7 @@ def phase_k1(seed: int):
                        sh, work=work, **extra)
         record(var, tag, r)
         # the stack once, 3 coefficient vectors, 12 B per pixel out; a
-        # weighted mean its per-frame weights (the kernel also reads the
-        # stack a second time, which the function does not need: that
-        # cost is the kernel's, not the bound's); GESDT its λ table
+        # weighted mean its per-frame weights; GESDT its λ table
         nbytes = nf * pf * 4 + 3 * nf * 4 + pf * 12
         if weighted:
             nbytes += nf * 4

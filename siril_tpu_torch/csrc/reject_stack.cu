@@ -23,10 +23,11 @@
 // takes from 1 to ~1000 steps a pixel (~14 on average).
 //
 // Two paths.
-// 1. Registers: the window modes (K1a, and K1e over them) at N <= 32
-//    (reg_window_kernel, templated on NMAX = 8, 16, 24, 32, on the
-//    weighting, and on winsorized or not, so that neither kernel carries
-//    the other's code and registers).
+// 1. Registers: every mode but GESDT at N <= 32 (K1a, K1b, K1c, and K1e
+//    over them; register_kernel, templated on NMAX = 8, 16, 24, 32, on
+//    the weighting, and on the mode class: the window modes, winsorized,
+//    SIGMEDIAN, LINEARFIT, so that no kernel carries another class's code
+//    and registers).
 //    - The column lives in registers, padded with +inf, sorted by an
 //      odd-even merge network; loops over rows are unrolled and predicated
 //      on a row mask, the median is a tree of selects, so nothing spills.
@@ -35,14 +36,20 @@
 //    - The winsorized accumulated values are clamp(xs[k], L, H): clamps
 //      compose on a sorted column, so two floats per pixel replace the
 //      w array.
+//    - SIGMEDIAN re-sorts its column with the same network after a round
+//      that replaced values.
+//    - LINEARFIT's keep set is one 32-bit mask; a kept value's rank is a
+//      running count over the mask, and its N-r<=4 guard accepts the
+//      candidates in row order through a running candidate count.
 //    - Against divergence, warps take pixels from one counter for the
-//      whole grid, and each warp runs the σ iteration as a loop of single
-//      steps; when READY_LANES of its lanes have settled, those lanes clip,
-//      start their next round or write their result and take the next
-//      pixel together, while the others keep their state.  A lane whose
-//      pixel settled early so works on instead of idling until the warp's
-//      slowest pixel settles, and no block idles while others still have
-//      pixels to take.
+//      whole grid, and each warp runs its loop (the σ iteration, or the
+//      SIGMEDIAN or LINEARFIT rounds) as a loop of single steps; when a
+//      ready count of its lanes (per class) are done, those lanes act
+//      together (winsorized: clip and start the next round; any class:
+//      write the result and take the next pixel), while the others keep
+//      their state.  A lane whose pixel is done early so works on instead
+//      of idling until the warp's slowest pixel is done, and no block
+//      idles while others still have pixels to take.
 //    - A weighted mean keeps the normalized column in frame order in
 //      shared memory: the stack is read once.  Per-frame weights (pixel
 //      stride 0) are staged in shared memory, never materialized per
@@ -50,8 +57,8 @@
 //    - The column is read straight from global memory: the lanes of a
 //      warp that take pixels together get consecutive ones, so each row
 //      read is a run of consecutive words.  Results are stored per pixel.
-// 2. Shared memory: SIGMEDIAN, LINEARFIT, GESDT at any N and the window
-//    modes at N > 32 (reject_stack_kernel), one thread per pixel column.
+// 2. Shared memory: GESDT at any N and every other mode at N > 32
+//    (reject_stack_kernel), one thread per pixel column.
 //    - The column's N values live in shared memory laid out [N][threads]
 //      (element k of thread t at k*threads + t: no bank conflicts), with a
 //      second such array where the mode needs one (MAD deviations, the
@@ -621,17 +628,29 @@ __global__ void reject_stack_kernel(Params a, int p0, int p1) {
 }
 
 // ---------------------------------------------------------------------------
-// K1a / K1e register path: the window modes at N <= 32 frames
+// The register path: every mode but GESDT at N <= 32 frames
 // ---------------------------------------------------------------------------
 
 constexpr unsigned FULL_WARP = 0xffffffffu;
 constexpr int REG_THREADS = 128;
 // pixels a lane should get at least, when sizing the grid
 constexpr int REG_PIXELS_PER_LANE = 8;
-// A warp leaves its σ steps once this many lanes wait to act.  On the
-// main-path block 16 refills too often and 32 lets lanes idle too long
-// (scripts/k1_variants.py; PERF.md §6).
+
+// Mode classes of the register path, one kernel instantiation each.  The
+// classes with steps run them under the warp vote of register_kernel.
+constexpr int CLASS_WINDOW = 0;     // NO_REJEC, PERCENTILE, SIGMA, MAD
+constexpr int CLASS_WINSOR = 1;     // a step: one winsorized σ step
+constexpr int CLASS_SIGMEDIAN = 2;  // a step: one replacement round
+constexpr int CLASS_LINEARFIT = 3;  // a step: one fit-and-clip round
+
+// A warp leaves its steps once this many lanes wait to act, per class.
+// Winsorized, on the main-path block: 16 refills too often and 32 lets
+// lanes idle too long (scripts/k1_variants.py; PERF.md §6).
 constexpr int READY_LANES = 24;
+// SIGMEDIAN and LINEARFIT, the best of thresholds from 4 to 32 at the
+// stack command's call size (32 is lockstep with the queue).
+constexpr int SIGMEDIAN_READY_LANES = 8;
+constexpr int LINEARFIT_READY_LANES = 24;
 
 // Bits [lo, hi) of a row mask, 0 <= lo, hi <= 32 (empty when hi <= lo).
 __device__ __forceinline__ unsigned span_mask(int lo, int hi) {
@@ -793,15 +812,18 @@ __device__ __forceinline__ bool reg_clip_round(const float (&xs)[NMAX],
 }
 
 // One lane's pixel: its sorted column (and, for a weighted mean, its
-// normalized values in frame order), the kept window, and the state of
-// the winsorized σ iteration between steps.
+// normalized values in frame order), the kept window and the rejection
+// counts, and the state of its class's loop between steps: the winsorized
+// σ iteration (med, sigma, L, H, fn, nm1, wm, steps), SIGMEDIAN's rounds
+// (fn, nm1, steps) or LINEARFIT's keep mask (keep, with its rejections
+// in w.r).  A class's kernel keeps only the fields its code reads.
 template <int NMAX, bool WEIGHTED>
 struct Lane {
   float xs[NMAX];
   int px, nvalid, n_neg;
   Window w;
   float med, sigma, L, H, fn, nm1;
-  unsigned wm;
+  unsigned wm, keep;
   int steps;
 };
 
@@ -967,21 +989,219 @@ __device__ __forceinline__ bool lane_sigma_step(const Params& a,
   return false;
 }
 
-// The (weighted) mean of the kept values, written out.
+// One SIGMEDIAN round (rejection_float.c:210-221) on the sorted column:
+// the median, the two-pass mean and sd over the valid rows in row order,
+// the rejected values replaced by the median and the column sorted again.
+// Returns whether the pixel goes on: false once a round replaced nothing,
+// or at SIGMEDIAN_MAX_ROUNDS (then counted in ``capped``).
+template <int NMAX, bool WEIGHTED>
+__device__ __forceinline__ bool lane_sigmedian_round(
+    const Params& a, Lane<NMAX, WEIGHTED>& s) {
+  const int n = a.n, nvalid = s.nvalid;
+  const unsigned vm = span_mask(0, nvalid);
+  const float med = reg_median(s.xs, n, 0, nvalid);
+  float t = 0.f;
+#pragma unroll
+  for (int g = 0; g < NMAX; g += 8) {
+    if (g < n) {
+#pragma unroll
+      for (int k = g; k < g + 8; ++k) {
+        if (row_in(vm, k)) t += s.xs[k];
+      }
+    }
+  }
+  const float mean = t / s.fn;
+  float t2 = 0.f;
+#pragma unroll
+  for (int g = 0; g < NMAX; g += 8) {
+    if (g < n) {
+#pragma unroll
+      for (int k = g; k < g + 8; ++k) {
+        if (row_in(vm, k)) {
+          float d = s.xs[k] - mean;
+          t2 += d * d;
+        }
+      }
+    }
+  }
+  const float sd = nvalid > 1 ? sqrtf(fmaxf(t2 / s.nm1, 0.f)) : 0.f;
+  const float tl = sd * a.siglow, th = sd * a.sighigh;
+  unsigned rep = 0u;
+  int nl = 0, nh = 0;
+#pragma unroll
+  for (int g = 0; g < NMAX; g += 8) {
+    if (g < n) {
+#pragma unroll
+      for (int k = g; k < g + 8; ++k) {
+        if (row_in(vm, k)) {
+          const float v = s.xs[k];
+          const bool lo = (med - v) > tl, hi = (v - med) > th;
+          rep |= (unsigned)(lo || hi) << k;
+          nl += lo;
+          nh += hi;
+        }
+      }
+    }
+  }
+  s.w.rejl += nl;
+  s.w.rejh += nh;
+  if (nl + nh == 0) return false;
+  // the replaced rows take the median and the network sorts the column
+  // again.  (The low candidates are a prefix of the valid rows and the
+  // high ones a suffix, so a merge of the median's copies into the
+  // untouched middle gives the same column; built by selects, it ran
+  // slower: scripts/k1_variants.py resort_merge, PERF.md §6.)
+#pragma unroll
+  for (int k = 0; k < NMAX; ++k) {
+    if (row_in(rep, k)) s.xs[k] = med;
+  }
+  sort_net(s.xs);
+  if (++s.steps < SIGMEDIAN_MAX_ROUNDS) return true;
+  if (a.capped != nullptr) atomicAdd(a.capped, 1ULL);
+  return false;
+}
+
+// One LINEARFIT round (rejection_float.c:259-300) over the kept rows of
+// the sorted column, the bits of s.keep: the line y = b + a·pos fitted by
+// least squares, pos a value's rank among the kept, σ the mean |residual|;
+// the candidates are accepted in row order while the cumulative N-r<=4
+// guard allows.  m_x and 1/m_dx2 are the full-size constants
+// (median_and_mean.c:1491-1499).  Returns whether the pixel goes on.
+template <int NMAX, bool WEIGHTED>
+__device__ __forceinline__ bool lane_linearfit_round(
+    const Params& a, Lane<NMAX, WEIGHTED>& s) {
+  const int n = a.n;
+  const unsigned keep = s.keep;
+  const int nk = __popc(keep);
+  const float nks = fmaxf((float)nk, 1.f), m_x = a.m_x;
+  float sy = 0.f;
+#pragma unroll
+  for (int g = 0; g < NMAX; g += 8) {
+    if (g < n) {
+#pragma unroll
+      for (int k = g; k < g + 8; ++k) {
+        if (row_in(keep, k)) sy += s.xs[k];
+      }
+    }
+  }
+  const float m_y = sy / nks;
+  float sxy = 0.f, pos = 0.f;  // pos: the rank among the kept, counted
+#pragma unroll
+  for (int g = 0; g < NMAX; g += 8) {
+    if (g < n) {
+#pragma unroll
+      for (int k = g; k < g + 8; ++k) {
+        if (row_in(keep, k)) {
+          sxy += (pos - m_x) * (s.xs[k] - m_y);
+          pos += 1.f;
+        }
+      }
+    }
+  }
+  const float slope = (sxy / nks) * a.inv_mdx2;
+  const float icpt = __fmaf_rn(-m_x, slope, m_y);
+  float sr = 0.f;
+  pos = 0.f;
+#pragma unroll
+  for (int g = 0; g < NMAX; g += 8) {
+    if (g < n) {
+#pragma unroll
+      for (int k = g; k < g + 8; ++k) {
+        if (row_in(keep, k)) {
+          sr += fabsf(s.xs[k] - __fmaf_rn(slope, pos, icpt));
+          pos += 1.f;
+        }
+      }
+    }
+  }
+  const float sigma = sr / nks;
+  const float tl = sigma * a.siglow, th = sigma * a.sighigh;
+  const int max_acc = max(nk - s.w.r - 4, 0);
+  // the residuals again, not kept from the σ pass: kept in registers they
+  // cost occupancy or spill (scripts/k1_variants.py resid_regs, PERF.md §6)
+  unsigned rej = 0u;
+  int rank = 0, nl = 0, nh = 0;
+  pos = 0.f;
+#pragma unroll
+  for (int g = 0; g < NMAX; g += 8) {
+    if (g < n) {
+#pragma unroll
+      for (int k = g; k < g + 8; ++k) {
+        if (row_in(keep, k)) {
+          const float resid = s.xs[k] - __fmaf_rn(slope, pos, icpt);
+          pos += 1.f;
+          const bool lo = (-resid) > tl, hi = resid > th;
+          rank += lo || hi;
+          const bool acc = (lo || hi) && rank <= max_acc;
+          rej |= (unsigned)acc << k;
+          nl += acc && lo;
+          nh += acc && hi;
+        }
+      }
+    }
+  }
+  s.keep = keep & ~rej;
+  s.w.r += nl + nh;
+  s.w.rejl += nl;
+  s.w.rejh += nh;
+  return nl + nh > 0 && (nk - nl - nh) > 3;
+}
+
+// A fresh pixel's SIGMEDIAN or LINEARFIT loop: its state before the first
+// round, and whether there is a round to run (more than one valid value).
+template <int CLASS, int NMAX, bool WEIGHTED>
+__device__ __forceinline__ bool lane_loop_start(Lane<NMAX, WEIGHTED>& s) {
+  const int nvalid = s.nvalid;
+  if constexpr (CLASS == CLASS_SIGMEDIAN) {
+    s.fn = fmaxf((float)nvalid, 1.f);
+    s.nm1 = fmaxf((float)nvalid - 1.f, 1.f);
+    s.steps = 0;
+  } else {
+    s.keep = span_mask(0, nvalid);
+  }
+  return nvalid > 1;
+}
+
+// One step of a class's loop; false once the lane's pixel is done with it.
+template <int CLASS, int NMAX, bool WEIGHTED>
+__device__ __forceinline__ bool lane_step(const Params& a,
+                                          Lane<NMAX, WEIGHTED>& s) {
+  if constexpr (CLASS == CLASS_WINSOR) {
+    return lane_sigma_step(a, s);
+  } else if constexpr (CLASS == CLASS_SIGMEDIAN) {
+    return lane_sigmedian_round(a, s);
+  } else if constexpr (CLASS == CLASS_LINEARFIT) {
+    return lane_linearfit_round(a, s);
+  } else {
+    return false;  // the window modes have no steps
+  }
+}
+
+// The kept rows of the sorted column once the rejection is over.
+template <int CLASS, int NMAX, bool WEIGHTED>
+__device__ __forceinline__ unsigned kept_rows(const Lane<NMAX, WEIGHTED>& s) {
+  if constexpr (CLASS == CLASS_SIGMEDIAN) {
+    return span_mask(0, s.nvalid);
+  } else if constexpr (CLASS == CLASS_LINEARFIT) {
+    return s.keep;
+  } else {
+    return span_mask(s.w.lo, s.w.hi) | span_mask(s.w.seg_lo, s.w.seg_hi);
+  }
+}
+
+// The (weighted) mean of the kept rows km, written out with the counts.
 template <typename T, int NMAX, bool WEIGHTED>
 __device__ __forceinline__ void lane_finish(const Params& a,
                                             const float* xcol,
                                             const float* wframe,
-                                            Lane<NMAX, WEIGHTED>& s) {
+                                            const Lane<NMAX, WEIGHTED>& s,
+                                            unsigned km) {
   const int n = a.n, nvalid = s.nvalid;
-  Window w = s.w;
+  int rejl = s.w.rejl, rejh = s.w.rejh;
   if (nvalid <= 1) {  // kept <= 1 before rejection: keep as is
-    w.lo = 0;
-    w.hi = nvalid;
-    w.seg_hi = 0;
-    w.rejl = w.rejh = 0;
+    km = span_mask(0, nvalid);
+    rejl = rejh = 0;
   }
-  const unsigned km = span_mask(w.lo, w.hi) | span_mask(w.seg_lo, w.seg_hi);
   float sum = 0.f, pmin = INFINITY, pmax = -INFINITY;
   int nkept = 0;
 #pragma unroll
@@ -1048,22 +1268,27 @@ __device__ __forceinline__ void lane_finish(const Params& a,
     result = 0.5f * (v[0] + v[1]);
   }
   a.mean[s.px] = result;
-  a.rejl[s.px] = w.rejl;
-  a.rejh[s.px] = w.rejh;
+  a.rejl[s.px] = rejl;
+  a.rejh[s.px] = rejh;
 }
 
-// The window modes with the column in registers.  Warps take pixels from
-// one counter for the grid (``queue``, zeroed before the launch); every
-// lane works its own pixel.  The winsorized σ iteration runs as a
-// warp-wide loop of single steps while fewer than READY_LANES lanes have
-// finished theirs; then those lanes, together, clip, start their next
-// round or write their result and take a new pixel.  A lane whose pixel
-// settled early so works on instead of idling until the warp's slowest
-// pixel settles.  Per pixel the operations and their order are those of
-// the plain version, whatever pixels share a warp.
-template <typename T, int NMAX, bool WEIGHTED, bool WINSOR>
+// Every mode but GESDT with the column in registers.  Warps take pixels
+// from one counter for the grid (``queue``, zeroed before the launch);
+// every lane works its own pixel.  A class with steps (the winsorized σ
+// iteration, SIGMEDIAN's and LINEARFIT's rounds) runs them as a warp-wide
+// loop of single steps while fewer than its ready count of lanes have
+// finished theirs; then those lanes, together, act: a winsorized lane
+// clips and starts its next round, any other writes its result and takes
+// a new pixel.  A lane whose pixel is done early so works on instead of
+// idling until the warp's slowest pixel is done.  Per pixel the
+// operations and their order are those of the plain version, whatever
+// pixels share a warp.
+template <typename T, int NMAX, bool WEIGHTED, int CLASS>
 __global__ void __launch_bounds__(REG_THREADS)
-    reg_window_kernel(Params a) {
+    register_kernel(Params a) {
+  constexpr int ready = CLASS == CLASS_WINSOR      ? READY_LANES
+                        : CLASS == CLASS_SIGMEDIAN ? SIGMEDIAN_READY_LANES
+                                                   : LINEARFIT_READY_LANES;
   __shared__ float sc[NMAX], off[NMAX], mu[NMAX];
   __shared__ float xv[WEIGHTED ? NMAX * REG_THREADS : 1];
   __shared__ float wt[NMAX];  // per-frame weights (pixel stride 0)
@@ -1082,19 +1307,22 @@ __global__ void __launch_bounds__(REG_THREADS)
   bool has = false, stepping = false, done = false;
   for (;;) {
     // the lanes that are not stepping act together until each steps or
-    // has run dry: a lane whose σ iteration ended clips its window, then
-    // starts its next round or writes its result; a lane without a pixel
-    // takes the next one, loads and sorts it, and starts its first round
+    // has run dry: a lane whose steps ended writes its result (winsorized:
+    // clips its window, then starts its next round or writes its result);
+    // a lane without a pixel takes the next one, loads and sorts it, and
+    // starts its steps
     for (;;) {
       const bool act = !stepping && !done;
       if (__ballot_sync(FULL_WARP, act) == 0) break;
       bool round = false;
-      if (WINSOR && act && has) {
-        round = reg_clip_round(s.xs, a.n, s.w, s.med, s.sigma, a.siglow,
-                               a.sighigh) &&
-                (s.w.hi - s.w.lo) > 3;
+      if (CLASS != CLASS_WINDOW && act && has) {
+        if constexpr (CLASS == CLASS_WINSOR) {
+          round = reg_clip_round(s.xs, a.n, s.w, s.med, s.sigma, a.siglow,
+                                 a.sighigh) &&
+                  (s.w.hi - s.w.lo) > 3;
+        }
         if (!round) {
-          lane_finish<T>(a, xcol, wt, s);
+          lane_finish<T>(a, xcol, wt, s, kept_rows<CLASS>(s));
           has = false;
         }
       }
@@ -1117,33 +1345,34 @@ __global__ void __launch_bounds__(REG_THREADS)
       }
       if (fresh) {
         lane_load<T>(a, sc, off, mu, xcol, s);
-        if constexpr (WINSOR) {
+        if constexpr (CLASS == CLASS_WINDOW) {
+          lane_reject(a, s);
+          lane_finish<T>(a, xcol, wt, s, kept_rows<CLASS>(s));
+          has = false;
+        } else if constexpr (CLASS == CLASS_WINSOR) {
           // a column of at most one value goes to the clip, which keeps it
           round = s.nvalid > 1;
           s.med = s.sigma = 0.f;
         } else {
-          lane_reject(a, s);
-          lane_finish<T>(a, xcol, wt, s);
-          has = false;
+          // a column of at most one value is written at the next act
+          stepping = lane_loop_start<CLASS>(s);
         }
       }
-      if (round) stepping = lane_round_start(a.n, s);
+      if (CLASS == CLASS_WINSOR && round) stepping = lane_round_start(a.n, s);
     }
     if (__ballot_sync(FULL_WARP, stepping) == 0) break;  // all lanes done
-    // σ steps until enough lanes wait to act
+    // steps until enough lanes wait to act
     for (;;) {
       if (__ballot_sync(FULL_WARP, stepping) == 0) break;
-      if (__popc(__ballot_sync(FULL_WARP, has && !stepping)) >= READY_LANES) {
-        break;
-      }
-      if (stepping) stepping = lane_sigma_step(a, s);
+      if (__popc(__ballot_sync(FULL_WARP, has && !stepping)) >= ready) break;
+      if (stepping) stepping = lane_step<CLASS>(a, s);
     }
   }
 }
 
-template <typename T, int NMAX, bool WEIGHTED, bool WINSOR>
+template <typename T, int NMAX, bool WEIGHTED, int CLASS>
 cudaError_t launch_reg(const Params& a, cudaStream_t stream) {
-  auto kernel = reg_window_kernel<T, NMAX, WEIGHTED, WINSOR>;
+  auto kernel = register_kernel<T, NMAX, WEIGHTED, CLASS>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) {
@@ -1162,32 +1391,34 @@ cudaError_t launch_reg(const Params& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, bool WEIGHTED, bool WINSOR>
+template <typename T, bool WEIGHTED, int CLASS>
 cudaError_t launch_reg_n(const Params& a, cudaStream_t stream) {
-  if (a.n <= 8) return launch_reg<T, 8, WEIGHTED, WINSOR>(a, stream);
-  if (a.n <= 16) return launch_reg<T, 16, WEIGHTED, WINSOR>(a, stream);
-  if (a.n <= 24) return launch_reg<T, 24, WEIGHTED, WINSOR>(a, stream);
-  return launch_reg<T, 32, WEIGHTED, WINSOR>(a, stream);
+  if (a.n <= 8) return launch_reg<T, 8, WEIGHTED, CLASS>(a, stream);
+  if (a.n <= 16) return launch_reg<T, 16, WEIGHTED, CLASS>(a, stream);
+  if (a.n <= 24) return launch_reg<T, 24, WEIGHTED, CLASS>(a, stream);
+  return launch_reg<T, 32, WEIGHTED, CLASS>(a, stream);
 }
 
-// One instantiation per column size, weighting and mode class: the
-// winsorized kernel has no MAD code, the others no σ iteration.
+template <typename T, int CLASS>
+cudaError_t launch_reg_w(const Params& a, cudaStream_t stream) {
+  return a.weights != nullptr ? launch_reg_n<T, true, CLASS>(a, stream)
+                              : launch_reg_n<T, false, CLASS>(a, stream);
+}
+
+// One instantiation per column size, weighting and mode class, so that no
+// kernel carries another class's code and registers.
 template <typename T>
 cudaError_t launch_reg_mode(const Params& a, cudaStream_t stream) {
-  const bool w = a.weights != nullptr;
-  if (a.rtype == WINSORIZED) {
-    return w ? launch_reg_n<T, true, true>(a, stream)
-             : launch_reg_n<T, false, true>(a, stream);
+  switch (a.rtype) {
+    case WINSORIZED: return launch_reg_w<T, CLASS_WINSOR>(a, stream);
+    case SIGMEDIAN: return launch_reg_w<T, CLASS_SIGMEDIAN>(a, stream);
+    case LINEARFIT: return launch_reg_w<T, CLASS_LINEARFIT>(a, stream);
+    default: return launch_reg_w<T, CLASS_WINDOW>(a, stream);
   }
-  return w ? launch_reg_n<T, true, false>(a, stream)
-           : launch_reg_n<T, false, false>(a, stream);
 }
 
-// Whether a call takes the register path: a window mode at N <= 32.
-bool register_path(int n, int rtype) {
-  return n <= 32 && (rtype == NO_REJEC || rtype == PERCENTILE ||
-                     rtype == SIGMA || rtype == MAD || rtype == WINSORIZED);
-}
+// Whether a call takes the register path: every mode but GESDT at N <= 32.
+bool register_path(int n, int rtype) { return n <= 32 && rtype != GESDT; }
 
 // Threads per block when the columns fit shared memory (`arrays`
 // [n][threads] float arrays, at least 32 threads), else 0: global scratch

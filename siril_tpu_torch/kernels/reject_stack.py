@@ -7,8 +7,8 @@ Replaces the TPU kernel ``siril_tpu/pallas/reject_stack.py::
 pallas_reject_mean`` (:763).  Bound on an H100: the function reads the
 stack once (plus the weights) and writes 12 bytes per pixel (~90 µs for a
 main-path block of 24 × 2.8 Mpix float32); see the source's header for
-its two paths (registers for the window modes at N ≤ 32, shared memory
-for the rest).  Any frame count works: where the columns fit no block's
+its two paths (registers for every mode but GESDT at N ≤ 32, shared
+memory for the rest).  Any frame count works: where the columns fit no block's
 shared memory, they live in a global scratch buffer that this wrapper
 allocates.
 

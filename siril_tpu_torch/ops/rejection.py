@@ -290,23 +290,26 @@ def _winsorized(xs, s1, s2, nvalid, siglow, sighigh, work, capped):
         if not bool(changed.any()):
             break
     if work is not None:
-        _count_steps(work, steps)
+        _count_steps(work, steps, "winsor", "steps")
     return win
 
 
-def _count_steps(work: dict, steps: torch.Tensor) -> None:
-    """Winsorized σ steps of a call, for reading a kernel's divergence:
-    their sum (``winsor_steps``), the most one pixel took
-    (``winsor_steps_max``), and over groups of 32 consecutive pixels (a
+def _count_steps(work: dict, steps: torch.Tensor, loop: str,
+                 unit: str) -> None:
+    """Steps of a per-pixel loop in a call (the winsorized σ steps, the
+    SIGMEDIAN or LINEARFIT rounds), for reading a kernel's divergence:
+    their sum (``{loop}_{unit}``), the most one pixel took
+    (``{loop}_{unit}_max``), and over groups of 32 consecutive pixels (a
     warp, one pixel a lane) the sum of each group's most
-    (``winsor_warp_steps``) and the number of groups (``winsor_warps``)."""
+    (``{loop}_warp_{unit}``) and the number of groups (``{loop}_warps``)."""
     groups = torch.nn.functional.pad(steps, (0, -steps.numel() % 32))
-    _count(work, "winsor_steps", lambda: steps.sum())
-    _count(work, "winsor_warp_steps",
+    _count(work, f"{loop}_{unit}", lambda: steps.sum())
+    _count(work, f"{loop}_warp_{unit}",
            lambda: groups.reshape(-1, 32).amax(1).sum())
-    _count(work, "winsor_warps", lambda: groups.numel() // 32)
-    work["winsor_steps_max"] = max(work.get("winsor_steps_max", 0),
-                                   int(steps.max()) if steps.numel() else 0)
+    _count(work, f"{loop}_warps", lambda: groups.numel() // 32)
+    key = f"{loop}_{unit}_max"
+    work[key] = max(work.get(key, 0),
+                    int(steps.max()) if steps.numel() else 0)
 
 
 def _sigmedian(xs, nvalid, siglow, sighigh, work, capped):
@@ -315,8 +318,9 @@ def _sigmedian(xs, nvalid, siglow, sighigh, work, capped):
     until a round replaces nothing; the kept count never shrinks.  Mean
     and sd are two-pass over the valid rows (pallas/reject_stack.py:
     478-519).  Pixels still replacing after ``SIGMEDIAN_MAX_ROUNDS`` rounds
-    are added to ``capped`` when it is given.  Returns (values, rej_low,
-    rej_high)."""
+    are added to ``capped`` when it is given; ``work`` gains the rounds
+    each pixel ran (``_count_steps``, the last one that replaced nothing
+    included).  Returns (values, rej_low, rej_high)."""
     rows = _rows(xs)
     vmask = rows < nvalid
     zero = torch.zeros_like(nvalid)
@@ -324,10 +328,12 @@ def _sigmedian(xs, nvalid, siglow, sighigh, work, capped):
     nvs = torch.clamp_min(nv, 1.0)
     rejl, rejh = zero, zero
     active = nvalid > 1
+    rounds = torch.zeros_like(nvalid)
     v = xs
     for _ in range(SIGMEDIAN_MAX_ROUNDS):
         if not bool(active.any()):
             break
+        rounds += active.int()
         _count(work, "flops", lambda: 8 * torch.where(active, nvalid,
                                                       0).sum())
         _count(work, "compares", lambda: _sort_compares(
@@ -346,6 +352,8 @@ def _sigmedian(xs, nvalid, siglow, sighigh, work, capped):
         active = active & rep.any(0)
     if capped is not None:
         capped += active.sum().to(capped)
+    if work is not None:
+        _count_steps(work, rounds, "sigmedian", "rounds")
     return v, rejl, rejh
 
 
@@ -368,13 +376,16 @@ def _linearfit(xs, nvalid, siglow, sighigh, n_full, work):
     """LINEARFIT (rejection_float.c:259-300): fit y = b + a·i over the
     sorted kept values (i = rank among the kept), σ = mean |residual|,
     clip; the cumulative N−r≤4 guard accepts candidates in row order.
-    Returns (keep mask over the sorted rows, rej_low, rej_high)."""
+    ``work`` gains the rounds each pixel ran (``_count_steps``).  Returns
+    (keep mask over the sorted rows, rej_low, rej_high)."""
     m_x, inv_mdx2 = linearfit_constants(n_full)
     keep = _rows(xs) < nvalid
     zero = torch.zeros_like(nvalid)
     r, rejl, rejh = zero, zero, zero
     active = nvalid > 1
+    rounds = torch.zeros_like(nvalid)
     while bool(active.any()):
+        rounds += active.int()
         nk = keep.sum(0, dtype=torch.int32)
         _count(work, "flops", lambda: 16 * torch.where(active, nk, 0).sum())
         kf = keep.float()
@@ -400,6 +411,8 @@ def _linearfit(xs, nvalid, siglow, sighigh, n_full, work):
         rejh = rejh + n_high
         changed = (n_low + n_high) > 0
         active = active & changed & ((nk - n_low - n_high) > 3)
+    if work is not None:
+        _count_steps(work, rounds, "linearfit", "rounds")
     return keep, rejl, rejh
 
 
@@ -538,7 +551,8 @@ def rejection_mean(stack: torch.Tensor, rtype: int, siglow: float,
     GESDT take the full frame count ``n_full`` (default N).  ``work``,
     when given, accumulates the float operations the data needed
     (``flops``) and the least number of sort comparisons (``compares``),
-    for the roofline bound of the kernel, and the winsorized σ steps
+    for the roofline bound of the kernel, and the steps of the winsorized
+    σ iteration and the SIGMEDIAN and LINEARFIT rounds
     (``_count_steps``).  ``capped``, an int64 scalar tensor, gains the
     pixels whose loop stopped at its bound: SIGMEDIAN's
     ``SIGMEDIAN_MAX_ROUNDS`` or the winsorized ``WINSOR_MAX_STEPS``."""

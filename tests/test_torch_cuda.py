@@ -14,10 +14,10 @@ JAX):
 - a stack of 1000 frames, more than the shared-memory layout holds, runs
   with its columns in global scratch memory and matches the plain
   version;
-- the window modes on both of their paths (registers at N ≤ 32, for each
-  column size NMAX = 8, 16, 32; shared memory above), unweighted and
-  weighted, bit-equal to the plain version, with no winsorized loop
-  stopped at its bound;
+- every mode but GESDT on both of its paths (registers at N ≤ 32, for
+  each column size NMAX = 8, 16, 24, 32; shared memory above),
+  unweighted and weighted, bit-equal to the plain version, with no
+  winsorized or SIGMEDIAN loop stopped at its bound;
 - the fused pipeline on the card against the same pipeline on the CPU:
   shifts within 0.01 px, interior max |Δ| ≤ 1e-3 and rejection totals
   within 0.5 % (the reasons of tests/test_torch_pipeline.py: float32 LM
@@ -131,7 +131,7 @@ def test_kernel_paths_bit_equal_on_card(n):
         1.0 + 0.05 * rng.standard_normal(n), 0.01 * rng.standard_normal(n),
         np.ones(n))]
     wf = torch.from_numpy((0.5 + rng.random((n, 1))).astype(np.float32))
-    for rtype, sl, sh in WINDOW:
+    for rtype, sl, sh in WINDOW + MASKED[:2]:
         for stack in (f32, i16):
             for w in (None, wf.cuda()):
                 kw = dict(rtype=rtype, mode=ADDITIVE_SCALING, siglow=sl,

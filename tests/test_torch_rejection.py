@@ -473,22 +473,217 @@ def test_frame_limit():
         assert got[1].sum() + got[2].sum() > 0 or rtype == rj.NO_REJEC
 
 
+def _serial_rounds(col, rtype, siglow, sighigh, n_full):
+    """One column's SIGMEDIAN or LINEARFIT rejection as the kernel's
+    serial loop runs it (rejection_float.c:210-221, 259-300), in float32
+    scalars: (rounds run, rej_low, rej_high)."""
+    f32 = np.float32
+    xs = sorted(f32(v) for v in col if v != 0 and np.isfinite(v))
+    nv = len(xs)
+    sl, sh = f32(siglow), f32(sighigh)
+
+    def total(vals):
+        t = f32(0)
+        for v in vals:
+            t = f32(t + v)
+        return t
+
+    def fma(a, b, c):
+        return f32(np.float64(a) * np.float64(b) + np.float64(c))
+
+    rounds = rl = rh = 0
+    active = nv > 1
+    if rtype == rj.SIGMEDIAN:
+        while active:
+            rounds += 1
+            med = f32(0.5) * f32(xs[(nv - 1) // 2] + xs[nv // 2])
+            mean = total(xs) / f32(max(nv, 1))
+            var = total(f32(v - mean) * f32(v - mean) for v in xs) / \
+                f32(max(nv - 1, 1))
+            sd = np.sqrt(max(var, f32(0)))
+            lo = [(med - v) > sd * sl for v in xs]
+            hi = [(v - med) > sd * sh for v in xs]
+            xs = sorted(med if a or b else v for v, a, b in zip(xs, lo, hi))
+            rl, rh = rl + sum(lo), rh + sum(hi)
+            active = any(lo) or any(hi)
+        return rounds, rl, rh
+    m_x, inv_mdx2 = (f32(v) for v in rj.linearfit_constants(n_full))
+    keep, r = [True] * nv, 0
+    while active:
+        rounds += 1
+        kept = [xs[i] for i in range(nv) if keep[i]]
+        nk = len(kept)
+        nks = f32(max(nk, 1))
+        m_y = total(kept) / nks
+        sxy = total(f32(f32(c) - m_x) * f32(v - m_y)
+                    for c, v in enumerate(kept))
+        a = f32(sxy / nks) * inv_mdx2
+        b = fma(-m_x, a, m_y)
+        resid = [f32(v - fma(a, f32(c), b)) for c, v in enumerate(kept)]
+        sigma = total(abs(e) for e in resid) / nks
+        max_acc, rank, nl, nh = max(nk - r - 4, 0), 0, 0, 0
+        rows = [i for i in range(nv) if keep[i]]
+        for i, e in zip(rows, resid):
+            lo, hi = -e > sigma * sl, e > sigma * sh
+            if lo or hi:
+                rank += 1
+                if rank <= max_acc:
+                    keep[i] = False
+                    nl, nh = nl + lo, nh + hi
+        r, rl, rh = r + nl + nh, rl + nl, rh + nh
+        active = nl + nh > 0 and nk - nl - nh > 3
+    return rounds, rl, rh
+
+
 @pytest.mark.parametrize("rtype,sl,sh", MASKED)
 def test_work_count_masked_modes(rtype, sl, sh):
     """SIGMEDIAN, LINEARFIT and GESDT count the work their data needed,
-    pixel by pixel."""
+    pixel by pixel; SIGMEDIAN and LINEARFIT count the rounds each pixel
+    ran, as a per-pixel serial loop runs them: their sum, the most for one
+    pixel, and the sum over warps of 32 pixels of each warp's slowest."""
     rng = np.random.default_rng(9)
     st = torch.from_numpy(_mkstack(rng, n=12, p=200))
     mo, crit = _gesdt_kw(rtype, 12, sl, sh)
     kw = dict(critical=crit, max_outliers=mo)
     work, parts = {}, [{}, {}]
-    rj.rejection_mean(st, rtype, sl, sh, work=work, **kw)
+    _, rejl, rejh = rj.rejection_mean(st, rtype, sl, sh, work=work, **kw)
     for w, cols in zip(parts, (slice(0, 100), slice(100, 200))):
         rj.rejection_mean(st[:, cols].contiguous(), rtype, sl, sh, work=w,
                           **kw)
     assert work["flops"] > 200 * 12
     for key in ("flops", "compares"):
         assert work[key] == parts[0][key] + parts[1][key]
+    if rtype == rj.GESDT:
+        return
+    loop = "sigmedian" if rtype == rj.SIGMEDIAN else "linearfit"
+    serial = [_serial_rounds(st[:, i].numpy(), rtype, sl, sh, 12)
+              for i in range(200)]
+    rounds = np.array([r for r, _, _ in serial])
+    assert [(l, h) for _, l, h in serial] == list(zip(rejl.tolist(),
+                                                      rejh.tolist()))
+    warps = np.pad(rounds, (0, 24)).reshape(7, 32).max(1)
+    assert work[f"{loop}_rounds"] == rounds.sum() > 200
+    assert work[f"{loop}_rounds_max"] == rounds.max() > 2
+    assert work[f"{loop}_warp_rounds"] == warps.sum()
+    assert work[f"{loop}_warps"] == 7
+    assert work[f"{loop}_rounds"] == sum(w[f"{loop}_rounds"] for w in parts)
+
+
+def test_linearfit_rank_by_count():
+    """A kept value's rank among the kept (LINEARFIT's pos), as the
+    register kernel counts it over a 32-bit keep mask, by a running count
+    or by the popcount of the mask below its row, equals the plain
+    version's cumsum of the keep flags."""
+    rng = np.random.default_rng(21)
+    for n in range(1, 33):
+        for _ in range(20):
+            keep = rng.random(n) < rng.random()
+            mask = sum(1 << k for k in range(n) if keep[k])
+            kf = torch.from_numpy(keep.astype(np.float32))
+            pos = (torch.cumsum(kf, 0) - 1.0).numpy()
+            running = np.float32(0)
+            for k in range(n):
+                if (mask >> k) & 1:
+                    below = bin(mask & ((1 << k) - 1)).count("1")
+                    assert pos[k] == running == np.float32(below)
+                    running += np.float32(1)
+
+
+def test_finish_over_keep_mask():
+    """The mean of the kept rows over a keep mask, summed row by row as the
+    register kernel's finish does, with the weighted mean over the
+    original values in the kept range [pmin, pmax], equals the plain
+    version's finish over the same keep set (columns with ties, negatives
+    and +inf padding, N = 1 to 32)."""
+    rng = np.random.default_rng(22)
+    f32 = np.float32
+    for n in range(1, 33):
+        p = 64
+        x = rng.normal(0.1, 0.3, (n, p)).astype(f32)
+        x[rng.random((n, p)) < 0.2] = f32(0.25)          # ties
+        x[rng.random((n, p)) < 0.1] = f32(0)             # not data
+        w = (0.5 + rng.random((n, p))).astype(f32)
+        xt = torch.from_numpy(x)
+        valid = xt != 0
+        xs = torch.sort(torch.where(valid, xt, float("inf")), 0).values
+        nvalid = valid.sum(0).numpy()
+        masks = [int(rng.integers(0, 1 << int(v))) if v else 0
+                 for v in nvalid]
+        keep = torch.tensor([[(m >> k) & 1 == 1 for m in masks]
+                             for k in range(n)])
+        values = torch.where(torch.isfinite(xs), xs, 0.0)
+        nkept = keep.sum(0).float()
+        mean = rj._colsum(values, keep) / torch.clamp_min(nkept, 1.0)
+        wmean = rj._weighted_mean(xt, torch.from_numpy(w), keep, values,
+                                  nkept)
+        for i, m in enumerate(masks):
+            col = xs[:, i].numpy()
+            s, nk, lo, hi = f32(0), 0, f32(np.inf), f32(-np.inf)
+            for k in range(n):
+                if (m >> k) & 1:
+                    s, nk = f32(s + col[k]), nk + 1
+                    lo, hi = min(lo, col[k]), max(hi, col[k])
+            assert f32(s / f32(max(nk, 1))) == mean[i].item()
+            if nk == 0:
+                continue
+            ws = wn = fb = f32(0)
+            for k in range(n):
+                v = x[k, i]
+                if lo <= v <= hi and v != 0:
+                    ws, wn = f32(ws + f32(v * w[k, i])), f32(wn + w[k, i])
+                    fb = f32(fb + v) if v > 0 else fb
+            want = ws / wn if wn != 0 and ws != 0 else fb / f32(nk)
+            assert f32(want) == wmean[i].item()
+
+
+def test_sigmedian_resort_closed_form():
+    """After a SIGMEDIAN round on a sorted column, the low candidates are
+    a prefix and the high ones a suffix of its valid rows, and the sorted
+    replaced column is the untouched middle with the median's copies
+    merged in at its rank (the closed-form re-sort of scripts/
+    k1_variants.py's resort_merge variant of the register kernel), bit
+    for bit equal to torch.sort — over several rounds of columns with
+    ties and negatives, N = 1 to 32, and thresholds for which the prefix
+    and the suffix meet."""
+    rng = np.random.default_rng(23)
+    for n in range(1, 33):
+        p = 256
+        x = rng.normal(0.0, 0.2, (n, p)).astype(np.float32)
+        x[rng.random((n, p)) < 0.25] = np.float32(-0.125)     # ties
+        x[rng.random((n, p)) < 0.05] = np.float32(3.0)        # outliers
+        x[rng.random((n, p)) < 0.05] = np.float32(0)          # not data
+        xt = torch.from_numpy(x)
+        valid = xt != 0
+        nvalid = valid.sum(0, dtype=torch.int32)
+        v = torch.sort(torch.where(valid, xt, float("inf")), 0).values
+        rows = rj._rows(v)
+        vmask = rows < nvalid
+        zero = torch.zeros_like(nvalid)
+        nv = nvalid.float()
+        for sig in (3.0, 1.0, 0.5, -0.3):
+            for _ in range(3):
+                med = rj._window_median(v, zero, nvalid)
+                mean = rj._colsum(v, vmask) / torch.clamp_min(nv, 1.0)
+                d = v - mean
+                var = rj._colsum(d * d, vmask) / torch.clamp_min(nv - 1, 1)
+                sd = torch.sqrt(torch.clamp_min(var, 0.0))
+                low = vmask & ((med - v) > sd * sig)
+                high = vmask & ((v - med) > sd * sig)
+                nl = low.sum(0, dtype=torch.int32)
+                nh = high.sum(0, dtype=torch.int32)
+                assert torch.equal(low, rows < nl)
+                assert torch.equal(high, vmask & (rows >= nvalid - nh))
+                want = torch.sort(torch.where(low | high, med, v), 0).values
+                u = torch.minimum(nl + nh, nvalid)
+                mid = (rows >= nl) & (rows < nvalid - nh)
+                j = (mid & (v < med)).sum(0, dtype=torch.int32)
+                head = v.gather(0, torch.clamp(rows + nl, max=n - 1).long())
+                tail = v.gather(0, torch.clamp(rows - (u - nl), min=0).long())
+                got = torch.where(rows < j, head, torch.where(
+                    rows < j + u, med, torch.where(vmask, tail, v)))
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32))
+                v = want
 
 
 def test_kernel_source_constants_match():
@@ -509,6 +704,29 @@ def test_kernel_source_constants_match():
         assert consts[name] == getattr(rj, name), name
     for name in ("NO_NORM", "ADDITIVE", "ADDITIVE_SCALING"):
         assert consts[name] == getattr(nm, name), name
+
+
+def test_k1_variants_apply():
+    """Every design variant of scripts/k1_variants.py is an edit that
+    applies to the current CUDA source, for every mode it takes (the
+    script runs only on a card, where a stale edit would stop it)."""
+    import importlib.util
+
+    from siril_tpu_torch.kernels import build
+
+    spec = importlib.util.spec_from_file_location(
+        "k1_variants", f"{build.CSRC}/../../scripts/k1_variants.py")
+    kv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kv)
+    src = open(f"{build.CSRC}/reject_stack.cu").read()
+    assert kv.float_only(src) != src
+    for mode, rtype in kv.MODES.items():
+        assert getattr(rj, mode.upper()) == rtype
+        table = kv.variants(mode)
+        assert table["base"][1](src) == src
+        for name, (_, edit) in table.items():
+            assert name == "base" or edit(src) != src or \
+                name.startswith("ready"), name
 
 
 def test_sigmedian_cap_counted(monkeypatch):
