@@ -13,17 +13,29 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               additive+scaling, multiplicative} at N=24, P=2^20, then one
               full row block of the main path (N=FRAMES, P=682·SIZE) with
               the winsorized σ steps its pixels took, and winsorized at
-              N=64, P=2^20 (the shared-memory path);
+              N=64, P=2^20 (the column kernel);
   k1     — the variants K1b SIGMEDIAN, K1c LINEARFIT, K1d GESDT over the
-              same dtypes and normalizations at N=24, P=2^20; K1b and K1c
-              at N=8, 16, 32 (each register-path column size) and 33 (the
-              shared-memory path); K1e (weights, per frame and per pixel)
-              over winsorized, sigma, sigmedian, linearfit and GESDT ×
-              {float32, int16}; one stack of 1000 frames; and each of
-              K1b-K1e at the stack command's call size (N=FRAMES, P=SIZE²,
+              same dtypes and normalizations at N=24, P=2^20; K1b, K1c and
+              K1d at N=8, 16, 32 (register-path column sizes; K1d also
+              over every normalization and with weights); K1e (weights,
+              per frame and per pixel) over winsorized, sigma, sigmedian,
+              linearfit and GESDT × {float32, int16}; and each of K1b-K1e
+              at the stack command's call size (N=FRAMES, P=SIZE²,
               float32, additive+scaling), with its bound and, for K1b and
               K1c, the rounds its pixels ran; for SIGMEDIAN, the pixels
               each version stopped at its round cap;
+  k1col  — past 32 frames: every mode at N=33 (P=2^20), 48, 64 (the
+              register path at NMAX=48, 64 where the library sends the
+              mode there, else the column kernel), 100, 300 and 1000 (the
+              column kernel), with weights (past 875 frames a weighted
+              mean takes the global-scratch layout) and int16 (winsorized,
+              SIGMEDIAN, LINEARFIT), and SIGMEDIAN at N=1000, P=2^14;
+              then the column kernel timed at the 100-frame stack
+              command's call size (N=STACK100, P=SIZE100², winsorized and
+              GESDT) and winsorized at N=128, 300 (P=SIZE²) and 1000
+              (P=2^20), each held against the plain version on 2^14
+              pixels in runs spread over P, with the bound from the plain
+              version's work on them scaled to P;
   4. fusedstack — the main path through the CLI entry point
               (``python -m siril_tpu_torch.cli -d <dir> fusedstack light_``)
               on FRAMES synthetic SIZE×SIZE 16-bit frames, checked against the
@@ -31,7 +43,9 @@ Phases, each printing a flushed start and end line with elapsed seconds:
   stack  — the staged ``stack`` command through the CLI on FRAMES aligned
               float32 SIZE×SIZE frames (``r_light_``, as registration leaves
               them) with SIGMEDIAN, LINEARFIT, GESDT, noise weights, and
-              rejection maps (the streamed row-block path), each checked
+              rejection maps (the streamed row-block path), then on
+              STACK100 aligned float32 SIZE100×SIZE100 frames (the column
+              kernel) with winsorized and GESDT rejection, each checked
               against the known scene and its variant's launches.
 Then a JSON line describing every kernel, the card line, and last the
 result line.  Any failure exits non-zero without a result line.  The script
@@ -54,6 +68,10 @@ T0 = time.perf_counter()
 # the main path's session: 24 mono 16-bit frames of 4096×4096 (bench.py:36)
 FRAMES = 24
 SIZE = 4096
+
+# the column kernel's session: 100 aligned float32 frames of 2048×2048
+STACK100 = 100
+SIZE100 = 2048
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_OPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
@@ -123,18 +141,34 @@ def ptxas_report(text: str) -> dict:
 
 
 #: the register path's kernel and its mode classes (csrc/reject_stack.cu
-#: CLASS_*); one instantiation per class, weighting, NMAX and input type
+#: CLASS_*) with their modes; one instantiation per class, weighting,
+#: input type and NMAX from 8 up to the largest column the library sends
+#: a mode of the class to that path
 REGISTER_KERNEL = "register_kernel"
-CLASSES = ("window", "winsorized", "sigmedian", "linearfit")
-REGISTER_INSTANTIATIONS = len(CLASSES) * 2 * 4 * 2
+CLASSES = ("window", "winsorized", "sigmedian", "linearfit", "gesdt")
+CLASS_MODES = ((0, 1, 2, 3), (5,), (4,), (6,), (7,))
+NMAXES = (8, 16, 24, 32, 48, 64)
+
+
+def register_instantiations() -> int:
+    """The register-path instantiations the library's dispatch
+    (``siril_reject_stack_register_path``) asks for: an NMAX is built
+    where some frame count above the NMAX before it takes the path."""
+    from siril_tpu_torch.kernels import reject_stack as k1
+
+    on_path = k1._library().siril_reject_stack_register_path
+    return 2 * sum(
+        sum(1 for lo, m in zip((0,) + NMAXES, NMAXES)
+            if any(on_path(lo + 1, r, w) for r in modes))
+        for modes in CLASS_MODES for w in (0, 1))
 
 
 def _kernel_label(mangled: str) -> str:
     """register_kernel<float, NMAX, weighted, class> or
-    reject_stack_kernel<float, global> from a mangled name."""
+    column_kernel<float, global> from a mangled name."""
     import re
 
-    m = re.search(rf"({REGISTER_KERNEL}|reject_stack_kernel)I([fs])"
+    m = re.search(rf"({REGISTER_KERNEL}|column_kernel)I([fs])"
                   r"(?:Li(\d+)E)?Lb([01])E(?:Li(\d+)E)?", mangled)
     if not m:
         return mangled
@@ -169,9 +203,10 @@ def phase_build():
                         or r.get("stack", 0)):
                     spilled.append(label)
     log(f"  {registers} register-path instantiations, built in {dt:.2f}s")
-    if registers != REGISTER_INSTANTIATIONS:
+    if registers != register_instantiations():
         raise RuntimeError(f"ptxas reported {registers} register-path "
-                           f"instantiations, not {REGISTER_INSTANTIATIONS}")
+                           f"instantiations, not "
+                           f"{register_instantiations()}")
     if spilled:
         raise RuntimeError(f"the register path spills: {spilled}")
     return dt
@@ -197,8 +232,18 @@ def _events_ms(fn, reps: int) -> float:
 def make_stack(gen, n: int, p: int, device):
     """(n, p) float32 stack in [0, 1]: per-pixel level + noise, cosmic-ray
     and dead outliers, ~3% zeros, and on one pixel in 8 a heavy high tail
-    with low outliers, so the N−r≤4 guard truncates the high side."""
+    with low outliers, so the N−r≤4 guard truncates the high side.  Past
+    2^30 values it is made in column chunks (a multiple of 8 pixels each),
+    which bounds the temporaries."""
     import torch
+
+    if n * p > (1 << 30):
+        out = torch.empty(n, p, device=device)
+        step = max(8, (1 << 27) // n // 8 * 8)
+        for c0 in range(0, p, step):
+            c1 = min(p, c0 + step)
+            out[:, c0:c1] = make_stack(gen, n, c1 - c0, device)
+        return out
 
     base = 0.05 + 0.6 * torch.rand(p, generator=gen, device=device)
     x = base + 0.01 * torch.randn(n, p, generator=gen, device=device)
@@ -342,13 +387,13 @@ def phase_k1a(seed: int):
     log_steps("main-path block", work, pb)
     del block
 
-    # winsorized at 64 frames: the shared-memory path
+    # winsorized at 64 frames: the column kernel
     n64 = 64
     st64 = make_stack(gen, n64, p, dev)
     c64 = 1.0 + 0.02 * torch.randn(n64, generator=gen, device=dev)
     work64 = {}
-    r64 = compare_k1(f"winsorized/f32/addscale N={n64} P={p} (shared "
-                     "memory)", st64, c64, c64 * 0.1 - 0.1,
+    r64 = compare_k1(f"winsorized/f32/addscale N={n64} P={p} (column "
+                     "kernel)", st64, c64, c64 * 0.1 - 0.1,
                      torch.ones_like(c64), rj.WINSORIZED, ADDITIVE_SCALING,
                      3.0, 3.0, work=work64)
     log_steps(f"N={n64}", work64, p)
@@ -433,19 +478,32 @@ def phase_k1(seed: int):
                 record(var, tag, compare_k1(
                     tag, data, scale, offset, mul, rtype, mode, sl, sh,
                     **gesdt_kw(rtype, n, sl, sh)))
-    # K1b and K1c at each register-path column size NMAX = 8, 16, 32 and
-    # past it (N = 33: shared memory), on data of their own generator
+    # K1b, K1c and K1d at register-path column sizes NMAX = 8, 16, 32, on
+    # data of their own generator; K1d over every normalization and with
+    # per-frame and per-pixel weights (K1e over GESDT)
     gen_n = torch.Generator(device=dev)
     gen_n.manual_seed(seed + 2)
-    for nn in (8, 16, 32, 33):
+    for nn in (8, 16, 32):
         st = make_stack(gen_n, nn, p, dev)
         sraw = (torch.round(st * 65535.0) - 32768.0).to(torch.int16)
         cs, co, cm = coeffs(nn, gen_n)
-        for var, label, rtype, sl, sh, _ in STACK_VARIANTS[:2]:
+        for var, label, rtype, sl, sh, _ in STACK_VARIANTS[:3]:
             for dname, data in (("f32", st), ("i16", sraw)):
-                tag = f"{var} {label}/{dname}/addscale N={nn} P={p}"
-                record(var, tag, compare_k1(tag, data, cs, co, cm, rtype,
-                                            ADDITIVE_SCALING, sl, sh))
+                for nname, mode in (norms if var == "K1d" else norms[1:2]):
+                    tag = f"{var} {label}/{dname}/{nname} N={nn} P={p}"
+                    record(var, tag, compare_k1(
+                        tag, data, cs, co, cm, rtype, mode, sl, sh,
+                        **gesdt_kw(rtype, nn, sl, sh)))
+        for wname, w in (("frame", 0.5 + torch.rand(nn, 1, generator=gen_n,
+                                                    device=dev)),
+                         ("pixel", 0.5 + torch.rand(nn, p, generator=gen_n,
+                                                    device=dev))):
+            for dname, data in (("f32", st), ("i16", sraw)):
+                tag = (f"K1e gesdt/{dname}/addscale weights per {wname} "
+                       f"N={nn} P={p}")
+                record("K1e", tag, compare_k1(
+                    tag, data, cs, co, cm, rj.GESDT, ADDITIVE_SCALING, 0.3,
+                    0.05, weights=w, **gesdt_kw(rj.GESDT, nn, 0.3, 0.05)))
         del st, sraw
     wf = 0.5 + torch.rand(n, 1, generator=gen, device=dev)
     wp = 0.5 + torch.rand(n, p, generator=gen, device=dev)
@@ -462,16 +520,6 @@ def phase_k1(seed: int):
                     tag, data, scale, offset, mul, rtype, ADDITIVE_SCALING,
                     sl, sh, weights=w, **gesdt_kw(rtype, n, sl, sh)))
     del stack, raw, wp
-
-    # more frames than shared memory holds: columns in global scratch
-    # (SIGMEDIAN: its plain version's cost grows least with N)
-    nb, pb = 1000, 1 << 14
-    big = make_stack(gen, nb, pb, dev)
-    bs, bo, bm = coeffs(nb)
-    tag = f"K1b sigmedian/f32/addscale N={nb} P={pb} (global columns)"
-    record("K1b", tag, compare_k1(tag, big, bs, bo, bm, rj.SIGMEDIAN,
-                                  ADDITIVE_SCALING, 3.0, 3.0))
-    del big
 
     # each variant at the stack command's call size: the resident layer
     results = {}
@@ -515,6 +563,176 @@ def phase_k1(seed: int):
     del full
     if failures:
         raise RuntimeError(f"K1b-K1e out of tolerance: {failures}")
+    return results
+
+
+#: the comparisons past 32 frames: frames, pixels, GESDT's outlier
+#: fraction (at 1000 frames cut, so that its plain version's walk of one
+#: row-order sum a row a step stays short) and the one mode to run, or
+#: None for every mode (with weights and int16); the last is SIGMEDIAN's
+#: check of the earlier slices at 1000 frames
+COLUMN_FRAMES = [(33, 1 << 20, 0.3, None), (48, 1 << 16, 0.3, None),
+                 (64, 1 << 16, 0.3, None), (100, 1 << 15, 0.3, None),
+                 (300, 1 << 13, 0.3, None), (1000, 1 << 11, 0.02, None),
+                 (1000, 1 << 14, 0.02, "sigmedian")]
+#: the column kernel's timing sizes: the 100-frame stack command's call
+#: (winsorized and GESDT, as the stack phase runs it), then winsorized at
+#: 128, 300 and 1000 frames; each held against the plain version on
+#: COLUMN_SLICE pixels in COLUMN_CHUNKS runs spread over P, the last
+#: ending at P, so that tiles that blocks take after their first are
+#: compared too
+COLUMN_TIMING = [(STACK100, SIZE100 * SIZE100, "winsorized"),
+                 (STACK100, SIZE100 * SIZE100, "gesdt"),
+                 (128, SIZE * SIZE, "winsorized"),
+                 (300, SIZE * SIZE, "winsorized"),
+                 (1000, 1 << 20, "winsorized")]
+COLUMN_SLICE = 1 << 14
+COLUMN_CHUNKS = 16
+
+
+def spread_slice(p: int, m: int, chunks: int, device):
+    """Indices of ``m`` pixels of ``p`` in ``chunks`` runs of consecutive
+    pixels, evenly spaced, the first at 0 and the last ending at ``p``."""
+    import torch
+
+    if m >= p:
+        return torch.arange(p, device=device)
+    run = m // chunks
+    starts = torch.linspace(0, p - run, chunks, device=device).long()
+    return (starts[:, None] + torch.arange(run, device=device)).reshape(-1)
+
+
+def phase_k1col(seed: int):
+    """K1 past 32 frames against its plain version: the register path up
+    to 64 frames, the column kernel (K1col) past it; returns one result
+    per timing size of the column kernel (COLUMN_TIMING), each with the
+    worst error over all the phase's comparisons."""
+    import torch
+
+    from siril_tpu_torch.kernels import reject_stack as k1
+    from siril_tpu_torch.ops import rejection as rj
+    from siril_tpu_torch.ops.normalization import (
+        ADDITIVE_SCALING,
+        MULTIPLICATIVE,
+    )
+    from siril_tpu_torch.ops.stacking import reject_stack_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 3)
+    lib = k1._library()
+    modes = [("none", rj.NO_REJEC, 3.0, 3.0),
+             ("percentile", rj.PERCENTILE, 0.2, 0.1),
+             ("sigma", rj.SIGMA, 3.0, 3.0), ("mad", rj.MAD, 3.0, 3.0),
+             ("winsorized", rj.WINSORIZED, 3.0, 3.0),
+             ("sigmedian", rj.SIGMEDIAN, 3.0, 3.0),
+             ("linearfit", rj.LINEARFIT, 3.0, 3.0),
+             ("gesdt", rj.GESDT, None, 0.05)]
+    worst, failures = 0.0, []
+
+    def layout(n, weighted):
+        return "global scratch" if lib.siril_reject_stack_needs_scratch(
+            n, rj.WINSORIZED, int(weighted)) else "shared memory"
+
+    def gesdt_kw(rtype, n, frac, sh):
+        if rtype != rj.GESDT:
+            return {}
+        mo = rj.gesdt_max_outliers(n, frac)
+        return dict(max_outliers=mo,
+                    critical=rj.gesdt_critical_values(n, sh, mo))
+
+    for n, p, frac, only in COLUMN_FRAMES:
+        st = make_stack(gen, n, p, dev)
+        raw = (torch.round(st * 65535.0) - 32768.0).to(torch.int16)
+        sc = 1.0 + 0.05 * torch.randn(n, generator=gen, device=dev)
+        off = 0.01 * torch.randn(n, generator=gen, device=dev)
+        mu = 1.0 + 0.03 * torch.randn(n, generator=gen, device=dev)
+        wf = 0.5 + torch.rand(n, 1, generator=gen, device=dev)
+        wp = 0.5 + torch.rand(n, p, generator=gen, device=dev)
+        runs = [(label, rtype, sl, sh, "f32", st, ADDITIVE_SCALING, None)
+                for label, rtype, sl, sh in modes]
+        runs += [("winsorized", rj.WINSORIZED, 3.0, 3.0, "f32", st,
+                  ADDITIVE_SCALING, ("frame", wf)),
+                 ("gesdt", rj.GESDT, None, 0.05, "f32", st,
+                  ADDITIVE_SCALING, ("pixel", wp)),
+                 ("winsorized", rj.WINSORIZED, 3.0, 3.0, "i16", raw,
+                  MULTIPLICATIVE, None),
+                 ("sigmedian", rj.SIGMEDIAN, 3.0, 3.0, "i16", raw,
+                  ADDITIVE_SCALING, None),
+                 ("linearfit", rj.LINEARFIT, 3.0, 3.0, "i16", raw,
+                  ADDITIVE_SCALING, None)]
+        if only is not None:
+            runs = [r for r in runs[:len(modes)] if r[0] == only]
+        for label, rtype, sl, sh, dname, data, mode, wt in runs:
+            sl = frac if sl is None else sl
+            extra = gesdt_kw(rtype, n, frac, sh)
+            wname = "" if wt is None else f" weights per {wt[0]}"
+            if wt is not None:
+                extra["weights"] = wt[1]
+            var = k1.variant(rtype, wt is not None, n)
+            where = (layout(n, wt is not None) if var == "K1col"
+                     else "registers")
+            tag = (f"{var} {label}/{dname}/mode{mode}{wname} N={n} P={p} "
+                   f"({where})")
+            r = compare_k1(tag, data, sc, off, mu, rtype, mode, sl, sh,
+                           **extra)
+            worst = max(worst, r["max_abs_err"])
+            if not r["ok"]:
+                failures.append(tag)
+        del st, raw, wp
+
+    # the timing sizes: the kernel over all P pixels, the plain version
+    # over a slice spread across them
+    results = []
+    for n, p, label in COLUMN_TIMING:
+        rtype, sl, sh = {m[0]: m[1:] for m in modes}[label]
+        sl = 0.3 if sl is None else sl
+        st = make_stack(gen, n, p, dev)
+        sc = 1.0 + 0.02 * torch.randn(n, generator=gen, device=dev)
+        off, one = sc * 0.1 - 0.1, torch.ones_like(sc)
+        kw = dict(rtype=rtype, mode=ADDITIVE_SCALING, siglow=sl, sighigh=sh,
+                  **gesdt_kw(rtype, n, sl, sh))
+        k1.reject_mean(st, sc, off, one, **kw)
+        ms = _events_ms(lambda: k1.reject_mean(st, sc, off, one, **kw), 3)
+        got = k1.reject_mean(st, sc, off, one, **kw)
+        idx = spread_slice(p, COLUMN_SLICE, COLUMN_CHUNKS, dev)
+        m = idx.numel()
+        part = st[:, idx].contiguous()
+        work, refs = {}, []
+        plain_ms = _events_ms(lambda: refs.append(reject_stack_plain(
+            part, sc, off, one, work=None if refs else work, **kw)), 1)
+        ref = refs[0]
+        nbad = int(((got[1][idx] != ref[1]) | (got[2][idx] != ref[2])).sum())
+        err = float((got[0][idx] - ref[0]).abs().max())
+        ok = nbad == 0 and err == 0.0 and bool(torch.isfinite(got[0]).all())
+        worst = max(worst, err)
+        scaled = {key: work.get(key, 0) * p / m
+                  for key in ("flops", "compares")}
+        # the stack once, 3 coefficient vectors, 12 B per pixel out; GESDT
+        # its λ table
+        nbytes = n * p * 4 + 3 * n * 4 + p * 12 + 4 * len(
+            kw.get("critical", ()))
+        r = dict(ok=ok, ms=ms, plain_ms=plain_ms, n=n, p=p, label=label,
+                 slice=m, **_bound(nbytes, scaled))
+        log(f"  K1col {label}/f32/addscale N={n} P={p} "
+            f"({layout(n, False)}): kernel {ms:.3f} ms; on {m} pixels in "
+            f"{COLUMN_CHUNKS} runs over P count mismatches {nbad}, "
+            f"max|Δmean| {err:.3g}, rej {int(got[1].sum())}/"
+            f"{int(got[2].sum())}, plain {plain_ms:.1f} ms; bound: "
+            f"{r['bytes'] / 1e6:.1f} MB → {r['bytes_ms']:.4f} ms, "
+            f"{r['ops'] / 1e9:.2f} G operations (the slice's, scaled) → "
+            f"{r['ops_ms']:.4f} ms; kernel = {ms / r['bound_ms']:.1f}x the "
+            f"bound ({r['bound_by']})"
+            + ("" if ok else "  <-- DIFFERS FROM THE PLAIN VERSION"))
+        log_steps(f"N={n} (slice)", work, m)
+        if not ok:
+            failures.append(f"K1col timing {label} N={n}")
+        results.append(r)
+        del st, got, part
+    if failures:
+        raise RuntimeError(f"K1col out of tolerance: {failures}")
+    for r in results:
+        r["max_abs_err"] = worst
     return results
 
 
@@ -678,18 +896,21 @@ STACK_RUNS = [("K1b", "rej a 3 3 -norm=addscale"),
               ("K1d", "rej g 0.3 0.05 -norm=addscale"),
               ("K1e", "rej w 3 3 -norm=addscale -weight_from_noise"),
               ("K1a", "rej w 3 3 -norm=addscale -rejmaps")]
+#: the same on the 100-frame session: the column kernel
+STACK100_RUNS = [("K1col", "rej w 3 3 -norm=addscale"),
+                 ("K1col", "rej g 0.3 0.05 -norm=addscale")]
 
 
-def phase_stack(seed: int):
+def phase_stack(seed: int, frames: int = FRAMES, size: int = SIZE,
+                runs=STACK_RUNS):
     """The staged stack command on aligned float32 frames; returns
-    ({variant: launches}, {command: stage seconds})."""
+    ({variant: launches}, {command: {variant: launches}})."""
     import numpy as np
     import torch
 
     from siril_tpu_torch import cli
     from siril_tpu_torch.kernels import reject_stack as k1
 
-    frames, size = FRAMES, SIZE
     t = time.perf_counter()
     scene, f32s, _, sigma_n, ray = synth_frames(seed + 7, frames, size,
                                                 aligned=True)
@@ -697,7 +918,7 @@ def phase_stack(seed: int):
         f"in {time.perf_counter() - t:.2f}s")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_stack_")
     launches = dict.fromkeys(k1.launches, 0)
-    stages = {}
+    by_cmd = {}
     try:
         t = time.perf_counter()
         for i, f in enumerate(f32s):
@@ -707,7 +928,7 @@ def phase_stack(seed: int):
         m = 48
         inner = np.s_[m:-m, m:-m]
         failed = []
-        for var, cmd in STACK_RUNS:
+        for var, cmd in runs:
             words = ["-d", tmp, "stack", "r_light_", *cmd.split()]
             k1.reset_counts()
             t = time.perf_counter()
@@ -721,7 +942,7 @@ def phase_stack(seed: int):
             out = res.image.host()[0]
             err = float(np.abs(out[inner] - scene[inner]).mean())
             rl, rh = res.total_rejected
-            stages[cmd] = dict(res.stage_s, wall=wall)
+            by_cmd[cmd] = counts
             log(f"  stack r_light_ {cmd}: wall {wall:.2f}s, launches "
                 f"{ {k: v for k, v in counts.items() if v} }, interior "
                 f"mean |Δ| {err:.5f} (noise {sigma_n}), rejected low/high "
@@ -752,7 +973,7 @@ def phase_stack(seed: int):
                     failed.append(f"{cmd}: {name}")
         if failed:
             raise RuntimeError(f"stack checks failed: {failed}")
-        return launches, stages
+        return launches, by_cmd
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -783,10 +1004,14 @@ def main(argv=None) -> int:
         k1a = phase_k1a(args.seed)
     with Phase("k1"):
         k1v = phase_k1(args.seed)
+    with Phase("k1col"):
+        k1col = phase_k1col(args.seed)
     with Phase("fusedstack"):
         launches, stages, wall = phase_fusedstack(args.seed)
     with Phase("stack"):
         stack_launches, _ = phase_stack(args.seed)
+        _, stack100 = phase_stack(args.seed + 1, STACK100, SIZE100,
+                                  STACK100_RUNS)
     src = "siril_tpu_torch/csrc/reject_stack.cu"
     tpu = "siril_tpu/pallas/reject_stack.py"
     kernels = [dict(name="reject_stack (K1a)", launches=launches,
@@ -796,11 +1021,30 @@ def main(argv=None) -> int:
         kernels.append(dict(name=f"reject_stack ({var})",
                             launches=stack_launches[var],
                             replaces=f"{tpu}:{lines[var]}", **k1v[var]))
+    # the column kernel: a row for each 100-frame stack command, at its
+    # call size, with its launches; the winsorized row also carries the
+    # other timing sizes, which no command launched
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    cmd_of = {"winsorized": STACK100_RUNS[0][1],
+              "gesdt": STACK100_RUNS[1][1]}
+    calls = [r for r in k1col if (r["n"], r["p"]) == (STACK100,
+                                                      SIZE100 * SIZE100)]
+    others = [dict(n=o["n"], p=o["p"], slice=o["slice"],
+                   **{key: o[key] for key in keys})
+              for o in k1col if o not in calls]
+    for r in calls:
+        kernels.append(dict(
+            name=f"reject_stack (K1col {r['label']}, N={r['n']}, "
+                 f"P={r['p']}; plain version on {r['slice']} pixels)",
+            launches=stack100[cmd_of[r["label"]]]["K1col"],
+            replaces=f"{tpu}:763", **r,
+            **({"other_sizes": others} if r["label"] == "winsorized"
+               else {})))
     report = {"kernels": [
         dict(name=k["name"], route="cuda", source=src,
              replaces=k["replaces"], launches=k["launches"],
-             **{key: k[key] for key in keys}, library_ms=None)
+             **{key: k[key] for key in keys}, library_ms=None,
+             **{key: k[key] for key in ("other_sizes",) if key in k})
         for k in kernels]}
     log(f"chip_smoke done in {time.perf_counter() - T0:.1f}s")
     print(json.dumps(report), flush=True)

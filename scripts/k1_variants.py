@@ -1,20 +1,32 @@
-"""Time design variants of kernel K1's register path on one CUDA card.
+"""Time design variants of kernel K1 on one CUDA card.
 
-    python3 scripts/k1_variants.py [--mode MODE] [--size SIZE] [variant ...]
+    python3 scripts/k1_variants.py [--mode MODE[,MODE...]] [--size SIZE]
+        [--n N[,N...]] [--p P[,P...]] [--tags TAGS] [--reps R]
+        [--rounds K] [--parent FILE] [variant ...]
 
-MODE is winsorized (default), sigmedian or linearfit; SIZE is block
-(default: chip_smoke.py's main-path block, 24 frames × 2,793,472 pixels),
-stack (the stack command's call size, 24 × 16,777,216) or k1e (the size
-of chip_smoke.py's weighted comparisons, 24 × 1,048,576).  Each variant
-is a textual edit of ``siril_tpu_torch/csrc/reject_stack.cu`` (see
+MODE is winsorized (default), sigmedian, linearfit, gesdt, sigma, mad,
+percentile or none; a list runs each mode in turn on the same builds.
+SIZE is block (default: chip_smoke.py's main-path block, 2,793,472
+pixels), stack (the stack command's call size, 16,777,216) or k1e (the
+size of chip_smoke.py's weighted comparisons, 1,048,576); ``--p`` sets the
+pixels directly.  ``--n`` sets the frames (default chip_smoke.py's 24):
+past the register path's limit (32 frames, or 48 or 64 for some modes;
+REGISTER_FRAMES) the calls take the column kernel.  Lists of
+frame counts (with one pixel count, or one for each) run every size on
+the same builds, on data made anew for each size from a seed of its own.
+Each variant is a textual edit of ``siril_tpu_torch/csrc/reject_stack.cu`` (see
 ``variants``), built with the port's nvcc flags (float32 instantiations
 only; all variants' builds run together) into a scratch directory beside
-the build directory and bound through the wrapper.  Every variant runs the
-mode on chip_smoke.py's ``make_stack`` data (float32, additive+scaling;
-unweighted, with per-frame and with per-pixel weights) and must give the
-first variant's result bit for bit.  Times are CUDA events around 10
-back-to-back launches, median of 5.  Needs CUDA and nvcc; prints the
-card's name and power limit first.
+the build directory and bound through the wrapper; ``--parent FILE`` adds
+the variant ``parent``, built from another version of the source with the
+same C interface (an earlier commit's, unpacked with git archive).  Every
+variant runs the mode on chip_smoke.py's ``make_stack`` data (float32,
+additive+scaling; TAGS, a comma list of none, frame and pixel: unweighted,
+with per-frame and with per-pixel weights, default all three) and must
+give the first variant's result bit for bit.  Times are CUDA events around
+R back-to-back launches (default 10), median of K such batches (default
+5); ``parent`` by one launch where that takes more than a second.  Needs
+CUDA and nvcc; prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -32,8 +44,12 @@ sys.path.insert(0, HERE)
 
 SRC = os.path.join(HERE, "siril_tpu_torch", "csrc", "reject_stack.cu")
 
-MODES = {"winsorized": 5, "sigmedian": 4, "linearfit": 6}
-#: each mode's vote threshold in the source
+#: mode → (rtype, siglow, sighigh); GESDT's siglow is its outlier fraction
+MODES = {"winsorized": (5, 3.0, 3.0), "sigmedian": (4, 3.0, 3.0),
+         "linearfit": (6, 3.0, 3.0), "gesdt": (7, 0.3, 0.05),
+         "sigma": (2, 3.0, 3.0), "mad": (3, 3.0, 3.0),
+         "percentile": (1, 0.2, 0.1), "none": (0, 3.0, 3.0)}
+#: each voting mode's threshold in the source (GESDT has none: ``ready``)
 READY = {"winsorized": "READY_LANES", "sigmedian": "SIGMEDIAN_READY_LANES",
          "linearfit": "LINEARFIT_READY_LANES"}
 
@@ -43,11 +59,18 @@ __global__ void __launch_bounds__(REG_THREADS) lockstep_kernel(Params a) {
   __shared__ float sc[NMAX], off[NMAX], mu[NMAX];
   __shared__ float xv[WEIGHTED ? NMAX * REG_THREADS : 1];
   __shared__ float wt[NMAX];
+  __shared__ float lam[NMAX];
   for (int k = threadIdx.x; k < a.n; k += blockDim.x) {
     sc[k] = a.scale[k];
     off[k] = a.offset[k];
     mu[k] = a.mul[k];
     if (WEIGHTED && a.w_sp == 0) wt[k] = a.weights[k * a.w_sn];
+  }
+  if (CLASS == CLASS_GESDT) {
+    for (int k = threadIdx.x; k < min(max(a.max_outliers, 1), NMAX);
+         k += blockDim.x) {
+      lam[k] = a.crit[k];
+    }
   }
   __syncthreads();
   float* const xcol = xv + (WEIGHTED ? threadIdx.x : 0);
@@ -68,8 +91,8 @@ __global__ void __launch_bounds__(REG_THREADS) lockstep_kernel(Params a) {
         round = reg_clip_round(s.xs, a.n, s.w, s.med, s.sigma, a.siglow,
                                a.sighigh) && (s.w.hi - s.w.lo) > 3;
       }
-    } else if (lane_loop_start<CLASS>(s)) {
-      while (lane_step<CLASS>(a, s)) {
+    } else if (lane_loop_start<CLASS>(a, s)) {
+      while (lane_step<CLASS>(a, lam, s)) {
       }
     }
     lane_finish<T>(a, xcol, wt, s, kept_rows<CLASS>(s));
@@ -118,7 +141,7 @@ __device__ __forceinline__ void sigmedian_merge(float (&xs)[NMAX],
                                                 int nvalid, float med,
                                                 int nl, int nh) {
   const int u = min(nl + nh, nvalid);  // the prefix and the suffix may meet
-  const unsigned mid = span_mask(nl, nvalid - nh);
+  const RowMask<NMAX> mid = span_mask<RowMask<NMAX>>(nl, nvalid - nh);
   int j = 0;  // middle values below the median
 #pragma unroll
   for (int k = 0; k < NMAX; ++k) j += row_in(mid, k) && xs[k] < med;
@@ -152,18 +175,19 @@ def _sub(s: str, old: str, new: str) -> str:
 
 
 def _counted(s: str) -> str:
-    """Count, per warp, its step iterations and the lanes stepping in
-    them, and its refill iterations and the lanes acting in them."""
+    """Count, per warp of the register path, its step iterations and the
+    lanes stepping in them, and its refill iterations and the lanes
+    acting in them."""
     s = _sub(s, "constexpr unsigned FULL_WARP = 0xffffffffu;",
              "__device__ unsigned long long g_cnt[4];\n"
              "constexpr unsigned FULL_WARP = 0xffffffffu;")
-    s = _sub(s, "      if (stepping) stepping = lane_step<CLASS>(a, s);",
+    s = _sub(s, "      if (stepping) stepping = lane_step<CLASS>(a, lam, s);",
              "      const unsigned stepm = __ballot_sync(FULL_WARP, stepping);\n"
              "      if (lane == 0) {\n"
              "        atomicAdd(&g_cnt[0], 1ULL);\n"
              "        atomicAdd(&g_cnt[1], (unsigned long long)__popc(stepm));\n"
              "      }\n"
-             "      if (stepping) stepping = lane_step<CLASS>(a, s);")
+             "      if (stepping) stepping = lane_step<CLASS>(a, lam, s);")
     s = _sub(s, "      if (__ballot_sync(FULL_WARP, act) == 0) break;",
              "      const unsigned actm = __ballot_sync(FULL_WARP, act);\n"
              "      if (actm == 0) break;\n"
@@ -171,6 +195,38 @@ def _counted(s: str) -> str:
              "        atomicAdd(&g_cnt[2], 1ULL);\n"
              "        atomicAdd(&g_cnt[3], (unsigned long long)__popc(actm));\n"
              "      }")
+    return s + COUNTERS
+
+
+def _counted_columns(s: str) -> str:
+    """Count, in the column kernel, the most columns in flight on one SM
+    (tiles between their first load and their last write), the tiles, and
+    the SM cycles of their load-and-sort and of their rejection phases."""
+    s = _sub(s, "constexpr int COL_THREADS = 128;",
+             "__device__ unsigned long long g_cnt[4];\n"
+             "__device__ unsigned g_sm[1024];\n"
+             "constexpr int COL_THREADS = 128;")
+    s = _sub(s, "    const int p0 = (int)(at << lc);\n",
+             "    const int p0 = (int)(at << lc);\n"
+             "    unsigned sm_id = 0;\n"
+             "    long long c0 = clock64(), c1 = 0;\n"
+             "    if (t == 0) {\n"
+             "      asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(sm_id));\n"
+             "      const unsigned now = atomicAdd(&g_sm[sm_id], (unsigned)C)"
+             " + C;\n"
+             "      atomicMax(&g_cnt[0], (unsigned long long)now);\n"
+             "      atomicAdd(&g_cnt[1], 1ULL);\n"
+             "    }\n")
+    s = _sub(s, "    if (t < C && p0 + t < a.p) {\n      column_reject(",
+             "    c1 = clock64();\n"
+             "    if (t < C && p0 + t < a.p) {\n      column_reject(")
+    s = _sub(s, "    __syncthreads();  // the tile is free for the next one\n",
+             "    __syncthreads();  // the tile is free for the next one\n"
+             "    if (t == 0) {\n"
+             "      atomicSub(&g_sm[sm_id], (unsigned)C);\n"
+             "      atomicAdd(&g_cnt[2], (unsigned long long)(c1 - c0));\n"
+             "      atomicAdd(&g_cnt[3], (unsigned long long)(clock64() - c1));\n"
+             "    }\n")
     return s + COUNTERS
 
 
@@ -216,20 +272,77 @@ def _ready(name: str, lanes: int):
     return edit
 
 
-def variants(mode: str) -> dict:
-    """name → (what it changes, edit of the source) for one mode."""
-    ready = READY[mode]
-    out = {
-        "base": ("the source as it is", lambda s: s),
-        "counted": ("the source with counters of the warps' steps and "
-                    "refills (slower; read for lane use)", _counted),
-    }
-    for lanes in (4, 8, 16, 24, 32):
-        what = f"a warp leaves its steps at {lanes} ready lanes"
-        if lanes == 32:
-            what += (" (all lanes done: lockstep with the queue)"
-                     if mode != "winsorized" else " (all lanes settled)")
-        out[f"ready{lanes}"] = (what, _ready(ready, lanes))
+def _gesdt_vote(lanes: int):
+    """GESDT's walk steps under the warp vote, leaving at ``lanes`` ready
+    lanes, as SIGMEDIAN's and LINEARFIT's rounds run (the source walks
+    inside the lane's rejection, with no vote)."""
+    def edit(s: str) -> str:
+        s = _sub(s, "        if constexpr (CLASS == CLASS_WINDOW || "
+                 "CLASS == CLASS_GESDT) {",
+                 "        if constexpr (CLASS == CLASS_WINDOW) {")
+        return _sub(s, "                        : CLASS == CLASS_SIGMEDIAN ? "
+                    "SIGMEDIAN_READY_LANES\n",
+                    "                        : CLASS == CLASS_SIGMEDIAN ? "
+                    "SIGMEDIAN_READY_LANES\n"
+                    f"                        : CLASS == CLASS_GESDT ? {lanes}\n")
+    return edit
+
+
+def _frames(n: int):
+    """The register path's frame limits (REGISTER_FRAMES) all set to
+    ``n``."""
+    def edit(s: str) -> str:
+        s2, k = re.subn(r"\{(\d+), (\d+)\},(\s*// \w+)",
+                        lambda m: f"{{{n}, {n}}},{m.group(3)}", s)
+        if k != 8:
+            raise SystemExit("variant edit does not apply: REGISTER_FRAMES")
+        return s2
+    return edit
+
+
+def variants(mode: str, columns: bool = False) -> dict:
+    """name → (what it changes, edit of the source) for one mode; with
+    ``columns``, the variants of the column kernel (calls past 32
+    frames)."""
+    out = {"base": ("the source as it is", lambda s: s)}
+    if columns:
+        out.update({
+            "counted": ("the source with counters of the columns in flight "
+                        "on an SM and of the tiles' phase cycles (slower)",
+                        _counted_columns),
+            "no16": ("no 16-column tiles (32 at least)",
+                     lambda s: _sub(s, "  for (int l = 7; e == cudaSuccess "
+                                    "&& l >= 4; --l) {",
+                                    "  for (int l = 7; e == cudaSuccess && "
+                                    "l >= 5; --l) {")),
+            "columns64": ("the column kernel at 33-64 frames too (the "
+                          "register path up to 32 frames)", _frames(32)),
+            "insert0": ("the network's last stage at every N (no "
+                        "insertion of the rows past 32)",
+                        lambda s: _sub(s, "constexpr int INSERT_ROWS = ",
+                                       "constexpr int INSERT_ROWS = 0;  // ")),
+            "insert32": ("the rows past 32 inserted up to 64 frames",
+                         lambda s: _sub(s, "constexpr int INSERT_ROWS = ",
+                                        "constexpr int INSERT_ROWS = 32;  "
+                                        "// ")),
+            "registers64": ("the register path up to 64 frames in every "
+                            "mode and weighting", _frames(64)),
+        })
+        return out
+    out["counted"] = ("the source with counters of the warps' steps and "
+                      "refills (slower; read for lane use)", _counted)
+    if mode in READY:
+        for lanes in (4, 8, 16, 24, 32):
+            what = f"a warp leaves its steps at {lanes} ready lanes"
+            if lanes == 32:
+                what += (" (all lanes done: lockstep with the queue)"
+                         if mode != "winsorized" else " (all lanes settled)")
+            out[f"ready{lanes}"] = (what, _ready(READY[mode], lanes))
+    if mode == "gesdt":
+        for lanes in (16, 24):
+            out[f"vote{lanes}"] = (f"the walk's steps under the warp vote, "
+                                   f"leaving at {lanes} ready lanes",
+                                   _gesdt_vote(lanes))
     out.update({
         "nmax32": ("N = 24 in the NMAX = 32 instantiation (no NMAX = 24)",
                    lambda s: _sub(s, "  if (a.n <= 24) return launch_reg<T, "
@@ -242,10 +355,10 @@ def variants(mode: str) -> dict:
                                         "raw[k])", "norm_value<T>(a, sc, off, "
                                         "mu, k, (float)((const T*)a.stack)"
                                         "[(size_t)k * a.p + s.px])")),
-        "smem": ("the shared-memory path (one thread a column, the design "
-                 "before the register path)",
-                 lambda s: _sub(s, "{ return n <= 32 && rtype != GESDT; }",
-                                "{ return false; }")),
+        "columns": ("the column kernel (the design past the register "
+                    "path) at every N",
+                    lambda s: _sub(s, "  return n <= REGISTER_FRAMES[rtype]"
+                                   "[weighted];", "  return false;")),
     })
     if mode == "sigmedian":
         out["resort_merge"] = ("re-sort (b): the closed-form merge of the "
@@ -285,13 +398,93 @@ def build_all(srcs: dict, out_dir: str) -> dict:
     return libs
 
 
+def time_mode(mode, n, p, stack, sc, off, one, weights, tags, names, libs,
+              table, columns, batch_ms, args) -> bool:
+    """Every variant on one mode and size, each weighting in TAGS; False
+    when a variant's result differs from the first's."""
+    import torch
+
+    from siril_tpu_torch.kernels import reject_stack as k1
+    from siril_tpu_torch.ops import rejection as rj
+    from siril_tpu_torch.ops.normalization import ADDITIVE_SCALING
+
+    rtype, sl, sh = MODES[mode]
+    extra = {}
+    if rtype == rj.GESDT:
+        mo = rj.gesdt_max_outliers(n, sl)
+        extra = dict(max_outliers=mo,
+                     critical=rj.gesdt_critical_values(n, sh, mo))
+    ref, base_ms = {}, {}
+    for wname in tags:
+        tag = f"{mode} N={n}" if wname == "none" else \
+            f"{mode} N={n}, {wname} weights"
+        for name in names:
+            k1._library = lambda lib=libs[name]: lib
+
+            def run():
+                return k1.reject_mean(stack, sc, off, one, rtype=rtype,
+                                      mode=ADDITIVE_SCALING, siglow=sl,
+                                      sighigh=sh, weights=weights[wname],
+                                      **extra)
+
+            out = run()
+            ref.setdefault(tag, out)
+            same = all(torch.equal(x, y) for x, y in zip(out, ref[tag]))
+            del out
+            once = batch_ms(run, 1) if name == "parent" else 0.0
+            if once > 1000.0:
+                times = [once]
+            else:
+                times = sorted(batch_ms(run, args.reps)
+                               for _ in range(args.rounds))
+            med = times[len(times) // 2]
+            base_ms.setdefault(tag, med)
+            if name == "counted":
+                cnt = (ctypes.c_ulonglong * 4)()
+                libs[name].k1_counts(cnt, 1)
+                run()
+                torch.cuda.synchronize()
+                libs[name].k1_counts(cnt, 0)
+                if columns:
+                    print(f"{tag:34s} counted: at most {cnt[0]} columns "
+                          f"in flight on one SM; {cnt[1]} tiles, SM cycles "
+                          f"a tile: load and sort "
+                          f"{cnt[2] / max(cnt[1], 1):.0f}, reject "
+                          f"{cnt[3] / max(cnt[1], 1):.0f}", flush=True)
+                else:
+                    print(f"{tag:34s} counted: {cnt[0]} warp steps with "
+                          f"{cnt[1]} lanes stepping "
+                          f"({cnt[1] / 32 / max(cnt[0], 1):.1%} lane use); "
+                          f"{cnt[2]} refill iterations with {cnt[3]} lanes "
+                          f"acting ({cnt[3] / max(cnt[2], 1):.1f} a warp)",
+                          flush=True)
+            print(f"{tag:34s} {name:12s} {med:.3f} ms "
+                  f"(min {times[0]:.3f}, max {times[-1]:.3f}; "
+                  f"{med / base_ms[tag]:.3f}x the first), "
+                  f"{'bit-equal to the first' if same else 'DIFFERS'}"
+                  f" — {table[name][0]}", flush=True)
+            if not same:
+                return False
+    return True
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=sorted(MODES), default="winsorized")
+    ap.add_argument("--mode", default="winsorized")
     ap.add_argument("--size", choices=("block", "stack", "k1e"),
                     default="block")
+    ap.add_argument("--n", default=None)
+    ap.add_argument("--p", default=None)
+    ap.add_argument("--tags", default="none,frame,pixel")
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--parent", default=None)
     ap.add_argument("names", nargs="*", metavar="variant")
     args = ap.parse_args(argv)
+    modes = args.mode.split(",")
+    for m in modes:
+        if m not in MODES:
+            raise SystemExit(f"unknown mode {m}")
 
     import time
 
@@ -300,50 +493,50 @@ def main(argv) -> int:
     import chip_smoke as cs
     from siril_tpu_torch.kernels import build as kb
     from siril_tpu_torch.kernels import reject_stack as k1
-    from siril_tpu_torch.ops.normalization import ADDITIVE_SCALING
 
     if not torch.cuda.is_available():
         print("no CUDA device")
         return 2
-    table = variants(args.mode)
+    ns = [int(v) for v in (args.n or str(cs.FRAMES)).split(",")]
+    columns = max(ns) > 32
+    table = variants(modes[0], columns)
+    if args.parent:
+        table["parent"] = (f"the source of {args.parent}",
+                           lambda s: open(args.parent).read())
     names = args.names or list(table)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    out_dir = os.path.join(kb.BUILD_DIR, f"variants-{args.mode}")
+    out_dir = os.path.join(kb.BUILD_DIR, f"variants-{os.getpid()}")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
-    src = float_only(open(SRC).read())
+    src = open(SRC).read()
     t = time.perf_counter()
-    paths = build_all({name: table[name][1](src) for name in names},
-                      out_dir)
+    paths = build_all({name: float_only(table[name][1](src))
+                       for name in names}, out_dir)
     print(f"built {len(paths)} variants in {time.perf_counter() - t:.1f}s",
           flush=True)
     libs = {}
     for name, path in paths.items():
         lib = ctypes.CDLL(path)
-        lib.siril_reject_stack.argtypes = k1._ARGTYPES
-        lib.siril_reject_stack.restype = ctypes.c_int
-        lib.siril_reject_stack_needs_scratch.argtypes = [ctypes.c_int] * 3
-        lib.siril_reject_stack_needs_scratch.restype = ctypes.c_int
+        if not hasattr(lib, "siril_reject_stack_register_path"):
+            # a source from before this export: its launches are counted
+            # (by the wrapper, read by nothing here) as the column kernel's
+            lib.siril_reject_stack_register_path = lambda n, r, w: 0
+        k1.bind(lib)
         if name == "counted":
             lib.k1_counts.argtypes = [ctypes.c_void_p, ctypes.c_int]
             lib.k1_counts.restype = ctypes.c_int
         libs[name] = lib
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    n = cs.FRAMES
-    p = {"block": (256 << 20) // (cs.FRAMES * cs.SIZE * 4) * cs.SIZE,
-         "stack": cs.SIZE * cs.SIZE, "k1e": 1 << 20}[args.size]
-    stack = cs.make_stack(gen, n, p, dev)
-    sc = 1.0 + 0.02 * torch.randn(n, generator=gen, device=dev)
-    off, one = sc * 0.1 - 0.1, torch.ones_like(sc)
-    wf = 0.5 + torch.rand(n, 1, generator=gen, device=dev)
-    wp = 0.5 + torch.rand(n, p, generator=gen, device=dev)
-    print(f"{args.mode} at N = {n}, P = {p} ({args.size})", flush=True)
+    default_p = {"block": (256 << 20) // (cs.FRAMES * cs.SIZE * 4) * cs.SIZE,
+                 "stack": cs.SIZE * cs.SIZE, "k1e": 1 << 20}[args.size]
+    ps = [int(v) for v in args.p.split(",")] if args.p else [default_p]
+    if len(ps) == 1:
+        ps = ps * len(ns)
+    tags = args.tags.split(",")
 
-    def batch_ms(fn, reps=10):
+    def batch_ms(fn, reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -353,41 +546,26 @@ def main(argv) -> int:
         b.synchronize()
         return a.elapsed_time(b) / reps
 
-    ref, base_ms = {}, {}
-    for tag, w in ((args.mode, None), (f"{args.mode}, frame weights", wf),
-                   (f"{args.mode}, pixel weights", wp)):
-        for name in names:
-            k1._library = lambda lib=libs[name]: lib
-
-            def run():
-                return k1.reject_mean(stack, sc, off, one,
-                                      rtype=MODES[args.mode],
-                                      mode=ADDITIVE_SCALING, siglow=3.0,
-                                      sighigh=3.0, weights=w)
-
-            out = run()
-            ref.setdefault(tag, out)
-            same = all(torch.equal(x, y) for x, y in zip(out, ref[tag]))
-            times = sorted(batch_ms(run) for _ in range(5))
-            base_ms.setdefault(tag, times[2])
-            if name == "counted":
-                cnt = (ctypes.c_ulonglong * 4)()
-                libs[name].k1_counts(cnt, 1)
-                run()
-                torch.cuda.synchronize()
-                libs[name].k1_counts(cnt, 0)
-                print(f"{tag:30s} counted: {cnt[0]} warp steps with "
-                      f"{cnt[1]} lanes stepping ({cnt[1] / 32 / max(cnt[0], 1):.1%}"
-                      f" lane use); {cnt[2]} refill iterations with "
-                      f"{cnt[3]} lanes acting "
-                      f"({cnt[3] / max(cnt[2], 1):.1f} a warp)", flush=True)
-            print(f"{tag:30s} {name:12s} {times[2]:.3f} ms "
-                  f"(min {times[0]:.3f}, max {times[-1]:.3f}; "
-                  f"{times[2] / base_ms[tag]:.3f}x the first), "
-                  f"{'bit-equal to the first' if same else 'DIFFERS'}"
-                  f" — {table[name][0]}", flush=True)
-            if not same:
+    for n, p in zip(ns, ps):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(n)
+        stack = cs.make_stack(gen, n, p, dev)
+        sc = 1.0 + 0.02 * torch.randn(n, generator=gen, device=dev)
+        off, one = sc * 0.1 - 0.1, torch.ones_like(sc)
+        weights = {"none": None}
+        if "frame" in tags:
+            weights["frame"] = 0.5 + torch.rand(n, 1, generator=gen,
+                                                device=dev)
+        if "pixel" in tags:
+            weights["pixel"] = 0.5 + torch.rand(n, p, generator=gen,
+                                                device=dev)
+        print(f"{args.mode} at N = {n}, P = {p}", flush=True)
+        for mode in modes:
+            if not time_mode(mode, n, p, stack, sc, off, one, weights, tags,
+                             names, libs, table, columns, batch_ms, args):
                 return 1
+        del stack, weights
+    shutil.rmtree(out_dir, ignore_errors=True)
     return 0
 
 

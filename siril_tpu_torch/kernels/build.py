@@ -22,9 +22,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
+# --split-compile=0: the device code's optimization on every core (the
+# K1 source built in 42.7 s instead of 121.0 s on the card machine's 8
+# cores, the same ptxas report but 2 registers in 4 kernels; PERF.md §6)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v")
+              "-O3", "--fmad=false", "--split-compile=0", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -7,18 +7,19 @@ Replaces the TPU kernel ``siril_tpu/pallas/reject_stack.py::
 pallas_reject_mean`` (:763).  Bound on an H100: the function reads the
 stack once (plus the weights) and writes 12 bytes per pixel (~90 µs for a
 main-path block of 24 × 2.8 Mpix float32); see the source's header for
-its two paths (registers for every mode but GESDT at N ≤ 32, shared
-memory for the rest).  Any frame count works: where the columns fit no block's
-shared memory, they live in a global scratch buffer that this wrapper
-allocates.
+its two paths (registers up to 32 frames, and up to 48 or 64 for some
+modes; tiles of columns in shared memory past that).  Any frame count
+works: where a tile of 32 columns fits no block's shared memory (past
+1698 frames, or 875 with a weighted mean), the tiles live in a global
+scratch buffer that this wrapper allocates.
 
 ``reject_mean`` takes a CPU tensor to the plain version
 (``ops/stacking.reject_stack_plain``) and a CUDA tensor to the kernel,
 built with nvcc at first use and bound through ctypes.  There is no
 fallback from one to the other.  ``launches`` counts the calls that
-launched the kernel, by variant: "K1e" for a weighted mean, else "K1a"
-(window modes), "K1b", "K1c" or "K1d".  One call is one count, also where
-the global-scratch layout walks the pixels in several grids.
+launched the kernel, by variant: on the register path "K1e" for a
+weighted mean, else "K1a" (window modes), "K1b", "K1c" or "K1d"; past it
+"K1col", the column kernel, for every mode.
 ``capped_pixels`` counts, for either version, the SIGMEDIAN pixels whose
 loop stopped at ``SIGMEDIAN_MAX_ROUNDS`` while still replacing values and
 the winsorized clipping rounds whose σ iteration stopped at
@@ -42,14 +43,21 @@ from siril_tpu_torch.ops.rejection import (
 )
 from siril_tpu_torch.ops.stacking import reject_stack_plain
 
-#: kernel-launching calls by variant, K1a … K1e, since the last reset
-launches = dict.fromkeys(("K1a", "K1b", "K1c", "K1d", "K1e"), 0)
+#: kernel-launching calls by variant, K1a … K1e and K1col, since the last
+#: reset
+launches = dict.fromkeys(("K1a", "K1b", "K1c", "K1d", "K1e", "K1col"), 0)
 #: per device, an int64 scalar: loops stopped at their mode's bound
 _capped = {}
 
 
-def variant(rtype: int, weighted: bool) -> str:
-    """The K1 variant a call runs: K1e for a weighted mean, else by mode."""
+def variant(rtype: int, weighted: bool, n: int) -> str:
+    """The K1 variant a call of ``n`` frames runs: past the register path
+    (the library's ``siril_reject_stack_register_path``) the column kernel
+    (K1col), else K1e for a weighted mean, else by mode.  Builds the
+    library at first use."""
+    if not _library().siril_reject_stack_register_path(n, int(rtype),
+                                                        int(weighted)):
+        return "K1col"
     if weighted:
         return "K1e"
     return {SIGMEDIAN: "K1b", LINEARFIT: "K1c", GESDT: "K1d"}.get(rtype,
@@ -79,7 +87,7 @@ def capped_pixels() -> int:
     return sum(int(t) for t in _capped.values())
 
 
-#: bytes of global scratch columns one launch chunk may use
+#: bytes of global scratch a call may use (about; at least 128 columns)
 SCRATCH_BYTES = 512 << 20
 
 _ARGTYPES = [
@@ -95,14 +103,21 @@ _ARGTYPES = [
 ]
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the library's entry points."""
+    lib.siril_reject_stack.argtypes = _ARGTYPES
+    lib.siril_reject_stack.restype = ctypes.c_int
+    for name in ("siril_reject_stack_needs_scratch",
+                 "siril_reject_stack_register_path"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 3
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load("reject_stack")
-    fn = lib.siril_reject_stack
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        lib.siril_reject_stack_needs_scratch.argtypes = [ctypes.c_int] * 3
-        lib.siril_reject_stack_needs_scratch.restype = ctypes.c_int
+    if lib.siril_reject_stack.argtypes is None:
+        bind(lib)
     return lib
 
 
@@ -178,11 +193,13 @@ def reject_mean(stack: torch.Tensor, scale: torch.Tensor,
     if lib.siril_reject_stack_needs_scratch(n, int(rtype),
                                             int(weights is not None)):
         cols = max(128, min(p, SCRATCH_BYTES // (2 * n * 4)) // 128 * 128)
-        scratch = torch.empty(2 * n * cols, dtype=torch.float32, device=dev)
-    # the register path's pixel counter, set to 0 on the stream before
-    # the kernel.  crit, scratch and queue may be freed on return while the
-    # kernel runs: the caching allocator hands their memory only to later
-    # work on this stream, which runs after the kernel
+        words = (n + 31) // 32
+        scratch = torch.empty((2 * n + 2 * words) * cols,
+                              dtype=torch.float32, device=dev)
+    # the counter of pixels or tiles handed out, set to 0 on the stream
+    # before the kernel.  crit, scratch and queue may be freed on return
+    # while the kernel runs: the caching allocator hands their memory only
+    # to later work on this stream, which runs after the kernel
     queue = torch.empty(1, dtype=torch.int32, device=dev)
     mean = torch.empty(p, dtype=torch.float32, device=dev)
     rejl = torch.empty(p, dtype=torch.int32, device=dev)
@@ -201,5 +218,5 @@ def reject_mean(stack: torch.Tensor, scale: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"reject_stack kernel launch failed: CUDA "
                            f"error {rc}")
-    launches[variant(rtype, weights is not None)] += 1
+    launches[variant(rtype, weights is not None, n)] += 1
     return mean, rejl, rejh

@@ -11,13 +11,14 @@ JAX):
   weights (K1e): rejection counts equal on ≥ 99.999 % of pixels,
   |Δmean| ≤ 2e-6 where they agree (chip_smoke.py holds the same
   comparison at the main path's sizes);
-- a stack of 1000 frames, more than the shared-memory layout holds, runs
-  with its columns in global scratch memory and matches the plain
-  version;
-- every mode but GESDT on both of its paths (registers at N ≤ 32, for
-  each column size NMAX = 8, 16, 24, 32; shared memory above),
-  unweighted and weighted, bit-equal to the plain version, with no
-  winsorized or SIGMEDIAN loop stopped at its bound;
+- a stack of 1000 frames runs every mode and matches the plain version;
+  past the frames a tile of the column kernel holds in shared memory
+  (1698, or 875 with a weighted mean) its tiles live in global scratch
+  memory, bit-equal to the plain version;
+- every mode on both of its paths (registers at N ≤ 32, for each column
+  size NMAX = 8, 16, 24, 32; the column kernel above), unweighted and
+  weighted, bit-equal to the plain version, with no winsorized or
+  SIGMEDIAN loop stopped at its bound;
 - the fused pipeline on the card against the same pipeline on the CPU:
   shifts within 0.01 px, interior max |Δ| ≤ 1e-3 and rejection totals
   within 0.5 % (the reasons of tests/test_torch_pipeline.py: float32 LM
@@ -63,10 +64,13 @@ def _mkstack(rng, n, p):
     return np.clip(stack, 0.0, 1.0).astype(np.float32)
 
 
-def _gesdt_kw(rtype, n, sl):
+def _gesdt_kw(rtype, n, sl, mo=None):
+    """GESDT's λ table and budget: by default the budget a user's outlier
+    fraction ``sl`` gives (300 at 1000 frames and 0.3)."""
     if rtype != rj.GESDT:
         return {}
-    mo = rj.gesdt_max_outliers(n, sl)
+    if mo is None:
+        mo = rj.gesdt_max_outliers(n, sl)
     return dict(max_outliers=mo,
                 critical=rj.gesdt_critical_values(n, 0.05, mo))
 
@@ -120,7 +124,7 @@ def test_kernel_weights_vs_plain_on_card(rtype, sl, sh):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [5, 8, 12, 16, 24, 32, 33, 64])
+@pytest.mark.parametrize("n", [5, 8, 12, 16, 24, 32, 33, 48, 64, 100, 300])
 def test_kernel_paths_bit_equal_on_card(n):
     _need_card()
     rng = np.random.default_rng(100 + n)
@@ -131,11 +135,11 @@ def test_kernel_paths_bit_equal_on_card(n):
         1.0 + 0.05 * rng.standard_normal(n), 0.01 * rng.standard_normal(n),
         np.ones(n))]
     wf = torch.from_numpy((0.5 + rng.random((n, 1))).astype(np.float32))
-    for rtype, sl, sh in WINDOW + MASKED[:2]:
+    for rtype, sl, sh in WINDOW + MASKED:
         for stack in (f32, i16):
             for w in (None, wf.cuda()):
                 kw = dict(rtype=rtype, mode=ADDITIVE_SCALING, siglow=sl,
-                          sighigh=sh, weights=w)
+                          sighigh=sh, weights=w, **_gesdt_kw(rtype, n, sl))
                 k1.reset_counts()
                 got = k1.reject_mean(stack, *coef, **kw)
                 capped = torch.zeros((), dtype=torch.int64, device="cuda")
@@ -148,18 +152,49 @@ def test_kernel_paths_bit_equal_on_card(n):
 
 @pytest.mark.cuda
 def test_kernel_frame_limit():
-    """1000 frames: the columns move to global scratch memory."""
+    """1000 frames, every mode: the column kernel's 16-column tiles."""
     _need_card()
     rng = np.random.default_rng(8)
     n, p = 1000, 4096
     st = torch.from_numpy(_mkstack(rng, n, p)).cuda()
     one = torch.ones(n, device="cuda")
-    for rtype, sl, sh in ((rj.WINSORIZED, 3.0, 3.0), (rj.GESDT, 0.3, 0.05)):
+    for rtype, sl, sh in WINDOW + MASKED:
         kw = dict(rtype=rtype, mode=NO_NORM, siglow=sl, sighigh=sh,
                   **_gesdt_kw(rtype, n, sl))
         got = k1.reject_mean(st, one, one * 0, one, **kw)
         ref = reject_stack_plain(st, one, one * 0, one, **kw)
         _agree(got, ref, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,weighted", [(1800, False), (1000, True)])
+def test_kernel_global_layout(n, weighted):
+    """Past the frames a 32-column tile holds in shared memory (1698, or
+    875 with a weighted mean) the tiles live in global scratch memory:
+    bit-equal to the plain version, several tiles a block."""
+    _need_card()
+    rng = np.random.default_rng(9 + n)
+    p = 1000
+    x = _mkstack(rng, n, p)
+    x[:, 8:][x[:, 8:] == 0] = 0.4    # GESDT's budget not spent on zeros
+    st = torch.from_numpy(x).cuda()
+    coef = [torch.from_numpy(a.astype(np.float32)).cuda() for a in (
+        1.0 + 0.05 * rng.standard_normal(n), 0.01 * rng.standard_normal(n),
+        np.ones(n))]
+    w = torch.from_numpy((0.5 + rng.random((n, 1))).astype(np.float32))
+    w = w.cuda() if weighted else None
+    assert k1._library().siril_reject_stack_needs_scratch(n, rj.WINSORIZED,
+                                                         int(weighted))
+    for rtype, sl, sh in ((rj.WINSORIZED, 3.0, 3.0), (rj.MAD, 3.0, 3.0),
+                          (rj.SIGMEDIAN, 3.0, 3.0), (rj.LINEARFIT, 3.0, 3.0),
+                          (rj.GESDT, 0.3, 0.05)):
+        kw = dict(rtype=rtype, mode=ADDITIVE_SCALING, siglow=sl, sighigh=sh,
+                  weights=w, **_gesdt_kw(rtype, n, sl, mo=12))
+        got = k1.reject_mean(st, *coef, **kw)
+        ref = reject_stack_plain(st, *coef, **kw)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        assert int(got[1].sum() + got[2].sum()) > 0
 
 
 def _write_sequence(d, rng, shifts, h=160, w=192):

@@ -455,10 +455,10 @@ def test_work_count():
 
 
 def test_frame_limit():
-    """There is no frame limit: a stack of 1000 frames (more than two
-    [N][32] float arrays of shared memory hold, where the kernel moves its
-    columns to global scratch memory) goes through the wrapper and
-    matches the JAX package."""
+    """There is no frame limit: a stack of 1000 frames (the column
+    kernel's size of 16-column tiles; with a weighted mean its tiles move
+    to global scratch memory) goes through the wrapper and matches the JAX
+    package."""
     rng = np.random.default_rng(0)
     n = 1000
     stack = _mkstack(rng, n=n, p=8)
@@ -720,13 +720,16 @@ def test_k1_variants_apply():
     spec.loader.exec_module(kv)
     src = open(f"{build.CSRC}/reject_stack.cu").read()
     assert kv.float_only(src) != src
-    for mode, rtype in kv.MODES.items():
-        assert getattr(rj, mode.upper()) == rtype
-        table = kv.variants(mode)
-        assert table["base"][1](src) == src
-        for name, (_, edit) in table.items():
-            assert name == "base" or edit(src) != src or \
-                name.startswith("ready"), name
+    for mode, (rtype, _, _) in kv.MODES.items():
+        assert rj.REJECTION_NAMES[mode] == rtype
+        for columns in (False, True):
+            table = kv.variants(mode, columns)
+            assert table["base"][1](src) == src
+            for name, (_, edit) in table.items():
+                assert name == "base" or edit(src) != src or \
+                    name.startswith("ready"), name
+    assert "vote16" in kv.variants("gesdt")
+    assert "columns64" in kv.variants("sigma", True)
 
 
 def test_sigmedian_cap_counted(monkeypatch):
@@ -841,3 +844,129 @@ def test_winsor_cap_counted(monkeypatch):
     assert differs.any() and not differs[:5].any()
     k1.reset_counts()
     assert k1.capped_pixels() == 0
+
+
+#: modes of the register path's classes with weights (K1e over them)
+K1E_MODES = [(rj.WINSORIZED, 3.0, 3.0), (rj.SIGMA, 3.0, 3.0),
+             (rj.LINEARFIT, 3.0, 3.0), (rj.GESDT, 0.3, 0.05),
+             (rj.SIGMEDIAN, 3.0, 3.0), (rj.NO_REJEC, 3.0, 3.0)]
+
+
+def _past32_case(rtype, sl, sh, n, dtype, wkind):
+    rng, stack = _case_stack(4000 + 10 * n + rtype, n, 256, dtype)
+    scale, offset, mul = _coeffs(rng, n)
+    w = _weights(rng, wkind, n, 256)
+    ref = _jax_block(stack, scale, offset, mul, rtype, ADDITIVE_SCALING, sl,
+                     sh, w)
+    got = _port_full(stack, scale, offset, mul, rtype, ADDITIVE_SCALING, sl,
+                     sh, w)
+    if rtype == rj.WINSORIZED:
+        xn = normalize_block(*(torch.from_numpy(v) for v in
+                               (stack, scale, offset, mul)),
+                             ADDITIVE_SCALING).numpy()
+        winsorized_vs_jax(got, ref, xn, sl, sh, w)
+    else:
+        _assert_parity(got, ref)
+    assert got[1].sum() + got[2].sum() > 0 or rtype == rj.NO_REJEC
+
+
+@pytest.mark.parametrize("dtype", ["f32", "i16"])
+@pytest.mark.parametrize("n", [33, 48, 64, 100])
+@pytest.mark.parametrize("rtype,sl,sh", WINDOW + MASKED)
+def test_plain_past_32_frames_vs_jax(rtype, sl, sh, n, dtype):
+    """Past 32 frames (the column kernel's range): every mode against the
+    JAX package's block kernel, additive+scaling."""
+    _past32_case(rtype, sl, sh, n, dtype, None)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "i16"])
+@pytest.mark.parametrize("n", [33, 48, 64, 100])
+@pytest.mark.parametrize("rtype,sl,sh", K1E_MODES)
+def test_plain_past_32_frames_weights_vs_jax(rtype, sl, sh, n, dtype):
+    """Past 32 frames, the weighted mean (per-frame weights) over the K1e
+    modes against the JAX package's block kernel."""
+    _past32_case(rtype, sl, sh, n, dtype, "frame")
+
+
+def _gesdt_walk_replay(col, nvalid, crit, max_outliers, n_full):
+    """One sorted column's GESDT as the kernel runs it, in float32
+    scalars: one walk with the window sums, recording each step's side
+    and the last flagged step; then the confirmations replayed from the
+    sides alone, with no sums.  Returns (keep mask over the rows, rej_low,
+    rej_high)."""
+    f32 = np.float32
+
+    def fma(a, b, c):
+        return f32(np.float64(a) * np.float64(b) + np.float64(c))
+
+    n = len(col)
+    M = max(max_outliers, 1)
+    removed = n_full - nvalid
+    walk = min(M, max_outliers - removed)
+    lo, hi, sides, last_flag = 0, nvalid, [], -1
+    while len(sides) < walk and hi - lo > 1:
+        j = len(sides)
+        t1 = t2 = f32(0)
+        for k in range(lo, hi):
+            t1 = f32(t1 + col[k])
+            t2 = f32(t2 + f32(col[k] * col[k]))
+        size = f32(hi - lo)
+        mean = f32(t1 / max(size, f32(1)))
+        var = f32(fma(-t1, mean, t2) / max(f32(size - f32(1)), f32(1)))
+        sd = f32(np.sqrt(max(var, f32(0))))
+        dev_low, dev_high = f32(mean - col[lo]), f32(col[hi - 1] - mean)
+        take_high = dev_high > dev_low
+        g = f32((dev_high if take_high else dev_low) / max(sd, f32(1e-30)))
+        if hi - lo > 2 and g > crit[min(removed + j, M - 1)]:
+            last_flag = j
+        sides.append(take_high)
+        hi, lo = (hi - 1, lo) if take_high else (hi, lo + 1)
+    med = f32(f32(0.5) * f32(col[(nvalid - 1) // 2] + col[nvalid // 2]))
+    keep = [k < nvalid for k in range(n)]
+    rl = rh = 0
+    lo, hi = 0, nvalid
+    for j in range(min(len(sides), max(last_flag, min(1, M - 1)) + 1)):
+        th = sides[j]
+        if (col[hi - 1] if th else col[lo]) >= med:
+            rh += 1
+        else:
+            rl += 1
+        keep[hi - lo - 1 if th else lo] = False
+        hi, lo = (hi - 1, lo) if th else (hi, lo + 1)
+    return keep, rl, rh
+
+
+def test_gesdt_walk_then_replay():
+    """GESDT's second pass needs nothing of the walk's sums: the walk run
+    once, recording each step's side, then the confirmations replayed from
+    the sides (the kernel's form) give the plain version's keep mask and
+    counts, for N = 5 to 32 frames and outlier budgets 1 to N, with
+    invalid values (so that some columns have less budget or none)."""
+    rng = np.random.default_rng(31)
+    checked = 0
+    for n in range(5, 33):
+        p = 16
+        x = (0.3 + 0.02 * rng.standard_normal((n, p))).astype(np.float32)
+        x[rng.random((n, p)) < 0.08] = np.float32(0.95)       # rays
+        x[rng.random((n, p)) < 0.04] = np.float32(0.01)       # dead
+        x[rng.random((n, p)) < 0.06] = np.float32(0)          # not data
+        x[:, 0] = np.float32(0.5)                             # σ = 0
+        xt = torch.from_numpy(x)
+        valid = xt != 0
+        nvalid = valid.sum(0, dtype=torch.int32)
+        xs = torch.sort(torch.where(valid, xt, float("inf")), 0).values
+        s1 = torch.where(torch.isfinite(xs), xs, 0.0)
+        for mo in range(1, n + 1):
+            crit = rj.gesdt_critical_values(n, 0.05, mo)
+            keep, rl, rh = rj._gesdt(xs, s1, s1 * s1, nvalid, crit, mo, n,
+                                     None)
+            for i in range(p):
+                if int(nvalid[i]) <= 1:
+                    continue
+                col = xs[:, i].numpy()
+                mk, ml, mh = _gesdt_walk_replay(col, int(nvalid[i]), crit,
+                                                mo, n)
+                assert mk == keep[:, i].tolist(), (n, mo, i)
+                assert (ml, mh) == (int(rl[i]), int(rh[i])), (n, mo, i)
+                checked += ml + mh
+    assert checked > 1000
