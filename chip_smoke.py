@@ -12,8 +12,12 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               the card: every window mode × {float32, int16} × {no norm,
               additive+scaling, multiplicative} at N=24, P=2^20, then one
               full row block of the main path (N=FRAMES, P=682·SIZE) with
-              the winsorized σ steps its pixels took, and winsorized at
-              N=64, P=2^20 (the column kernel);
+              the winsorized σ steps its pixels took, winsorized at
+              N=64, P=2^20 (the column kernel), and winsorized at the
+              masters' frame count (N=CALIB_FRAMES, P=2^20, both dtypes
+              and all three normalizations; then int16 at the masters'
+              call size, P=SIZE², without normalization and
+              multiplicative);
   k1     — the variants K1b SIGMEDIAN, K1c LINEARFIT, K1d GESDT over the
               same dtypes and normalizations at N=24, P=2^20; K1b, K1c and
               K1d at N=8, 16, 32 (register-path column sizes; K1d also
@@ -46,7 +50,20 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               rejection maps (the streamed row-block path), then on
               STACK100 aligned float32 SIZE100×SIZE100 frames (the column
               kernel) with winsorized and GESDT rejection, each checked
-              against the known scene and its variant's launches.
+              against the known scene and its variant's launches;
+  script — the standard preprocessing script through the CLI's -s entry
+              (``python -m siril_tpu_torch.cli -d <dir> -s <script>``,
+              PREPROCESSING_SCRIPT) on a synthetic night of CALIB_FRAMES
+              biases, flats and darks and FRAMES 16-bit SIZE×SIZE lights
+              (bias, dark current with hot pixels, a vignetting flat,
+              cosmic-ray tracks, frames turned by up to 0.2° and scaled by
+              up to 0.1 %): convert, the masters, calibrate -cc=dark,
+              register (homography, lanczos4) and stack, with each
+              command's wall, stages and K1 launches; then fusedstack
+              -bias= -dark= -flat= -cc=dark with the same masters on
+              FRAMES lights that are only shifted (fusedstack registers by
+              shifts); both checked against the known scene, its hot
+              pixels and rays.
 Then a JSON line describing every kernel, the card line, and last the
 result line.  Any failure exits non-zero without a result line.  The script
 needs CUDA and the repository beside it; it imports nothing of JAX.
@@ -72,6 +89,33 @@ SIZE = 4096
 # the column kernel's session: 100 aligned float32 frames of 2048×2048
 STACK100 = 100
 SIZE100 = 2048
+
+# the script phase: Siril's mono preprocessing script (Mono_Preprocessing.
+# ssf) with bias-subtracted darks, so that fusedstack can take the same
+# masters as -bias= -dark= -flat=
+PREPROCESSING_SCRIPT = """requires 1.2.0
+cd biases
+convert bias -out=../process
+cd ../process
+stack bias rej 3 3 -nonorm -out=bias_stacked
+cd ../flats
+convert flat -out=../process
+cd ../process
+calibrate flat -bias=bias_stacked
+stack pp_flat rej 3 3 -norm=mul -out=pp_flat_stacked
+cd ../darks
+convert dark -out=../process
+cd ../process
+calibrate dark -bias=bias_stacked
+stack pp_dark rej 3 3 -nonorm -out=pp_dark_stacked
+cd ../lights
+convert light -out=../process
+cd ../process
+calibrate light -bias=bias_stacked -dark=pp_dark_stacked -flat=pp_flat_stacked -cc=dark
+register pp_light
+stack r_pp_light rej 3 3 -norm=addscale {stack_flags}-out=result
+close
+"""
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_OPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
@@ -400,6 +444,36 @@ def phase_k1a(seed: int):
     if not r64["ok"]:
         failures.append(f"winsorized N={n64}")
     del st64
+
+    # winsorized at the masters' frame count (the script's bias, flat and
+    # dark stacks), on a generator of its own so that the data above stay
+    # as they were; then at the masters' call size: 16-bit frames, one
+    # block of SIZE² pixels, -nonorm (bias, dark) and -norm=mul (flat)
+    g8 = torch.Generator(device=dev)
+    g8.manual_seed(seed + 8)
+    n8 = CALIB_FRAMES
+    st8 = make_stack(g8, n8, p, dev)
+    raw8 = (torch.round(st8 * 65535.0) - 32768.0).to(torch.int16)
+    sc8 = 1.0 + 0.05 * torch.randn(n8, generator=g8, device=dev)
+    off8 = 0.01 * torch.randn(n8, generator=g8, device=dev)
+    mul8 = 1.0 + 0.03 * torch.randn(n8, generator=g8, device=dev)
+    for dname, data in (("f32", st8), ("i16", raw8)):
+        for nname, mode in norms:
+            r = compare_k1(f"winsorized/{dname}/{nname} N={n8} P={p}", data,
+                           sc8, off8, mul8, rj.WINSORIZED, mode, 3.0, 3.0)
+            if not r["ok"]:
+                failures.append(f"winsorized/{dname}/{nname} N={n8}")
+    del st8, raw8
+    pm = SIZE * SIZE
+    rawm = (torch.round(make_stack(g8, n8, pm, dev) * 65535.0)
+            - 32768.0).to(torch.int16)
+    for nname, mode in (("nonorm", NO_NORM), ("mul", MULTIPLICATIVE)):
+        r = compare_k1(f"winsorized/i16/{nname} N={n8} P={pm} (the "
+                       "masters' call size)", rawm, sc8, off8, mul8,
+                       rj.WINSORIZED, mode, 3.0, 3.0)
+        if not r["ok"]:
+            failures.append(f"masters' call winsorized/i16/{nname}")
+    del rawm
     if failures:
         raise RuntimeError(f"K1a out of tolerance: {failures}")
     return full
@@ -736,6 +810,33 @@ def phase_k1col(seed: int):
     return results
 
 
+def _star_field(rng, size: int, nstars: int):
+    """Positions and amplitudes of ``nstars`` Gaussian stars."""
+    m = min(40, size // 8)
+    sx = rng.uniform(m, size - m, nstars)
+    sy = rng.uniform(m, size - m, nstars)
+    amp = 0.5 * rng.pareto(1.5, nstars) * 0.02 + 0.02
+    return sx, sy, __import__("numpy").minimum(amp, 0.55)
+
+
+def _render(size: int, sky: float, cx, cy, amp, psf_s: float = 1.3):
+    """The sky plus the stars centred at (cx, cy) (pixel i covers
+    [i, i+1)), each rendered on a 13×13 patch."""
+    import numpy as np
+
+    img = np.full((size, size), sky, np.float32)
+    r = 6
+    oy, ox = np.mgrid[-r:r + 1, -r:r + 1]
+    px = np.floor(cx).astype(np.int64)[:, None, None] + ox[None]
+    py = np.floor(cy).astype(np.int64)[:, None, None] + oy[None]
+    d2 = (px + 0.5 - cx[:, None, None]) ** 2 + \
+        (py + 0.5 - cy[:, None, None]) ** 2
+    val = amp[:, None, None] * np.exp(-d2 / (2 * psf_s ** 2))
+    inb = (px >= 0) & (px < size) & (py >= 0) & (py < size)
+    np.add.at(img, (py[inb], px[inb]), val[inb].astype(np.float32))
+    return img
+
+
 def synth_frames(seed: int, n: int, size: int, aligned: bool = False):
     """A scene of Gaussian stars on a sky background, and ``n`` frames of
     it shifted by integer + sub-pixel offsets, with noise and cosmic rays.
@@ -746,29 +847,10 @@ def synth_frames(seed: int, n: int, size: int, aligned: bool = False):
 
     rng = np.random.default_rng(seed)
     sky, sigma_n, ray = 0.1, 0.01, 1.0
-    nstars = 4000
-    sx = rng.uniform(40, size - 40, nstars)
-    sy = rng.uniform(40, size - 40, nstars)
-    amp = 0.5 * rng.pareto(1.5, nstars) * 0.02 + 0.02
-    amp = np.minimum(amp, 0.55)
-    psf_s = 1.3
+    sx, sy, amp = _star_field(rng, size, 4000)
 
     def render(dx, dy):
-        img = np.full((size, size), sky, np.float32)
-        r = 6
-        oy, ox = np.mgrid[-r:r + 1, -r:r + 1]
-        cx = sx + dx
-        cy = sy + dy
-        ix = np.floor(cx).astype(np.int64)
-        iy = np.floor(cy).astype(np.int64)
-        px = ix[:, None, None] + ox[None]
-        py = iy[:, None, None] + oy[None]
-        d2 = (px + 0.5 - cx[:, None, None]) ** 2 + \
-            (py + 0.5 - cy[:, None, None]) ** 2
-        val = amp[:, None, None] * np.exp(-d2 / (2 * psf_s ** 2))
-        np.add.at(img, (py.ravel(), px.ravel()), val.ravel().astype(
-            np.float32))
-        return img
+        return _render(size, sky, sx + dx, sy + dy, amp)
 
     scene = render(0.0, 0.0)
     shifts = [(0.0, 0.0)] * n if aligned else \
@@ -787,6 +869,102 @@ def synth_frames(seed: int, n: int, size: int, aligned: bool = False):
         frames.append(f if aligned else
                       np.rint(f * 65535.0).astype(np.uint16))
     return scene, frames, shifts, sigma_n, ray
+
+
+def _ray_tracks(rng, f, n: int, value: float):
+    """``n`` straight tracks of 3-5 pixels at ``value`` in frame ``f``;
+    returns their pixels (ys, xs)."""
+    import numpy as np
+
+    size = f.shape[0]
+    steps = np.array([(0, 1), (1, 0), (1, 1), (1, -1)])
+    y0 = rng.integers(5, size - 5, n)
+    x0 = rng.integers(5, size - 5, n)
+    d = steps[rng.integers(0, 4, n)]
+    length = rng.integers(3, 6, n)
+    ys, xs = [], []
+    for i in range(5):
+        on = i < length
+        ys.append(y0[on] + i * d[on, 0])
+        xs.append(x0[on] + i * d[on, 1])
+        f[ys[-1], xs[-1]] = value
+    return np.concatenate(ys), np.concatenate(xs)
+
+
+def synth_session(root: str, seed: int, size: int, lights: int,
+                  calib: int, nstars: int, gain: float = 1.0,
+                  shifted_dir: str = "") -> dict:
+    """A night's raw 16-bit frames for the preprocessing script, written
+    under ``root``: ``calib`` biases (a level with a column pattern),
+    flats (bias + a vignetting field) and darks (bias + dark current with
+    hot pixels), and ``lights`` lights of the scene of ``synth_frames``
+    seen through the vignetting, each with bias, dark current, noise and
+    a cosmic-ray track of 3-5 pixels per 40,000 pixels (a single-pixel hit
+    fits as a star brighter than any, and the triangle match takes the
+    brightest; a track per 4,000 pixels, as ``synth_frames`` has hits,
+    would fill the 2000 candidates register fits at 4096²).  Frame 0 is
+    the reference; the others are shifted by up
+    to ±12.5 px, turned by up to 0.2° and scaled by up to 0.1 % about the
+    centre.  With ``shifted_dir``, a second set of as many lights, only
+    shifted, goes there (for fusedstack, which registers by shifts).
+    ``gain`` brightens the stars (a small field has few bright ones).
+    Returns what the result should show:
+    the scene as calibration leaves it (× the flat's mean), the noise,
+    the ray value, the hot pixels and, for each set, the reference
+    frame's ray pixels (where the result is in its geometry)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sky, sigma_n, ray, read_n = 0.1, 0.01, 1.0, 0.002
+    sx, sy, amp = _star_field(rng, size, nstars)
+    amp = np.minimum(amp * gain, 0.55)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    c = size / 2.0
+    vig = 1.0 - 0.3 * ((xx + 0.5 - c) ** 2 + (yy + 0.5 - c) ** 2) / \
+        (2 * c * c)
+    bias = (0.03 + 0.001 * np.sin(xx * (2 * np.pi / 64))).astype(np.float32)
+    dark = np.full((size, size), 0.005, np.float32)
+    nhot = max(size * size // 50000, 8)
+    hy, hx = rng.integers(2, size - 2, nhot), rng.integers(2, size - 2, nhot)
+    dark[hy, hx] = rng.uniform(0.1, 0.4, nhot)
+
+    def noise(s):
+        return s * rng.standard_normal((size, size), dtype=np.float32)
+
+    def put(sub, name, f):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        write_u16_fits(os.path.join(root, sub, name),
+                       np.rint(np.clip(f, 0, 1) * 65535.0).astype(np.uint16))
+
+    for i in range(calib):
+        put("biases", f"bias_{i + 1:05d}.fit", bias + noise(read_n))
+        put("flats", f"flat_{i + 1:05d}.fit",
+            bias + 0.5 * vig + noise(read_n))
+        put("darks", f"dark_{i + 1:05d}.fit", bias + dark + noise(read_n))
+    transforms, rays = [], {}
+    for sub, rotate in (("lights", True), (shifted_dir, False)):
+        for k in range(lights if sub else 0):
+            th = s = dx = dy = 0.0
+            if k:
+                dx, dy = (float(rng.integers(-12, 13)
+                                + rng.uniform(-0.5, 0.5)) for _ in range(2))
+                if rotate:
+                    th = float(np.deg2rad(rng.uniform(-0.2, 0.2)))
+                    s = float(rng.uniform(-1e-3, 1e-3))
+            if rotate:
+                transforms.append((th, 1.0 + s, dx, dy))
+            ct, st = (1.0 + s) * np.cos(th), (1.0 + s) * np.sin(th)
+            cx = ct * (sx - c) - st * (sy - c) + c + dx
+            cy = st * (sx - c) + ct * (sy - c) + c + dy
+            f = bias + dark + vig * _render(size, sky, cx, cy, amp) + \
+                noise(sigma_n)
+            hit = _ray_tracks(rng, f, max(size * size // 40000, 4), ray)
+            if k == 0:
+                rays[sub] = hit
+            put(sub, f"light_{k + 1:05d}.fit", f)
+    scene = _render(size, sky, sx, sy, amp) * np.float32(vig.mean())
+    return dict(scene=scene, sigma_n=sigma_n, ray=ray, hot=(hy, hx),
+                transforms=transforms, rays=rays)
 
 
 def write_u16_fits(path: str, u16) -> None:
@@ -886,6 +1064,173 @@ def phase_fusedstack(seed: int):
         if not all(checks.values()):
             raise RuntimeError("fusedstack checks failed")
         return launches, res.stage_s, wall
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: calibration frames of each kind in the script phase (a user shoots
+#: 20-50; PERF.md §4 states the cut)
+CALIB_FRAMES = 8
+
+
+def _scene_checks(name, out, made, rays, session_result, launches, extra):
+    """The result against the known scene, its hot pixels and the
+    reference frame's ray pixels ``rays`` (a ray of one frame in 24 left
+    in would add 0.04 there); returns the failed checks.  The star peaks
+    are logged as a ratio to the scene: the staged stack normalizes the
+    warped frames, whose noise the interpolation lowered, so it scales
+    their stars up."""
+    import numpy as np
+
+    scene, sigma_n = made["scene"], made["sigma_n"]
+    m = 48
+    inner = np.s_[m:-m, m:-m]
+    err = float(np.abs(out[inner] - scene[inner]).mean())
+    bgv = float(np.median(scene[inner]))
+
+    def on_sky(ys, xs):
+        keep = np.abs(scene[ys, xs] - bgv) < 1e-3
+        return ys[keep], xs[keep]
+
+    hy, hx = on_sky(*made["hot"])
+    ry, rx = on_sky(*rays)
+    hot_err = float(np.abs(out[hy, hx] - scene[hy, hx]).max())
+    ray_err = float(np.abs(out[ry, rx] - scene[ry, rx]).max())
+    peaks = np.argsort(scene[inner], axis=None)[-50:]
+    ratio = float(np.median((out[inner].ravel()[peaks] - bgv)
+                            / (scene[inner].ravel()[peaks] - bgv)))
+    rl, rh = session_result.total_rejected
+    log(f"  {name}: interior mean |Δ| vs scene {err:.5f} (noise "
+        f"{sigma_n}), rejected low/high {rl}/{rh}, interior max "
+        f"{float(out[inner].max()):.4f} (scene "
+        f"{float(scene[inner].max()):.4f}; the 50 brightest star pixels "
+        f"at {ratio:.3f} × the scene's height above the sky), hot pixels "
+        f"on the sky {len(hy)} of {len(made['hot'][0])}, max |Δ| there "
+        f"{hot_err:.5f}; the reference frame's ray pixels on the sky "
+        f"{len(ry)}, max |Δ| there {ray_err:.5f}")
+    checks = {
+        "interior mean |Δ| < noise/3": err < sigma_n / 3,
+        "no hot pixel of the dark left (|Δ| < 0.02 on the sky)":
+            hot_err < 0.02,
+        "cosmic rays rejected (rej_high > 0, |Δ| < 0.02 at the "
+        "reference frame's rays)": rh > 0 and ray_err < 0.02,
+        "result finite, expected shape":
+            bool(np.isfinite(out).all()) and out.shape == scene.shape,
+        "no loop stopped at its bound": session_result.capped == 0,
+        "K1 launched": sum(launches.values()) > 0,
+        **extra}
+    failed = [k for k, ok in checks.items() if not ok]
+    for k in failed:
+        log(f"  check {name}: {k}: FAILED")
+    return failed, err
+
+
+def phase_script(seed: int):
+    """The standard preprocessing script through the port's -s entry on a
+    synthetic night at full width, then fusedstack with the same masters.
+    Returns ({path: {variant: launches}}, {command: row}, walls)."""
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch import cli
+    from siril_tpu_torch.io.fits_io import read_fits
+    from siril_tpu_torch.kernels import reject_stack as k1
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_script_")
+    try:
+        t = time.perf_counter()
+        made = synth_session(tmp, seed + 11, SIZE, FRAMES, CALIB_FRAMES,
+                             4000, shifted_dir="fused")
+        log(f"  synthesized {CALIB_FRAMES} biases, flats, darks and 2 × "
+            f"{FRAMES} lights of {SIZE}x{SIZE} (16-bit) in "
+            f"{time.perf_counter() - t:.2f}s")
+        script = os.path.join(tmp, "preprocessing.ssf")
+        with open(script, "w") as f:
+            f.write(PREPROCESSING_SCRIPT.format(stack_flags=""))
+        k1.reset_counts()
+        t = time.perf_counter()
+        session = cli.run(["-d", tmp, "-s", script])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(k1.launches)
+        rows = {}
+        for e in session.command_log:
+            if e["seconds"] < 1e-3 and not e["launches"]:
+                continue
+            rows[e["command"]] = dict(seconds=e["seconds"],
+                                      launches=e["launches"],
+                                      stages=e["stages"])
+            log(f"  {e['command']}: {e['seconds']:.3f}s, K1 launches "
+                f"{e['launches'] or 0}")
+            if e["stages"]:
+                log("    stages: " + ", ".join(
+                    f"{k} {v:.3f}s" for k, v in e["stages"].items()))
+        proc = os.path.join(tmp, "process")
+        res = session.result
+        out = read_fits(os.path.join(proc, "result.fit")).host()[0]
+        r_pp = sorted(f for f in os.listdir(proc)
+                      if f.startswith("r_pp_light_") and f.endswith(".fit"))
+        bits = read_fits(os.path.join(proc, r_pp[0])).orig_bitdepth
+        pp = read_fits(os.path.join(proc, "pp_light_00001.fit")).host()[0]
+        hy, hx = made["hot"]
+        on_sky = np.abs(made["scene"][hy, hx] - float(np.median(
+            made["scene"]))) < 1e-3
+        pp_hot = float(np.abs(pp[hy, hx] - made["scene"][hy, hx])[
+            on_sky].max())
+        m = 48
+        y, x = np.unravel_index(int(np.argmax(out[m:-m, m:-m])),
+                                (out.shape[0] - 2 * m, out.shape[1] - 2 * m))
+        y, x = y + m, x + m
+        vals = [float(read_fits(os.path.join(proc, f)).host()[0][y, x])
+                for f in r_pp]
+        log(f"  interior maximum {float(out[y, x]):.4f} at (y={y}, x={x}), "
+            f"scene {float(made['scene'][y, x]):.4f}; the registered frames "
+            f"there: {', '.join(f'{v:.3f}' for v in vals)}")
+        stacks = [c for c in rows if c.startswith("stack ")]
+        log(f"  script wall {wall:.2f}s; r_pp_ frames {len(r_pp)} at "
+            f"bitpix {bits}; reference frame's hot pixels on the sky after "
+            f"calibration max |Δ| {pp_hot:.5f}")
+        failed, err = _scene_checks(
+            "script", out, made, made["rays"]["lights"], res, launches, {
+            f"all {FRAMES} frames registered": len(r_pp) == FRAMES,
+            "every stack command launched K1":
+                all(sum(rows[c]["launches"].values()) > 0 for c in stacks),
+            "calibrated reference frame: no hot pixel (|Δ| < 5σ)":
+                pp_hot < 5 * made["sigma_n"],
+            "result file written": os.path.exists(
+                os.path.join(proc, "result.fit"))})
+        # the same masters through fusedstack's calibration flags, on the
+        # shift-only lights (fusedstack registers by shifts)
+        for f in os.listdir(proc):
+            if not f.endswith("_stacked.fit"):
+                os.unlink(os.path.join(proc, f))
+        k1.reset_counts()
+        t = time.perf_counter()
+        fused = cli.run(["-d", os.path.join(tmp, "fused"), "fusedstack",
+                         "light_", "-bias=../process/bias_stacked",
+                         "-dark=../process/pp_dark_stacked",
+                         "-flat=../process/pp_flat_stacked", "-cc=dark"])
+        torch.cuda.synchronize()
+        fwall = time.perf_counter() - t
+        flaunch = dict(k1.launches)
+        for stage, sec in fused.result.stage_s.items():
+            log(f"  fusedstack stage {stage:<10} {sec:8.3f} s")
+        log(f"  calibrated fusedstack wall {fwall:.2f}s, K1 launches "
+            f"{ {k: v for k, v in flaunch.items() if v} }")
+        fout = fused.result.image.host()[0]
+        ffailed, ferr = _scene_checks(
+            "calibrated fusedstack", fout, made, made["rays"]["fused"],
+            fused.result, flaunch, {
+                "all frames registered":
+                    int(fused.sequence.reg(0).valid.sum()) == FRAMES,
+                "result max well below the ray value":
+                    float(fout.max()) < 0.8 * made["ray"]})
+        if failed or ffailed:
+            raise RuntimeError(f"script checks failed: {failed + ffailed}")
+        return ({"script": launches, "fusedstack calibrated": flaunch},
+                rows, dict(script=wall, fused=fwall, script_err=err,
+                           fused_err=ferr,
+                           fused_stages=fused.result.stage_s))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1012,10 +1357,17 @@ def main(argv=None) -> int:
         stack_launches, _ = phase_stack(args.seed)
         _, stack100 = phase_stack(args.seed + 1, STACK100, SIZE100,
                                   STACK100_RUNS)
+    with Phase("script"):
+        script_launches, _, _ = phase_script(args.seed)
     src = "siril_tpu_torch/csrc/reject_stack.cu"
     tpu = "siril_tpu/pallas/reject_stack.py"
-    kernels = [dict(name="reject_stack (K1a)", launches=launches,
-                    replaces=f"{tpu}:763", **k1a)]
+    # K1a runs on two paths: fusedstack, and the script (its winsorized
+    # stacks) with the calibrated fusedstack; launches sums them
+    by_path = {"fusedstack": launches,
+               **{p: c["K1a"] for p, c in script_launches.items()}}
+    kernels = [dict(name="reject_stack (K1a)",
+                    launches=sum(by_path.values()),
+                    launches_by_path=by_path, replaces=f"{tpu}:763", **k1a)]
     lines = {"K1b": 478, "K1c": 521, "K1d": 586, "K1e": 719}
     for var, *_ in STACK_VARIANTS:
         kernels.append(dict(name=f"reject_stack ({var})",
@@ -1044,7 +1396,8 @@ def main(argv=None) -> int:
         dict(name=k["name"], route="cuda", source=src,
              replaces=k["replaces"], launches=k["launches"],
              **{key: k[key] for key in keys}, library_ms=None,
-             **{key: k[key] for key in ("other_sizes",) if key in k})
+             **{key: k[key] for key in ("other_sizes", "launches_by_path")
+                if key in k})
         for k in kernels]}
     log(f"chip_smoke done in {time.perf_counter() - T0:.1f}s")
     print(json.dumps(report), flush=True)

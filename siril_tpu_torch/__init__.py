@@ -5,7 +5,11 @@ it, mirrors its module paths, and imports neither ``jax`` nor anything of
 ``siril_tpu``.  Hot device work runs on a CUDA card by default; callers pass
 ``device="cpu"`` to run the plain PyTorch versions (the tests do).
 
-Ported so far: the ``fusedstack`` path (``pipeline.fused_preprocess_stack``,
+Ported so far: the standard preprocessing script through the CLI's
+script runner (``cli/``: convert, link, calibrate, register, seqapplyreg,
+stack, on ``.seq`` sequences; ``ops/calibration.py``, ``ops/cosmetic.py``,
+``registration/global_reg.py``, ``core/engine.py``, ``io/seqfile.py``), the
+``fusedstack`` path with calibration (``pipeline.fused_preprocess_stack``,
 shift registration) and the staged ``stack`` command
 (``ops/stacking.stack_sequence``), with the rejection stack — every
 rejection mode and the weighted mean — as a hand-written CUDA kernel

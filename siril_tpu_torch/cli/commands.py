@@ -1,0 +1,611 @@
+"""The ported commands — counterpart of ``siril_tpu/cli/commands.py``
+(``requires``:321, ``cd``:217, ``setext``:237, ``close``:205, ``convert``
+:473, ``link``:500, ``_load_master``:601, ``_calib_args_from_flags``:617,
+``calibrate``:651, ``setfindstar``:833, ``_sf_params``:874, ``register``
+:910, ``seqapplyreg``:1059, ``stack``:1197, ``_stack_args_from_flags``
+:1121) and ``siril_tpu/cli/commands2.py`` (``fusedstack``:836).
+
+Each command keeps the reference's name, argument order and ``-key=value``
+flags, so the standard preprocessing scripts run unchanged.  Device work
+runs on ``Session.device`` (CUDA unless "cpu").  Options that are not
+ported raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import glob as globmod
+import logging
+import os
+import re
+from typing import Callable, Dict, List, Optional
+
+from siril_tpu_torch.cli.context import CommandError, Session
+from siril_tpu_torch.core.image import FLOAT_IMG
+from siril_tpu_torch.ops.rejection import (
+    SIGMEDIAN_MAX_ROUNDS,
+    WINSOR_MAX_STEPS,
+)
+
+_log = logging.getLogger(__name__)
+
+VERSION = "1.5.0"
+
+
+class Command:
+    def __init__(self, name: str, fn: Callable, usage: str,
+                 min_args: int = 0):
+        self.name = name
+        self.fn = fn
+        self.usage = usage
+        self.min_args = min_args
+
+
+COMMANDS: Dict[str, Command] = {}
+
+
+def command(name: str, usage: str = "", min_args: int = 0):
+    def deco(fn):
+        COMMANDS[name.lower()] = Command(name, fn, usage, min_args)
+        return fn
+
+    return deco
+
+
+def get_command(name: str) -> Optional[Command]:
+    return COMMANDS.get(name.lower())
+
+
+def parse_flags(args: List[str]):
+    """Split ['-key=value', '-flag', 'pos'] → (positional, {key: value})."""
+    pos, flags = [], {}
+    for a in args:
+        if a.startswith("-") and len(a) > 1 and a[1].isalnum() \
+                and not _is_number(a) and ":" not in a.split("=")[0]:
+            if "=" in a:
+                k, v = a[1:].split("=", 1)
+                flags[k.lower()] = v
+            else:
+                flags[a[1:].lower()] = True
+        else:
+            pos.append(a)
+    return pos, flags
+
+
+def _is_number(s: str) -> bool:
+    try:
+        float(s)
+        return True
+    except ValueError:
+        return False
+
+
+def _f(v, default=None):
+    return float(v) if v is not None and v is not True else default
+
+
+def _refuse(flags: dict, what: Dict[str, str], cmd: str) -> None:
+    for key, item in what.items():
+        if key in flags:
+            raise NotImplementedError(f"{cmd} -{key}: {item} is not ported "
+                                      "yet")
+
+
+# ===========================================================================
+# session
+# ===========================================================================
+
+
+@command("requires", "requires version", min_args=1)
+def cmd_requires(ctx: Session, args: List[str]) -> None:
+    def vtup(s):
+        return tuple(int(x) for x in s.split("-")[0].split(".")[:3])
+
+    try:
+        need = vtup(args[0])
+    except ValueError:
+        raise CommandError(f"invalid version: {args[0]}")
+    if need > vtup(VERSION):
+        raise CommandError(
+            f"script requires version {args[0]}, this is {VERSION}")
+
+
+@command("cd", "cd directory", min_args=1)
+def cmd_cd(ctx: Session, args: List[str]) -> None:
+    p = ctx.path(args[0])
+    if not os.path.isdir(p):
+        raise CommandError(f"no such directory: {args[0]}")
+    ctx.cwd = os.path.abspath(p)
+    _log.info("Setting CWD to '%s'", ctx.cwd)
+
+
+@command("setext", "setext extension", min_args=1)
+def cmd_setext(ctx: Session, args: List[str]) -> None:
+    e = args[0].lower().lstrip(".")
+    if e not in ("fit", "fits", "fts"):
+        raise CommandError("extension must be fit/fits/fts")
+    ctx.ext = "." + e
+
+
+@command("close", "close")
+def cmd_close(ctx: Session, args: List[str]) -> None:
+    ctx.image = None
+
+
+# ===========================================================================
+# conversion
+# ===========================================================================
+
+#: what ``convert`` picks up in the working directory (the reference's
+#: list; only FITS inputs are ported, the others raise in load_any)
+_CONVERT_EXT = (".fit", ".fits", ".fts", ".tif", ".tiff", ".png", ".jpg",
+                ".jpeg", ".bmp", ".ppm", ".pgm", ".pnm", ".webp", ".avif",
+                ".ser", ".dng", ".cr2", ".nef", ".arw", ".raf", ".heic",
+                ".heif", ".avi", ".mpg", ".mpeg", ".mov", ".mp4", ".webm")
+
+
+def _inputs(ctx: Session, dest: str, exts) -> List[str]:
+    outpat = re.compile(re.escape(dest) + r"\d+\.")
+    return [f for f in globmod.glob(os.path.join(ctx.cwd, "*"))
+            if os.path.splitext(f)[1].lower() in exts
+            and not outpat.match(os.path.basename(f))]
+
+
+@command("convert", "convert basename [-debayer] [-start=index] [-out=] "
+         "[-fitseq|-ser]", min_args=1)
+def cmd_convert(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.io.conversion import convert_to_sequence
+
+    pos, flags = parse_flags(args)
+    out_dir = ctx.path(flags["out"]) if isinstance(flags.get("out"), str) \
+        else ctx.cwd
+    files = _inputs(ctx, pos[0], _CONVERT_EXT)
+    if not files:
+        raise CommandError("no convertible files found")
+    output = "ser" if "ser" in flags else (
+        "fitseq" if "fitseq" in flags else "fits")
+    ctx.sequence = convert_to_sequence(
+        files, pos[0], out_dir, output=output,
+        start=int(_f(flags.get("start"), 1) or 1),
+        debayer="debayer" in flags)
+
+
+@command("link", "link basename [-start=] [-out=]", min_args=1)
+def cmd_link(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.io.conversion import FITS_EXT, convert_to_sequence
+
+    pos, flags = parse_flags(args)
+    files = _inputs(ctx, pos[0], FITS_EXT)
+    if not files:
+        raise CommandError("no FITS files found")
+    ctx.sequence = convert_to_sequence(
+        files, pos[0], ctx.cwd, symlink=True,
+        start=int(_f(flags.get("start"), 1) or 1))
+
+
+# ===========================================================================
+# calibration
+# ===========================================================================
+
+
+def _load_master(ctx: Session, name):
+    from siril_tpu_torch.io.conversion import load_any
+
+    if name in ("", None):
+        return None
+    p = ctx.path(name)
+    if not os.path.exists(p):
+        for ext in (ctx.ext, ".fit", ".fits", ".fts"):
+            if os.path.exists(p + ext):
+                p = p + ext
+                break
+        else:
+            raise CommandError(f"master not found: {name}")
+    return load_any(p)
+
+
+def _calib_args_from_flags(ctx: Session, flags: dict, ref_img=None):
+    from siril_tpu_torch.ops.calibration import (
+        CalibArgs,
+        evaluate_offset_level,
+    )
+
+    ca = CalibArgs()
+    b = flags.get("bias")
+    if isinstance(b, str):
+        if b.startswith("="):
+            if ref_img is None:
+                raise CommandError("synthetic bias needs a loaded image")
+            ca.bias_level = evaluate_offset_level(b, ref_img)
+        else:
+            ca.bias = _load_master(ctx, b)
+    if isinstance(flags.get("dark"), str):
+        ca.dark = _load_master(ctx, flags["dark"])
+    if isinstance(flags.get("flat"), str):
+        ca.flat = _load_master(ctx, flags["flat"])
+    ca.use_dark_optim = "opt" in flags
+    ca.use_exposure = flags.get("opt") == "exp"
+    ca.use_cosmetic = "cc" in flags
+    ca.is_cfa = "cfa" in flags
+    ca.debayer = "debayer" in flags
+    ca.equalize_cfa = "equalize_cfa" in flags or ca.is_cfa
+    if isinstance(flags.get("prefix"), str):
+        ca.prefix = flags["prefix"]
+    return ca
+
+
+@command("calibrate", "calibrate sequencename [-bias=] [-dark=] [-flat=] "
+         "[-cc=dark] [-cfa] [-debayer] [-opt] [-prefix=]", min_args=1)
+def cmd_calibrate(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.calibration import calibrate_sequence
+
+    pos, flags = parse_flags(args)
+    seq = ctx.load_sequence(pos[0])
+    ref = seq.read_frame(int(seq.selected_indices()[0]))
+    res = calibrate_sequence(seq, _calib_args_from_flags(ctx, flags, ref),
+                             device=ctx.device)
+    ctx.sequence = res.new_seq or seq
+    ctx.stages = res.stage_s
+    _log.info("Calibration: %d images processed", res.processed)
+
+
+# ===========================================================================
+# registration
+# ===========================================================================
+
+
+@command("setfindstar", "setfindstar [reset] [-radius=] [-sigma=] "
+         "[-roundness=] [-focal=] [-pixelsize=] [-convergence=] "
+         "[-gaussian|-moffat] [-minbeta=] [-minA=] [-maxA=] [-maxR=] "
+         "[-relax=on|off]")
+def cmd_setfindstar(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.registration.starfinder import StarFinderParams
+
+    pos, flags = parse_flags(args)
+    if pos and pos[0] == "reset":
+        ctx.starfinder = dataclasses.replace(
+            StarFinderParams(), max_stars=ctx.starfinder.max_stars)
+    p = ctx.starfinder
+    for key, attr, conv in (("radius", "radius", lambda v: int(float(v))),
+                            ("sigma", "sigma", float),
+                            ("roundness", "roundness", float),
+                            ("convergence", "convergence",
+                             lambda v: int(float(v))),
+                            ("minbeta", "min_beta", float),
+                            ("mina", "min_A", float),
+                            ("maxa", "max_A", float),
+                            ("maxr", "max_r", float)):
+        if key in flags:
+            setattr(p, attr, conv(flags[key]))
+    if "relax" in flags:
+        p.relax_checks = str(flags["relax"]).lower() in ("on", "1", "true")
+    if "gaussian" in flags:
+        p.profile = 0
+    if "moffat" in flags:
+        p.profile = 1
+    if "focal" in flags:
+        ctx.focal_length = float(flags["focal"])
+    if "pixelsize" in flags:
+        ctx.pixel_size = float(flags["pixelsize"])
+    _log.info("starfinder: radius=%s sigma=%s roundness=%s", p.radius,
+              p.sigma, p.roundness)
+
+
+def _sf_params(ctx: Session):
+    """The star finder's parameters of the session (a copy; the maximum
+    star count stays the default, as in the reference's _sf_params)."""
+    from siril_tpu_torch.registration.starfinder import StarFinderParams
+
+    return dataclasses.replace(ctx.starfinder,
+                               max_stars=StarFinderParams().max_stars)
+
+
+_REGISTER_UNPORTED = {
+    "3stars": "1/2/3-star registration (ROADMAP §1.5, the rest of "
+              "registration: registration/threestars.py)",
+    "drizzle": "drizzle output (ROADMAP §1.5, the rest of registration: "
+               "register -drizzle)",
+    "disto": "SIP distortion correction (ROADMAP §1.5, the rest of "
+             "registration: register -disto)",
+}
+
+
+@command("register", "register sequencename [-2pass] [-noout] [-transf=] "
+         "[-layer=] [-prefix=] [-minpairs=] [-maxstars=] [-interp=] "
+         "[-noclamp]", min_args=1)
+def cmd_register(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.interp import INTERP_NAMES
+    from siril_tpu_torch.registration.global_reg import (
+        RegArgs,
+        register_sequence,
+    )
+    from siril_tpu_torch.registration.matching import (
+        AFFINE_TRANSFORMATION,
+        HOMOGRAPHY_TRANSFORMATION,
+        SHIFT_TRANSFORMATION,
+        SIMILARITY_TRANSFORMATION,
+    )
+
+    pos, flags = parse_flags(args)
+    _refuse(flags, _REGISTER_UNPORTED, "register")
+    seq = ctx.load_sequence(pos[0])
+    ra = RegArgs(starfinder=_sf_params(ctx))
+    ra.two_pass = "2pass" in flags
+    ra.output = "noout" not in flags and not ra.two_pass
+    tmap = {"shift": SHIFT_TRANSFORMATION,
+            "similarity": SIMILARITY_TRANSFORMATION,
+            "affine": AFFINE_TRANSFORMATION,
+            "homography": HOMOGRAPHY_TRANSFORMATION}
+    if isinstance(flags.get("transf"), str):
+        ra.ttype = tmap.get(flags["transf"].lower(), ra.ttype)
+    if "layer" in flags:
+        ra.reglayer = int(float(flags["layer"]))
+    if isinstance(flags.get("prefix"), str):
+        ra.prefix = flags["prefix"]
+    if "minpairs" in flags:
+        ra.min_pairs = int(float(flags["minpairs"]))
+    if "maxstars" in flags:
+        ra.max_stars = int(float(flags["maxstars"]))
+    if isinstance(flags.get("interp"), str):
+        ra.interpolation = INTERP_NAMES.get(flags["interp"].lower(),
+                                            ra.interpolation)
+    if "noclamp" in flags:
+        ra.clamp = False
+    if "scale" in flags:
+        ra.scale = float(flags["scale"])
+    if isinstance(flags.get("extref"), str):
+        ra.extref = ctx.path(flags["extref"])
+    ra.save_starlists = "nostarlist" not in flags
+    res = register_sequence(seq, ra, device=ctx.device)
+    ctx.sequence = res.new_seq or seq
+    ctx.stages = res.stage_s
+    _log.info("Registration complete: %d images", res.processed)
+
+
+_APPLYREG_UNPORTED = {
+    "drizzle": "drizzle output (ROADMAP §1.5, the rest of registration: "
+               "seqapplyreg -drizzle)",
+    "disto": "SIP distortion correction (ROADMAP §1.5, the rest of "
+             "registration: seqapplyreg -disto)",
+}
+
+
+@command("seqapplyreg", "seqapplyreg sequencename [-framing=] [-interp=] "
+         "[-prefix=] [-layer=] [-scale=] [-noclamp]", min_args=1)
+def cmd_seqapplyreg(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.interp import INTERP_NAMES
+    from siril_tpu_torch.registration.global_reg import (
+        FRAMING_NAMES,
+        ApplyRegArgs,
+        apply_reg_sequence,
+    )
+
+    pos, flags = parse_flags(args)
+    _refuse(flags, _APPLYREG_UNPORTED, "seqapplyreg")
+    for key in flags:
+        if key.startswith("filter-"):
+            raise NotImplementedError(
+                f"seqapplyreg -{key}: frame filters are not ported yet "
+                "(ROADMAP §1.4, core/filtering.py)")
+    seq = ctx.load_sequence(pos[0])
+    aa = ApplyRegArgs()
+    if isinstance(flags.get("framing"), str):
+        aa.framing = FRAMING_NAMES.get(flags["framing"].lower(), aa.framing)
+    if isinstance(flags.get("interp"), str):
+        aa.interpolation = INTERP_NAMES.get(flags["interp"].lower(),
+                                            aa.interpolation)
+    if isinstance(flags.get("prefix"), str):
+        aa.prefix = flags["prefix"]
+    if "layer" in flags:
+        aa.reglayer = int(float(flags["layer"]))
+    if "scale" in flags:
+        aa.scale = float(flags["scale"])
+    if "noclamp" in flags:
+        aa.clamp = False
+    if not seq.has_reg(aa.reglayer):
+        raise CommandError(
+            "no registration data in this sequence (homographies from "
+            "plate-solved frames are not ported: ROADMAP §1.5, the rest of "
+            "registration: registration/astrometric.py)")
+    res = apply_reg_sequence(seq, aa, device=ctx.device)
+    ctx.sequence = res.new_seq or seq
+    ctx.stages = res.stage_s
+    _log.info("Applied registration to %d images", res.processed)
+
+
+# ===========================================================================
+# stacking
+# ===========================================================================
+
+
+@command("fusedstack", "fusedstack sequencename [rejection] [sig_low "
+         "sig_high] [-norm=] [-bias=] [-dark=] [-flat=] [-cc=dark] [-out=] "
+         "[-noreg]", min_args=1)
+def cmd_fusedstack(ctx: Session, args: List[str]) -> None:
+    """Fused calibrate+register+stack with the sequence resident on the
+    device; no intermediate sequences, one upload and one result fetch."""
+    from siril_tpu_torch.io.fits_io import write_fits
+    from siril_tpu_torch.ops import rejection as rj
+    from siril_tpu_torch.ops.normalization import (
+        ADDITIVE_SCALING,
+        NORM_NAMES,
+    )
+    from siril_tpu_torch.ops.stacking import StackArgs
+    from siril_tpu_torch.pipeline import FusedArgs, fused_preprocess_stack
+
+    pos, flags = parse_flags(args)
+    if flags.get("transf") == "homography":
+        raise NotImplementedError(
+            "fusedstack -transf=homography: only shift registration is "
+            "ported on the fused path (ROADMAP §1.2, the FFT warp ladder)")
+    seq = ctx.load_sequence(pos[0])
+    calib = None
+    if any(k in flags for k in ("bias", "dark", "flat")):
+        calib = _calib_args_from_flags(
+            ctx, flags, seq.read_frame(int(seq.selected_indices()[0])))
+    sa = StackArgs(method="rej")
+    rest = pos[1:]
+    if rest and not _is_number(rest[0]):
+        sa.rejection = rj.REJECTION_NAMES.get(rest[0].lower(), rj.WINSORIZED)
+        rest = rest[1:]
+    if len(rest) >= 2:
+        sa.siglow, sa.sighigh = float(rest[0]), float(rest[1])
+    sa.normalize = NORM_NAMES.get(str(flags.get("norm", "addscale")).lower(),
+                                  ADDITIVE_SCALING)
+    fa = FusedArgs(calib=calib, stack=sa, starfinder=_sf_params(ctx),
+                   register="noreg" not in flags)
+    try:
+        res = fused_preprocess_stack(seq, fa, device=ctx.device)
+    except MemoryError as e:
+        raise CommandError(str(e))
+    name = flags.get("out") if isinstance(flags.get("out"), str) \
+        else seq.name + "fused"
+    p = ctx.path(name)
+    if not os.path.splitext(p)[1]:
+        p += ctx.ext
+    write_fits(res.image, p, bitdepth=FLOAT_IMG)
+    ctx.image = res.image
+    ctx.result = res
+    ctx.stages = res.stage_s
+    _log.info("fusedstack: saved %s (%.2fs)", os.path.basename(p),
+              res.elapsed_s)
+    _warn_capped(res)
+
+
+def _warn_capped(res) -> None:
+    if res.capped:
+        _log.warning(
+            "%d rejection loops stopped at their bound (SIGMEDIAN %d "
+            "rounds, winsorized %d σ steps) before settling", res.capped,
+            SIGMEDIAN_MAX_ROUNDS, WINSOR_MAX_STEPS)
+
+
+def stack_args_from_flags(pos: List[str], flags: dict):
+    """StackArgs of ``stack seq [method] [type] [sig_low sig_high] -…``
+    (``_stack_args_from_flags``, siril_tpu/cli/commands.py:1121-1187)."""
+    from siril_tpu_torch.ops import rejection as rj
+    from siril_tpu_torch.ops.normalization import NORM_NAMES
+    from siril_tpu_torch.ops.stacking import (
+        NBSTACK_WEIGHT,
+        NBSTARS_WEIGHT,
+        NOISE_WEIGHT,
+        WFWHM_WEIGHT,
+        StackArgs,
+    )
+
+    sa = StackArgs()
+    method = pos[1] if len(pos) > 1 else "rej"
+    sa.method = {"sum": "sum", "min": "min", "max": "max", "med": "med",
+                 "median": "med", "rej": "rej", "mean": "rej"}.get(method,
+                                                                  "rej")
+    rest = pos[2:]
+    if sa.method == "rej":
+        sa.rejection = rj.WINSORIZED
+        if rest and not _is_number(rest[0]):
+            sa.rejection = rj.REJECTION_NAMES.get(rest[0].lower(),
+                                                  rj.WINSORIZED)
+            rest = rest[1:]
+        if sa.rejection == rj.GESDT:
+            sa.siglow, sa.sighigh = 0.3, 0.05
+        elif sa.rejection == rj.PERCENTILE:
+            sa.siglow, sa.sighigh = 0.2, 0.1
+        if len(rest) >= 2:
+            sa.siglow, sa.sighigh = float(rest[0]), float(rest[1])
+        if sa.siglow < 0 or sa.sighigh < 0:
+            raise CommandError("The average stacking with rejection "
+                               "requires two extra arguments: sigma low "
+                               "and high")
+        # command.c:11909-11917: both GESDT parameters (max outlier
+        # fraction, significance) and percentile bounds lie in [0, 1]
+        if sa.rejection == rj.GESDT and (sa.siglow > 1 or sa.sighigh > 1):
+            raise CommandError("Extra parameters of GESDT rejection "
+                               "algorithm must be between 0 and 1, default "
+                               "is 0.3 and 0.05")
+        if sa.rejection == rj.PERCENTILE and (sa.siglow > 1
+                                              or sa.sighigh > 1):
+            raise CommandError("Extra parameters of percentile rejection "
+                               "algorithm must be between 0 and 1, default "
+                               "is 0.2 and 0.1")
+    if isinstance(flags.get("norm"), str):
+        sa.normalize = NORM_NAMES.get(flags["norm"].lower(), 0)
+    sa.lite_norm = "fastnorm" in flags
+    sa.force_norm = "force_norm" in flags
+    sa.equalize_rgb = "rgb_equal" in flags
+    if "weight_from_noise" in flags:
+        sa.weighting = NOISE_WEIGHT
+    elif "weight_from_wfwhm" in flags:
+        sa.weighting = WFWHM_WEIGHT
+    elif "weight_from_nbstars" in flags:
+        sa.weighting = NBSTARS_WEIGHT
+    elif "weight_from_nbstack" in flags:
+        sa.weighting = NBSTACK_WEIGHT
+    sa.overlap_norm = "overlap_norm" in flags
+    if "feather" in flags and flags["feather"] is not True:
+        sa.feather_dist = int(float(flags["feather"]))
+    sa.create_rejmaps = "rejmap" in flags or "rejmaps" in flags
+    sa.merge_rejmaps = flags.get("rejmap") == "merged"
+    sa.output_norm = "output_norm" in flags
+    sa.use_32bit = "16b" not in flags
+    sa.maximize = "maximize" in flags
+    return sa
+
+
+#: flags of the stack command whose features are not ported yet
+_STACK_UNPORTED = {
+    "drizzle": "drizzle stacking (ROADMAP §1, off-path modules: "
+               "ops/drizzle.py)",
+    "upscale": "the x2 up-scale before stacking (ROADMAP §1, off-path "
+               "modules: ops/geometry.py)",
+    "feather": "seam feathering (ROADMAP §1, stacking beyond rejection)",
+    "overlap_norm": "overlap normalization (ROADMAP §1, stacking beyond "
+                    "rejection)",
+    "maximize": "maximize framing (ROADMAP §1, stacking beyond rejection)",
+}
+
+
+@command("stack", "stack seqfilename {sum|min|max|med|rej} [type] "
+         "[sigma_low sigma_high] [-norm=] [-weight_from_…] [-out=]",
+         min_args=1)
+def cmd_stack(ctx: Session, args: List[str]) -> None:
+    """Stack a registered sequence: normalization, weights and pixel
+    rejection on the device; writes ``<seq>stacked.fit`` (or ``-out=``)
+    and, with ``-rejmaps``, ``rejmap_low``/``rejmap_high``."""
+    from siril_tpu_torch.core.image import USHORT_IMG
+    from siril_tpu_torch.io.fits_io import write_fits
+    from siril_tpu_torch.ops.stacking import stack_sequence
+
+    pos, flags = parse_flags(args)
+    _refuse(flags, _STACK_UNPORTED, "stack")
+    for key in flags:
+        if key.startswith("filter-"):
+            raise NotImplementedError(
+                f"stack -{key}: frame filters are not ported yet "
+                "(ROADMAP §1, off-path modules: core/filtering.py)")
+    seq = ctx.load_sequence(pos[0])
+    sa = stack_args_from_flags(pos, flags)
+    from siril_tpu_torch.utils.devmem import MEMORY_RATIO
+
+    # setmem → device block budget (commands.py _apply_mem_budget)
+    sa.block_mb = max(int(2048 * min(MEMORY_RATIO, 4.0)), 128)
+    res = stack_sequence(seq, sa, device=ctx.device)
+    name = flags.get("out") if isinstance(flags.get("out"), str) \
+        else seq.name + "stacked"
+    p = ctx.path(name)
+    if not os.path.splitext(p)[1]:
+        p += ctx.ext
+    write_fits(res.image, p,
+               bitdepth=FLOAT_IMG if sa.use_32bit else USHORT_IMG)
+    ctx.image = res.image
+    ctx.result = res
+    ctx.stages = res.stage_s
+    _log.info(
+        "Stacked %d images, rejected %d/%d px (low/high) in %.2fs → %s",
+        len(seq.selected_indices()), *res.total_rejected, res.elapsed_s,
+        os.path.basename(p))
+    _warn_capped(res)
+    if sa.create_rejmaps and res.rejmap_low is not None:
+        write_fits(res.rejmap_low, ctx.path("rejmap_low" + ctx.ext))
+        if res.rejmap_high is not None:
+            write_fits(res.rejmap_high, ctx.path("rejmap_high" + ctx.ext))
+
+

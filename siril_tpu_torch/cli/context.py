@@ -1,0 +1,67 @@
+"""CLI session state — counterpart of ``siril_tpu/cli/context.py``
+(``Session``:17, ``load_sequence``:86, ``CommandError``:118): the working
+directory, the FITS extension, the star-finder preferences, the current
+sequence and the last result of a headless run.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+from siril_tpu_torch.core.image import SirilImage
+from siril_tpu_torch.core.sequence import Sequence
+from siril_tpu_torch.registration.starfinder import StarFinderParams
+
+
+class CommandError(Exception):
+    """A command's arguments or preconditions are wrong."""
+
+
+@dataclass
+class Session:
+    """Working state of one CLI run or script."""
+
+    cwd: str = "."
+    device: Optional[str] = None
+    ext: str = ".fit"                            # setext
+    starfinder: StarFinderParams = field(default_factory=StarFinderParams)
+    focal_length: float = 0.0                    # setfindstar -focal=
+    pixel_size: float = 0.0                      # setfindstar -pixelsize=
+    sequence: Optional[Sequence] = None
+    image: Optional[SirilImage] = None
+    #: the last stack command's StackResult
+    result: Optional[object] = None
+    #: seconds per stage of the last command that keeps them
+    stages: dict = field(default_factory=dict)
+    #: one entry per script command: words, seconds, K1 launches, stages
+    command_log: List[dict] = field(default_factory=list)
+
+    def path(self, name: str) -> str:
+        return name if os.path.isabs(name) else os.path.join(self.cwd, name)
+
+    def load_sequence(self, name: str) -> Sequence:
+        """A sequence by name: its ``.seq`` sidecar (also ``name_.seq``,
+        the converted name), else a scan of ``name%05d.fit`` files."""
+        from siril_tpu_torch.io.seqfile import read_seqfile
+
+        base = name[:-4] if name.endswith(".seq") else name
+        if not os.path.exists(self.path(base + ".seq")) and \
+                os.path.exists(self.path(base + "_.seq")):
+            base = base + "_"
+        if os.path.exists(self.path(base + ".seq")):
+            seq = read_seqfile(self.path(base + ".seq"))
+        elif os.path.exists(self.path(base + ".ser")) or name.endswith(".ser"):
+            raise NotImplementedError(
+                f"{name}: SER sequences are not ported yet (ROADMAP §1.5, "
+                "SER / FITS-cube / film sequences)")
+        else:
+            try:
+                seq = Sequence.scan(base, self.cwd)
+            except FileNotFoundError:
+                if base.endswith("_"):
+                    raise
+                seq = Sequence.scan(base + "_", self.cwd)
+        self.sequence = seq
+        return seq

@@ -1,10 +1,12 @@
 """Carry configuration and per-frame state from the JAX package to the
 port.  There are no learned weights: what crosses is configuration
-(``dataclasses.asdict`` of the JAX ``FusedArgs``, ``StackArgs`` and
-``StarFinderParams``; ``dataclasses.asdict`` of the port's own dataclasses
-goes back) and per-frame data (``NormCoeffs`` arrays,
-registration homographies, the GESDT λ table), as plain dicts and numpy
-arrays.  This module imports nothing of the JAX package.
+(``dataclasses.asdict`` of the JAX ``FusedArgs``, ``StackArgs``,
+``StarFinderParams``, ``CalibArgs`` and ``RegArgs``;
+``dataclasses.asdict`` of the port's own dataclasses goes back), the
+calibration masters inside ``CalibArgs`` (``SirilImage`` as a dict: data,
+keywords, bit depth, history) and per-frame data (``NormCoeffs`` arrays,
+a sequence's registration data, the GESDT λ table), as plain dicts and
+numpy arrays.  This module imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -15,9 +17,13 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from siril_tpu_torch.core.image import Keywords, SirilImage
+from siril_tpu_torch.core.sequence import RegData
+from siril_tpu_torch.ops.calibration import CalibArgs
 from siril_tpu_torch.ops.normalization import NormCoeffs
 from siril_tpu_torch.ops.stacking import StackArgs
 from siril_tpu_torch.pipeline import FusedArgs
+from siril_tpu_torch.registration.global_reg import RegArgs
 from siril_tpu_torch.registration.starfinder import StarFinderParams
 
 
@@ -37,12 +43,50 @@ def starfinder_params(d: Mapping) -> StarFinderParams:
     return _build(StarFinderParams, d)
 
 
+def siril_image(d: Mapping) -> SirilImage:
+    """An image dict (``dataclasses.asdict`` of either package's
+    SirilImage) → the port's SirilImage: its data, the keywords the port
+    keeps, the bit depth and the history; the JAX package's other fields
+    (header text, mask, WCS, ICC profile) stay behind."""
+    names = {f.name for f in dataclasses.fields(Keywords)}
+    kw = Keywords(**{k: v for k, v in dict(d.get("keywords") or {}).items()
+                     if k in names})
+    return SirilImage(data=np.asarray(d["data"], np.float32), keywords=kw,
+                      orig_bitdepth=int(d["orig_bitdepth"]),
+                      history=list(d.get("history") or []))
+
+
+def calib_args(d: Mapping) -> CalibArgs:
+    d = dict(d)
+    for k in ("bias", "dark", "flat"):
+        if d.get(k) is not None:
+            d[k] = siril_image(d[k])
+    return _build(CalibArgs, d)
+
+
+def reg_args(d: Mapping) -> RegArgs:
+    d = dict(d)
+    if "starfinder" in d:
+        d["starfinder"] = starfinder_params(d["starfinder"])
+    return _build(RegArgs, d)
+
+
+def reg_data(d: Mapping) -> RegData:
+    """A layer's registration data (``dataclasses.asdict`` of RegData)
+    → the port's RegData, arrays copied with the reference's dtypes."""
+    d = dict(d)
+    rd = RegData(int(d.pop("n")))
+    for k, v in d.items():
+        if not hasattr(rd, k):
+            raise ValueError(f"RegData: unknown field {k}")
+        setattr(rd, k, np.array(v, dtype=getattr(rd, k).dtype))
+    return rd
+
+
 def fused_args(d: Mapping) -> FusedArgs:
     d = dict(d)
     if d.get("calib") is not None:
-        raise NotImplementedError(
-            "calibration arguments are not ported yet (ROADMAP §1, "
-            "calibration + cosmetic)")
+        d["calib"] = calib_args(d["calib"])
     if "stack" in d:
         d["stack"] = stack_args(d["stack"])
     if "starfinder" in d:

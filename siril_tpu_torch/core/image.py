@@ -1,7 +1,7 @@
 """Image container — counterpart of ``siril_tpu/core/image.py``.
 
-A trimmed copy: the fields and keywords the fused stack path reads and
-writes (``_finalize_metadata`` and the FITS boundary).  Pixel data is a
+A trimmed copy: the fields and keywords the ported commands read and
+write (``_finalize_metadata``, calibration, the FITS boundary).  Pixel data is a
 planar (C, H, W) float32 numpy array in Siril's [0, 1] convention.
 """
 
@@ -77,6 +77,14 @@ class SirilImage:
 
     def host(self) -> np.ndarray:
         return np.asarray(self.data, dtype=np.float32)
+
+    def copy(self, data: Any = None) -> "SirilImage":
+        """A copy with ``data`` (default: a copy of this data); keywords
+        and history copied, bit depth kept (``SirilImage.copy``)."""
+        d = data if data is not None else np.array(self.data)
+        return SirilImage(data=d, keywords=self.keywords.copy(),
+                          orig_bitdepth=self.orig_bitdepth,
+                          history=list(self.history))
 
     def log_history(self, msg: str) -> None:
         self.history.append(msg)

@@ -1,13 +1,13 @@
 """Sequence model — counterpart of ``siril_tpu/core/sequence.py``
-(scan:193, read_frame:233, read_region:300, close_readers:307,
-selected_indices:320, get_reference:327, reg:337, the per-frame stats
-store :345-367) and of the raw chunk reader ``siril_tpu/pipeline.py:501``.
+(RegData:46, from_files:110, scan:193, read_frame:233, read_region:300,
+close_readers:307, selection and reference :316-332, reg:337, the
+per-frame stats store :345-364, seqfile_path:369, save:372) and of the raw
+chunk reader ``siril_tpu/pipeline.py:501``.
 
-A trimmed copy: REGULAR sequences (one FITS file per frame).  SER, FITS
-cubes and films are off the ported paths (ROADMAP §1, off-path modules).
-The per-frame statistics stay in memory: the ``.seq`` sidecar
-(``io/seqfile.py``, ``seq.save()``) is not ported, and the JAX package
-ignores a failure to write it (``ops/stacking.py:815``).
+A trimmed copy: REGULAR sequences (one FITS file per frame), with what a
+``.seq`` sidecar keeps (``io/seqfile.py``): file numbers, the selection,
+the reference, per-layer registration data and per-frame statistics.
+SER, FITS cubes and films are off the ported paths (ROADMAP §1.5).
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ SEQ_REGULAR = 0
 STAT_COLS = ("total", "ngoodpix", "mean", "median", "sigma", "avgdev", "mad",
              "sqrtbwmv", "location", "scale", "min", "max", "normvalue",
              "bgnoise")
+REG_COLS = ("fwhm", "weighted_fwhm", "roundness", "quality",
+            "background_lvl", "number_of_stars")
 
 
 @dataclass
@@ -38,31 +40,42 @@ class RegData:
     """Columnar registration data for one layer (regdata, siril.h:433)."""
 
     n: int
+    fwhm: np.ndarray = None
+    weighted_fwhm: np.ndarray = None     # (N,) for -weight_from_wfwhm
+    roundness: np.ndarray = None
+    quality: np.ndarray = None
+    background_lvl: np.ndarray = None
+    number_of_stars: np.ndarray = None   # (N,) for -weight_from_nbstars
     H: np.ndarray = None                 # (N, 3, 3) float64 homographies
     valid: np.ndarray = None             # bool: regdata exists for frame
-    weighted_fwhm: np.ndarray = None     # (N,) for -weight_from_wfwhm
-    number_of_stars: np.ndarray = None   # (N,) for -weight_from_nbstars
 
     def __post_init__(self):
-        if self.H is None:
-            self.H = np.tile(np.eye(3), (self.n, 1, 1))
-            self.valid = np.zeros(self.n, dtype=bool)
-        if self.weighted_fwhm is None:
-            self.weighted_fwhm = np.zeros(self.n)
-            self.number_of_stars = np.zeros(self.n, dtype=np.int32)
+        n = self.n
+        if self.fwhm is None:
+            self.fwhm = np.zeros(n)
+            self.weighted_fwhm = np.zeros(n)
+            self.roundness = np.zeros(n)
+            self.quality = np.full(n, -1.0)
+            self.background_lvl = np.zeros(n)
+            self.number_of_stars = np.zeros(n, dtype=np.int32)
+            self.H = np.tile(np.eye(3), (n, 1, 1))
+            self.valid = np.zeros(n, dtype=bool)
 
 
 class Sequence:
     """A REGULAR sequence of FITS frames with registration state."""
 
     def __init__(self, name: str, directory: str = "."):
-        self.name = name
+        self.name = name                 # base name without .seq
         self.directory = directory
         self.seq_type = SEQ_REGULAR
+        self.beg = 0
+        self.fixed_len = 5               # zero-padding of file numbers
         self.number = 0
         self.nb_layers = -1
         self.rx = 0
         self.ry = 0
+        self.filenum = np.zeros(0, dtype=np.int64)
         #: layer → (N, 14) float64 statistics, NaN where absent
         self.stats: Dict[int, np.ndarray] = {}
         self.reference_image = -1
@@ -71,6 +84,8 @@ class Sequence:
         self._readers: Dict[int, object] = {}
         self._reader_lock = threading.Lock()
         self._file_list: List[str] = []
+        #: D/O/E cards of a read .seq, written back unchanged
+        self._opaque_cards: List[str] = []
 
     @staticmethod
     def from_files(files: Seq[str], name: str = "sequence",
@@ -81,13 +96,22 @@ class Sequence:
         seq = Sequence(name, directory or os.path.dirname(files[0]) or ".")
         seq._file_list = [os.path.abspath(f) for f in files]
         seq.number = len(files)
+        nums = []
+        for i, f in enumerate(files):
+            m = re.search(r"(\d+)(?=\.[^.]+$)", os.path.basename(f))
+            nums.append(int(m.group(1)) if m else i)
+        seq.filenum = np.asarray(nums, dtype=np.int64)
         seq.incl = np.ones(len(files), dtype=bool)
+        seq._probe_geometry()
+        return seq
+
+    def _probe_geometry(self) -> None:
         from siril_tpu_torch.io.fits_io import image_hdus
 
-        hdus = image_hdus(seq._file_list[0])
+        first = next((f for f in self._file_list if f), None)
+        hdus = image_hdus(first) if first else []
         if hdus:
-            seq.nb_layers, seq.ry, seq.rx = hdus[0].shape_chw
-        return seq
+            self.nb_layers, self.ry, self.rx = hdus[0].shape_chw
 
     @staticmethod
     def scan(basename: str, directory: str = ".") -> "Sequence":
@@ -102,13 +126,21 @@ class Sequence:
         if not matched:
             raise FileNotFoundError(
                 f"no files matching {basename}NNNNN.fit in {directory}")
-        return Sequence.from_files(matched, name=basename,
-                                   directory=directory)
+        seq = Sequence.from_files(matched, name=basename,
+                                  directory=directory)
+        m0 = pat.search(os.path.basename(seq._file_list[0]))
+        seq.fixed_len = len(m0.group(1))
+        seq.beg = int(seq.filenum.min())
+        return seq
 
     def read_frame(self, index: int) -> SirilImage:
         from siril_tpu_torch.io.fits_io import read_fits
 
-        return read_fits(self._file_list[index])
+        img = read_fits(self._file_list[index])
+        if self.nb_layers < 0:
+            self.nb_layers = img.nchans
+            self.rx, self.ry = img.width, img.height
+        return img
 
     def read_frame_metadata(self, index: int) -> Keywords:
         """Keywords only, no pixel read (io/sequence.c:1052)."""
@@ -137,6 +169,10 @@ class Sequence:
         with self._reader_lock:
             self._readers.clear()
 
+    @property
+    def selnum(self) -> int:
+        return int(self.incl.sum())
+
     def selected_indices(self) -> np.ndarray:
         return np.nonzero(self.incl)[0]
 
@@ -153,12 +189,19 @@ class Sequence:
             self.regparam[layer] = RegData(self.number)
         return self.regparam[layer]
 
-    def set_frame_stats(self, layer: int, index: int, st) -> None:
-        """Keep an ImStats for (layer, frame) in the columnar store."""
+    def has_reg(self, layer: int) -> bool:
+        return layer in self.regparam and \
+            bool(self.regparam[layer].valid.any())
+
+    def layer_stats(self, layer: int) -> np.ndarray:
         if layer not in self.stats:
             self.stats[layer] = np.full((self.number, len(STAT_COLS)),
                                         np.nan)
-        self.stats[layer][index] = [getattr(st, c) for c in STAT_COLS]
+        return self.stats[layer]
+
+    def set_frame_stats(self, layer: int, index: int, st) -> None:
+        """Keep an ImStats for (layer, frame) in the columnar store."""
+        self.layer_stats(layer)[index] = [getattr(st, c) for c in STAT_COLS]
 
     def get_frame_stats(self, layer: int, index: int):
         """The stored ImStats of (layer, frame), or None."""
@@ -171,6 +214,15 @@ class Sequence:
 
         return ImStats(**{c: float(row[i])
                           for i, c in enumerate(STAT_COLS)})
+
+    def seqfile_path(self) -> str:
+        return os.path.join(self.directory, self.name + ".seq")
+
+    def save(self) -> None:
+        """Write the ``.seq`` sidecar (writeseqfile, io/seqfile.c:720)."""
+        from siril_tpu_torch.io.seqfile import write_seqfile
+
+        write_seqfile(self)
 
 
 def raw_chunk_reader(seq: Sequence, indices: np.ndarray, L: int, H: int,

@@ -4,8 +4,9 @@
 
 The whole sequence stays on the device across stages:
 
-  raw u16 upload → device decode → star detection (stats, candidates,
-  batched PSF fit) → [host: triangle match + RANSAC] → per-frame IKSS
+  raw u16 upload → device decode → calibration (bias, dark, flat,
+  cosmetic correction) → star detection (stats, candidates, batched PSF
+  fit) → [host: triangle match + RANSAC] → per-frame IKSS
   estimators → translation warp → normalize + reject + mean streamed over
   pixel-row blocks (kernel K1a) → one fetch of the result
 
@@ -14,11 +15,14 @@ same rows of every chunk into one (N, rows·W) stack of about 256 MiB.
 Each stage ends with a device synchronize and its seconds are kept in
 ``StackResult.stage_s``.
 
-Every rejection mode runs; GESDT gets its outlier budget and λ table as
-in ``siril_tpu/pipeline.py:366-376``.  Not ported yet, each raising
-``NotImplementedError`` that names its ROADMAP item: calibration masters
-and cosmetic correction, and transforms other than shift (and so the
-rotation/affine/perspective/homography warps).  Frame weights are not
+Calibration runs on each decoded chunk before detection, as
+``siril_tpu/pipeline.py:100-107`` (``_calib_operands``:549,
+``_chunk_program_builder``:563-592) with k = 1 for the dark, or the
+per-frame dark optimization of the staged ``calibrate`` when asked for
+(the JAX fused path ignores it).  Every rejection mode runs; GESDT gets
+its outlier budget and λ table as in ``siril_tpu/pipeline.py:366-376``.
+Transforms other than shift raise ``NotImplementedError``: their warps
+are the FFT warp ladder (ROADMAP §1.2).  Frame weights are not
 supported on the fused path, as in the JAX package (its fused block
 kernel is built without weights, ``siril_tpu/pipeline.py:441-442``).
 """
@@ -38,6 +42,14 @@ import torch
 from siril_tpu_torch.core.sequence import Sequence, raw_chunk_reader
 from siril_tpu_torch.device import DeviceLike, resolve_device
 from siril_tpu_torch.ops import rejection as rj
+from siril_tpu_torch.ops.calibration import (
+    CalibArgs,
+    calibrate_tensor,
+    dark_optimization_k,
+    prepare_calibration,
+)
+from siril_tpu_torch.ops.calibration import check_supported as \
+    check_calibration
 from siril_tpu_torch.ops.interp import (
     INTERP_LANCZOS4,
     translations_from_Hs,
@@ -61,7 +73,6 @@ from siril_tpu_torch.ops.stacking import (
 from siril_tpu_torch.ops.statistics import norm_estimators
 from siril_tpu_torch.registration.matching import (
     SHIFT_TRANSFORMATION,
-    check_ttype,
     match_stars,
 )
 from siril_tpu_torch.registration.starfinder import (
@@ -80,7 +91,7 @@ BLOCK_BYTES = 256 << 20
 
 @dataclass
 class FusedArgs:
-    calib: Optional[object] = None
+    calib: Optional[CalibArgs] = None
     register: bool = True
     ttype: int = SHIFT_TRANSFORMATION
     starfinder: StarFinderParams = field(default_factory=StarFinderParams)
@@ -96,11 +107,12 @@ class FusedArgs:
 def check_supported(args: FusedArgs) -> None:
     """Raise NotImplementedError for what the port does not cover yet."""
     if args.calib is not None:
+        check_calibration(args.calib)
+    if args.register and args.ttype != SHIFT_TRANSFORMATION:
         raise NotImplementedError(
-            "calibration masters and cosmetic correction are not ported "
-            "yet (ROADMAP §1, calibration + cosmetic)")
-    if args.register:
-        check_ttype(args.ttype)
+            f"fused registration with transform type {args.ttype}: only "
+            "shifts are ported on the fused path; its rotation, affine "
+            "and perspective warps are the FFT warp ladder (ROADMAP §1.2)")
     sa = args.stack
     if sa.method == "rej":
         rj.check_rtype(sa.rejection)
@@ -136,7 +148,12 @@ def fused_preprocess_stack(seq: Sequence, args: Optional[FusedArgs] = None,
     want_detect = args.register and n > 1
     R = detection_radius(H, W, p) if want_detect else 0
 
-    # ---- 1. read + upload + decode, detection per chunk -----------------
+    # ---- 1. read + upload + decode + calibrate, detection per chunk -----
+    cal = None
+    if args.calib is not None:
+        with clock("masters"):
+            cal = prepare_calibration(args.calib,
+                                      seq.read_frame(int(indices[0])), dev)
     frames: List[torch.Tensor] = []
     detect_parts = []
     read_chunk, close_reader = raw_chunk_reader(seq, indices, L, H, W)
@@ -148,6 +165,10 @@ def fused_preprocess_stack(seq: Sequence, args: Optional[FusedArgs] = None,
             with clock("upload"):
                 x = torch.from_numpy(raw).to(dev)
                 x = decode_i16(x) if x.dtype == torch.int16 else x
+            if cal is not None:
+                with clock("calibrate"):
+                    _calibrate_chunk(x, cal, args.calib, seq,
+                                     indices[start:start + count])
             frames.append(x)
             if want_detect:
                 with clock("detect"):
@@ -282,6 +303,21 @@ def fused_preprocess_stack(seq: Sequence, args: Optional[FusedArgs] = None,
     return StackResult(image=img, total_rejected=tot,
                        elapsed_s=time.perf_counter() - t0,
                        stage_s=clock.seconds, capped=capped)
+
+
+def _calibrate_chunk(x: torch.Tensor, cal: dict, ca: CalibArgs,
+                     seq: Sequence, idxs) -> None:
+    """Calibrate the decoded (n, L, H, W) chunk in place, a frame at a
+    time (k = 1, or each frame's dark optimization)."""
+    optim = ca.dark is not None and ca.use_dark_optim
+    for j in range(x.shape[0]):
+        k = 1.0
+        if optim:
+            k = dark_optimization_k(
+                x[j], cal["dark"], ca.use_exposure,
+                seq.read_frame_metadata(int(idxs[j])).exposure,
+                ca.dark.keywords.exposure)
+        x[j] = calibrate_tensor(x[j], cal, k)
 
 
 def _device_norm_coeffs(frames, n: int, L: int, sa: StackArgs,

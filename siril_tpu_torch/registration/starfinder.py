@@ -1,7 +1,12 @@
 """Star detection — counterpart of ``siril_tpu/registration/starfinder.py``
-(``StarFinderParams``:36, ``detection_radius``:293,
+(``StarFinderParams``:36, ``detect_stars``:120, ``detection_radius``:293,
 ``_stats_cand_fit_fn``:305 with ``_candidate_fn``:53, ``detect_stars_batch``
-:367 and ``_filter_and_dedup``:186).
+:367, ``_filter_and_dedup``:186 and ``save_star_list_csv``:529).
+
+``detect_stars`` (one layer, the staged ``register``) thresholds at the
+STATS_BASIC median + σ·background noise, as the reference's per-frame
+path; the batched path (``fusedstack``, ``register -2pass/-noout``) at
+median + σ·1.4826·MAD.
 
 Per frame on the device: median/MAD detection statistics, threshold
 ``bg + σ·noise``, local maxima of a separable (2r+1)² max-pool above it,
@@ -24,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from siril_tpu_torch.ops.rejection import fma
-from siril_tpu_torch.ops.statistics import median_rows
+from siril_tpu_torch.ops.statistics import compute_stats_basic, median_rows
 from siril_tpu_torch.registration.psf import (
     PROFILE_GAUSSIAN,
     PSFStar,
@@ -126,6 +131,73 @@ def stats_cand_fit(frames: torch.Tensor, r: int, k: int, sigma: float,
     return stats, torch.stack(vals), torch.stack(idxs), torch.stack(fits)
 
 
+def detect_stars(layer: torch.Tensor,
+                 params: Optional[StarFinderParams] = None,
+                 max_stars: Optional[int] = None) -> List[PSFStar]:
+    """peaker() on one (H, W) layer on its device; stars brightest first."""
+    p = params or StarFinderParams()
+    K = int(max_stars or p.max_stars)
+    H, W = layer.shape
+    R = detection_radius(H, W, p)
+    box = 2 * R + 1
+    st = compute_stats_basic(layer)
+    bg, noise = st.median, st.bgnoise
+    thr = bg + p.sigma * max(noise, 1e-7)
+    dev = layer.device
+    vals, idx = _candidates(layer, torch.tensor(np.float32(thr), device=dev),
+                            R, min(K, H * W))
+    vals = vals.cpu().numpy()
+    idx = idx.cpu().numpy()
+    n_cand = int((vals > -np.inf).sum())
+    if n_cand == 0:
+        return []
+    y0s = np.clip(idx[:n_cand] // W - R, 0, H - box)
+    x0s = np.clip(idx[:n_cand] % W - R, 0, W - box)
+    patches = _patches(layer, torch.as_tensor(y0s, device=dev),
+                       torch.as_tensor(x0s, device=dev), box)
+    stars = stars_from_fit(fit_psf_batch(patches, profile=p.profile), x0s,
+                           y0s, box, p.profile)
+
+    def crop(sel, off, small):
+        return patches[torch.as_tensor(sel, device=dev)][
+            :, off:off + small, off:off + small]
+
+    _refit_blended(stars, x0s, y0s, box, p, crop)
+    return _filter_and_dedup(stars, x0s, y0s, R, box, p, noise,
+                             float(layer.max()))
+
+
+def _refit_blended(stars, x0s, y0s, box, p, crop,
+                   cap: Optional[int] = None) -> None:
+    """Second chance for blended fits, in place: a neighbour inside the
+    box elongates the profile, so a star whose fit is not round enough or
+    too wide is refitted on a smaller crop centred on its candidate peak,
+    and the refit replaces it where it is rounder.  ``crop(sel, off,
+    small)`` gathers the (len(sel), small, small) patches at offset
+    ``off`` in the boxes of the candidates ``sel`` (ascending); ``cap``
+    keeps the brightest that many."""
+    if box < 13:
+        return
+    retry = [i for i, s in enumerate(stars)
+             if np.isfinite(s.fwhmx) and
+             (s.roundness < p.roundness or s.fwhmx > box / 2)]
+    if cap is not None and len(retry) > cap:
+        retry = sorted(sorted(retry, key=lambda i: -stars[i].A)[:cap])
+    if not retry:
+        return
+    small = ((box // 2) // 2) * 2 + 1
+    off = (box - small) // 2
+    ridx = np.asarray(retry)
+    stars2 = stars_from_fit(fit_psf_batch(crop(ridx, off, small),
+                                          profile=p.profile),
+                            x0s[ridx] + off, y0s[ridx] + off, small,
+                            p.profile)
+    for k, i in enumerate(retry):
+        s2 = stars2[k]
+        if s2.roundness > stars[i].roundness and 0.5 < s2.fwhmx <= small:
+            stars[i] = s2
+
+
 def _filter_and_dedup(stars, x0s, y0s, R, box, p, noise, sat):
     """Quality filters + min-separation dedup (minimize_candidates checks,
     star_finder.c:569), brightest kept."""
@@ -193,39 +265,22 @@ def detect_stars_batch(chunks: Sequence[torch.Tensor],
     fit = fit_dict_from_packed(fits_h[fi, ki], p.profile)
     stars = stars_from_fit(fit, x0s, y0s, box, p.profile)
 
-    # second chance for blended fits: refit on a smaller centered crop
-    if box >= 13:
-        retry = [i for i, s in enumerate(stars)
-                 if np.isfinite(s.fwhmx) and
-                 (s.roundness < p.roundness or s.fwhmx > box / 2)]
-        if len(retry) > 4096:
-            retry = sorted(sorted(retry, key=lambda i: -stars[i].A)[:4096])
-        if retry:
-            half = box // 2
-            small = (half // 2) * 2 + 1
-            off = (box - small) // 2
-            ridx = np.asarray(retry)       # ascending, so frame-grouped
-            rfi = fi[ridx]
-            parts, base = [], 0
-            for ch in chunks:
-                for f in np.unique(rfi[(rfi >= base) &
-                                       (rfi < base + ch.shape[0])]):
-                    sel = ridx[rfi == f]
-                    dev = ch.device
-                    parts.append(_patches(
-                        ch[int(f) - base],
-                        torch.as_tensor(y0s[sel] + off, device=dev),
-                        torch.as_tensor(x0s[sel] + off, device=dev), small))
-                base += ch.shape[0]
-            fit2 = fit_psf_batch(torch.cat(parts), profile=p.profile)
-            stars2 = stars_from_fit(fit2, x0s[ridx] + off, y0s[ridx] + off,
-                                    small, p.profile)
-            for k, i in enumerate(retry):
-                s2 = stars2[k]
-                if s2.roundness > stars[i].roundness and \
-                        0.5 < s2.fwhmx <= small:
-                    stars[i] = s2
+    def crop(ridx, off, small):
+        rfi = fi[ridx]                 # ridx ascending, so frame-grouped
+        parts, base = [], 0
+        for ch in chunks:
+            for f in np.unique(rfi[(rfi >= base) &
+                                   (rfi < base + ch.shape[0])]):
+                sel = ridx[rfi == f]
+                dev = ch.device
+                parts.append(_patches(
+                    ch[int(f) - base],
+                    torch.as_tensor(y0s[sel] + off, device=dev),
+                    torch.as_tensor(x0s[sel] + off, device=dev), small))
+            base += ch.shape[0]
+        return torch.cat(parts)
 
+    _refit_blended(stars, x0s, y0s, box, p, crop, cap=4096)
     out: List[List[PSFStar]] = []
     for f in range(N):
         sel = np.nonzero(fi == f)[0]
@@ -233,3 +288,18 @@ def detect_stars_batch(chunks: Sequence[torch.Tensor],
             [stars[i] for i in sel], x0s[sel], y0s[sel], R, box, p,
             float(noises[f]), float(sats[f])))
     return out
+
+
+def save_star_list_csv(stars: List[PSFStar], path: str) -> None:
+    """Star list persistence (star_finder.c:933 CSV writer)."""
+    import csv
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["x", "y", "FWHMx", "FWHMy", "angle", "A", "B",
+                    "roundness", "rmse", "beta"])
+        for s in stars:
+            w.writerow([f"{s.x0:.3f}", f"{s.y0:.3f}", f"{s.fwhmx:.3f}",
+                        f"{s.fwhmy:.3f}", f"{s.angle:.2f}", f"{s.A:.5f}",
+                        f"{s.B:.5f}", f"{s.roundness:.3f}",
+                        f"{s.rmse:.5f}", f"{s.beta:.2f}"])

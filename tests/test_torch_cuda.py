@@ -22,7 +22,14 @@ JAX):
 - the fused pipeline on the card against the same pipeline on the CPU:
   shifts within 0.01 px, interior max |Δ| ≤ 1e-3 and rejection totals
   within 0.5 % (the reasons of tests/test_torch_pipeline.py: float32 LM
-  fits and exp/sin implementations differ between the devices).
+  fits and exp/sin implementations differ between the devices);
+- calibration with every master and cosmetic correction on the card
+  against the CPU within 1e-6, and the gather warp, every interpolation,
+  within 2e-6 (the sin of the lanczos weights differs between devices);
+- the preprocessing script (chip_smoke.PREPROCESSING_SCRIPT on a small
+  synthetic night) on the card against the CPU: the masters and pp_
+  frames within one 16-bit step, H within 0.2 px at the corners and the
+  results within 1e-4 on average (tests/test_torch_script.py's reasons).
 """
 
 import numpy as np
@@ -239,3 +246,95 @@ def test_fused_on_card_vs_cpu(tmp_path):
     for r, g in zip(cres.total_rejected, gres.total_rejected):
         assert abs(r - g) <= 0.005 * r
     assert np.abs(b[inner] - base[inner]).mean() < 0.01
+
+
+@pytest.mark.cuda
+def test_calibration_on_card_vs_cpu():
+    _need_card()
+    from siril_tpu_torch.ops.calibration import CalibArgs, calibrate_image
+
+    rng = np.random.default_rng(81)
+    h, w = 96, 128
+
+    def img(a):
+        return SirilImage(data=np.asarray(a, np.float32))
+
+    dark = 0.02 + rng.normal(0, 0.002, (1, h, w))
+    dark[0, rng.integers(0, h, 30), rng.integers(0, w, 30)] = 0.4
+    dark[0, rng.integers(0, h, 10), rng.integers(0, w, 10)] = 0.0005
+    ca = CalibArgs(bias=img(0.03 + rng.normal(0, 0.001, (1, h, w))),
+                   dark=img(dark), flat=img(0.5 + 0.1 * rng.random((1, h, w))),
+                   sig_cold=2.0)
+    raw = img(np.clip(0.1 + dark + rng.normal(0, 0.01, (1, h, w)), 0, 1))
+    for cfa in (False, True):
+        ca.is_cfa = ca.equalize_cfa = cfa
+        a = calibrate_image(raw, ca, device="cpu").host()
+        b = calibrate_image(raw, ca, device="cuda").host()
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", range(6))
+def test_gather_warp_on_card_vs_cpu(method):
+    _need_card()
+    from siril_tpu_torch.ops.interp import warp_homography
+
+    rng = np.random.default_rng(82)
+    img = torch.from_numpy((0.1 + rng.random((1, 300, 260)) ** 4).astype(
+        np.float32))
+    th = np.deg2rad(1.5)
+    H = np.array([[1.01 * np.cos(th), -1.01 * np.sin(th), 5.3],
+                  [1.01 * np.sin(th), 1.01 * np.cos(th), -3.1],
+                  [2e-5, -1e-5, 1.0]])
+    for clamp in (True, False):
+        a = warp_homography(img, H, (310, 270), method, clamp).numpy()
+        b = warp_homography(img.cuda(), H, (310, 270), method,
+                            clamp).cpu().numpy()
+        np.testing.assert_array_equal(a == 0, b == 0)
+        np.testing.assert_allclose(b, a, rtol=0, atol=2e-6)
+
+
+@pytest.mark.cuda
+def test_script_on_card_vs_cpu(tmp_path):
+    _need_card()
+    import os
+    import shutil
+
+    import chip_smoke
+    from siril_tpu_torch.cli.context import Session
+    from siril_tpu_torch.cli.parser import execute_script
+    from siril_tpu_torch.io.fits_io import read_fits
+    from siril_tpu_torch.io.seqfile import read_seqfile
+
+    src = str(tmp_path / "src")
+    chip_smoke.synth_session(src, 9, 256, lights=12, calib=4, nstars=300,
+                             gain=6.0)
+    with open(os.path.join(src, "script.ssf"), "w") as f:
+        f.write(chip_smoke.PREPROCESSING_SCRIPT.format(stack_flags=""))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        d = str(tmp_path / dev)
+        shutil.copytree(src, d)
+        before = sum(k1.launches.values())
+        assert execute_script(Session(cwd=d, device=dev),
+                              os.path.join(d, "script.ssf")) == 0
+        runs[dev] = (d, sum(k1.launches.values()) - before)
+    (cdir, claunch), (gdir, glaunch) = runs["cpu"], runs["cuda"]
+    assert claunch == 0 and glaunch == 4          # the four stacks
+    step = 1.0 / 65535 + 1e-7
+    for n in (["bias_stacked", "pp_dark_stacked", "pp_flat_stacked"]
+              + [f"pp_light_{k:05d}" for k in range(1, 13)]):
+        a = read_fits(os.path.join(cdir, "process", n + ".fit")).host()
+        b = read_fits(os.path.join(gdir, "process", n + ".fit")).host()
+        np.testing.assert_allclose(b, a, rtol=0, atol=step, err_msg=n)
+    cs = read_seqfile(os.path.join(cdir, "process", "pp_light_.seq"))
+    gs = read_seqfile(os.path.join(gdir, "process", "pp_light_.seq"))
+    c = np.array([[0, 0, 1], [256, 0, 1], [0, 256, 1], [256, 256, 1.0]])
+    for k in range(12):
+        qa, qb = c @ cs.reg(0).H[k].T, c @ gs.reg(0).H[k].T
+        assert np.abs(qa[:, :2] / qa[:, 2:] - qb[:, :2] / qb[:, 2:]).max() \
+            < 0.2
+    a = read_fits(os.path.join(cdir, "process", "result.fit")).host()[0]
+    b = read_fits(os.path.join(gdir, "process", "result.fit")).host()[0]
+    inner = np.s_[16:-16, 16:-16]
+    assert np.abs(a[inner] - b[inner]).mean() < 1e-4

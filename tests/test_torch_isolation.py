@@ -5,8 +5,9 @@
 - entry points run on CUDA by default and raise without a card; the CPU is
   used only when asked for;
 - the kernel module imports without nvcc;
-- ``convert`` carries the JAX package's configuration and per-frame state
-  across and back unchanged.
+- ``convert`` carries the JAX package's configuration (calibration
+  arguments and masters, registration arguments) and per-frame state
+  (registration data) across and back unchanged.
 """
 
 import dataclasses
@@ -86,6 +87,21 @@ def test_default_device_is_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         compute_normalization(Sequence("none"), np.arange(2),
                               ADDITIVE_SCALING)
+    # the entry points of the preprocessing commands and the script runner
+    from siril_tpu_torch.cli.context import Session
+    from siril_tpu_torch.cli.parser import execute_script
+    from siril_tpu_torch.ops.calibration import CalibArgs, calibrate_sequence
+    from siril_tpu_torch.registration.global_reg import (
+        apply_reg_sequence,
+        register_sequence,
+    )
+
+    for call in (lambda: calibrate_sequence(Sequence("none"), CalibArgs()),
+                 lambda: register_sequence(Sequence("none")),
+                 lambda: apply_reg_sequence(Sequence("none")),
+                 lambda: execute_script(Session(), "none.ssf")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_convert_round_trips():
@@ -112,3 +128,47 @@ def test_convert_round_trips():
     np.testing.assert_array_equal(convert.gesdt_table(lam).numpy(), lam)
     with pytest.raises(ValueError):
         convert.stack_args({"no_such_field": 1})
+
+    # calibration arguments (and masters), registration arguments
+    from siril_tpu.core.image import SirilImage
+    from siril_tpu.ops.calibration import CalibArgs
+    from siril_tpu.registration.global_reg import RegArgs
+
+    for jax_obj, fn in ((CalibArgs(bias_level=0.03, use_dark_optim=True,
+                                   sig_cold=2.0, is_cfa=True,
+                                   prefix="c_"), convert.calib_args),
+                        (RegArgs(ttype=2, two_pass=True, min_pairs=7,
+                                 starfinder=StarFinderParams(sigma=0.7)),
+                         convert.reg_args)):
+        d = dataclasses.asdict(jax_obj)
+        assert dataclasses.asdict(fn(d)) == d
+    dark = SirilImage(data=rng.random((1, 6, 8)).astype(np.float32),
+                      orig_bitdepth=20)
+    dark.keywords.exposure = 30.0
+    dark.history.append("stacked")
+    ca = CalibArgs(dark=dark, use_cosmetic=False)
+    got = convert.calib_args(dataclasses.asdict(ca))
+    np.testing.assert_array_equal(got.dark.data, dark.data)
+    assert (got.dark.orig_bitdepth, got.dark.keywords.exposure,
+            got.dark.history) == (20, 30.0, ["stacked"])
+    back = dataclasses.asdict(got)
+    np.testing.assert_array_equal(back["dark"]["data"], dark.data)
+    assert {k: v for k, v in back.items() if k != "dark"} == \
+        {k: v for k, v in dataclasses.asdict(ca).items() if k != "dark"}
+    fa = convert.fused_args(dataclasses.asdict(FusedArgs(calib=ca)))
+    np.testing.assert_array_equal(fa.calib.dark.data, dark.data)
+    # a sequence's registration data
+    from siril_tpu.core.sequence import RegData
+
+    rd = RegData(5)
+    rd.H[:] = rng.normal(size=(5, 3, 3))
+    rd.fwhm[:] = rng.random(5)
+    rd.number_of_stars[:] = [3, 5, 8, 13, 21]
+    rd.valid[[0, 2]] = True
+    d = dataclasses.asdict(rd)
+    got = convert.reg_data(d)
+    back = dataclasses.asdict(got)
+    assert sorted(back) == sorted(d)
+    for k, v in d.items():
+        np.testing.assert_array_equal(back[k], v)
+        assert np.asarray(back[k]).dtype == np.asarray(v).dtype

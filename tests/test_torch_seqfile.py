@@ -1,0 +1,235 @@
+"""Parity: the port's ``.seq`` sidecars (``siril_tpu_torch/io/seqfile.py``),
+sequence engine (``core/engine.py``) and FITS conversion
+(``io/conversion.py``) against the JAX package, on the CPU.
+
+A ``.seq`` written by either package loads in the other with the same
+selection, reference, file numbers, registration data (H as written:
+``%g``, six significant digits, in both) and statistics; both write the
+same text.  Conversion writes the same frames and sidecar; the engine
+writes a frame at its own bit depth unless told otherwise.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+from siril_tpu.core.image import USHORT_IMG, SirilImage
+from siril_tpu.core.sequence import Sequence as JSeq
+from siril_tpu.io import conversion as jconv
+from siril_tpu.io import seqfile as jsf
+from siril_tpu.io.fits_io import write_fits as jwrite
+from siril_tpu.ops.statistics import ImStats
+from siril_tpu_torch.cli.context import Session
+from siril_tpu_torch.core import engine
+from siril_tpu_torch.core.sequence import REG_COLS, STAT_COLS, Sequence
+from siril_tpu_torch.io import conversion, seqfile
+from siril_tpu_torch.io.fits_io import read_fits
+
+N = 4
+
+
+def _frames(d, prefix="a_", bitdepth=USHORT_IMG, n=N):
+    rng = np.random.default_rng(41)
+    os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        img = SirilImage(data=rng.random((1, 12, 16)).astype(np.float32))
+        jwrite(img, os.path.join(d, f"{prefix}{i + 1:05d}.fit"),
+               bitdepth=bitdepth)
+
+
+def _fill(seq, rng):
+    """Selection, reference, registration data and statistics."""
+    seq.incl[1] = False
+    seq.reference_image = 2
+    reg = seq.reg(0)
+    for c in REG_COLS:
+        getattr(reg, c)[:] = rng.random(seq.number) * 5
+    reg.number_of_stars[:] = rng.integers(10, 90, seq.number)
+    reg.H[:] = np.eye(3) + rng.normal(0, 0.01, (seq.number, 3, 3))
+    reg.H[:, :2, 2] = rng.normal(0, 5, (seq.number, 2))
+    reg.valid[:] = True
+    reg.valid[3] = False
+    for i in (0, 2):
+        st = ImStats()
+        for c in STAT_COLS:
+            setattr(st, c, float(rng.random()))
+        st.total, st.ngoodpix = 192, 190
+        seq.set_frame_stats(0, i, st)
+
+
+def _same(a, b):
+    for k in ("name", "number", "beg", "fixed_len", "reference_image",
+              "nb_layers", "rx", "ry"):
+        assert getattr(a, k) == getattr(b, k), k
+    np.testing.assert_array_equal(a.filenum, b.filenum)
+    np.testing.assert_array_equal(a.incl, b.incl)
+    assert sorted(a.regparam) == sorted(b.regparam)
+    for layer in a.regparam:
+        ra, rb = a.reg(layer), b.reg(layer)
+        for c in REG_COLS + ("H", "valid"):
+            np.testing.assert_array_equal(getattr(ra, c), getattr(rb, c), c)
+    assert sorted(a.stats) == sorted(b.stats)
+    for layer in a.stats:
+        np.testing.assert_array_equal(a.stats[layer], b.stats[layer])
+    assert [os.path.basename(f) for f in a._file_list] == \
+        [os.path.basename(f) for f in b._file_list]
+
+
+def test_seq_written_by_jax_loads_in_port(tmp_path):
+    _frames(tmp_path)
+    js = JSeq.scan("a_", str(tmp_path))
+    _fill(js, np.random.default_rng(42))
+    js.save()
+    jtext = open(js.seqfile_path()).read()
+    back = jsf.read_seqfile(js.seqfile_path())
+    got = seqfile.read_seqfile(js.seqfile_path())
+    _same(got, back)
+    assert got.selnum == N - 1 and got.get_reference() == 2
+    got.save()                                    # the same text back
+    assert open(got.seqfile_path()).read() == jtext
+
+
+def test_seq_written_by_port_loads_in_jax(tmp_path):
+    _frames(tmp_path)
+    ts = Sequence.scan("a_", str(tmp_path))
+    _fill(ts, np.random.default_rng(43))
+    ts.save()
+    ttext = open(ts.seqfile_path()).read()
+    back = seqfile.read_seqfile(ts.seqfile_path())
+    js = jsf.read_seqfile(ts.seqfile_path())
+    _same(back, js)
+    js.save()
+    assert open(js.seqfile_path()).read() == ttext
+    # and the CLI reads the sidecar, under the bare name too
+    s = Session(cwd=str(tmp_path), device="cpu")
+    seq = s.load_sequence("a")
+    _same(seq, back)
+    assert s.sequence is seq
+
+
+def test_unported_sequence_types_raise(tmp_path):
+    (tmp_path / "film.ser").write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="SER"):
+        Session(cwd=str(tmp_path), device="cpu").load_sequence("film")
+
+
+@pytest.mark.parametrize("symlink", [False, True])
+def test_convert_and_link_vs_jax(tmp_path, symlink):
+    src = tmp_path / "src"
+    _frames(str(src), prefix="IMG")
+    files = sorted(str(src / f) for f in os.listdir(src))
+    jseq = jconv.convert_to_sequence(files, "light", str(tmp_path / "jax"),
+                                     symlink=symlink, start=3)
+    tseq = conversion.convert_to_sequence(files, "light",
+                                          str(tmp_path / "port"),
+                                          symlink=symlink, start=3)
+    assert tseq.name == jseq.name == "light_"
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert sorted(os.listdir(tmp_path / "port")) == names
+    for n in names:
+        a, b = tmp_path / "jax" / n, tmp_path / "port" / n
+        assert os.path.islink(a) == os.path.islink(b) == (
+            symlink and n.endswith(".fit"))
+        assert a.read_bytes() == b.read_bytes()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        conversion.load_any(str(tmp_path / "x.png"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        conversion.convert_to_sequence(files, "l", str(tmp_path), "ser")
+
+
+@pytest.mark.parametrize("bitdepth", [USHORT_IMG, -32])
+def test_engine_keeps_bit_depth(tmp_path, bitdepth):
+    """run_sequence writes each frame at its own bit depth, drops the
+    frames its hook returns None for, and unselects them."""
+    _frames(str(tmp_path), bitdepth=bitdepth)
+    seq = Sequence.scan("a_", str(tmp_path))
+
+    def image(ctx, idx, img):
+        return None if idx == 1 else img.copy(data=img.host() * 0.5)
+
+    res = engine.run_sequence(engine.SeqArgs(seq=seq, prefix="h_",
+                                             image=image))
+    assert res.processed == N - 1 and res.failed == [1]
+    assert not seq.incl[1]
+    assert res.new_seq.name == "h_a_" and res.new_seq.number == N - 1
+    assert {"read", "write"} <= set(res.stage_s)
+    for k in (0, 2, 3):
+        a = read_fits(str(tmp_path / f"a_{k + 1:05d}.fit"))
+        b = read_fits(str(tmp_path / f"h_a_{k + 1:05d}.fit"))
+        assert b.orig_bitdepth == a.orig_bitdepth
+        want = a.host() * 0.5
+        if bitdepth == USHORT_IMG:
+            want = np.rint(want * 65535) / 65535
+        np.testing.assert_allclose(b.host(), want, rtol=0, atol=1e-7)
+    res = engine.run_sequence(engine.SeqArgs(seq=seq, prefix="f_",
+                                             output_bitdepth=-32))
+    assert read_fits(str(tmp_path / "f_a_00001.fit")).orig_bitdepth == -32
+
+
+def test_stack_takes_registration_from_seq(tmp_path):
+    """``stack`` on a sequence the JAX package registered: the port reads
+    the shifts and the weighted FWHM from the .seq, as the JAX package
+    does, and stacks the same image."""
+    import shutil
+
+    from siril_tpu.cli.commands import COMMANDS
+    from siril_tpu.cli.context import Session as JSession
+    from siril_tpu_torch import cli
+    from tests.test_torch_registration import _reg_seqs
+
+    src = tmp_path / "src"
+    src.mkdir()
+    _reg_seqs(src, np.random.default_rng(44))
+    js = JSession(cwd=str(src))
+    js.prefs.sf_radius = 6
+    COMMANDS["register"].fn(js, ["g_", "-noout", "-transf=shift",
+                                 "-nostarlist"])
+    reg = jsf.read_seqfile(str(src / "g_.seq")).reg(0)
+    assert reg.valid.all() and np.abs(reg.H[:, :2, 2]).max() > 1
+    assert len(set(reg.weighted_fwhm)) > 1
+    words = ["g_", "rej", "s", "2", "2", "-norm=addscale",
+             "-weight_from_wfwhm", "-out=out"]
+    for d in ("jax", "port"):
+        shutil.copytree(src, tmp_path / d)
+    js = JSession(cwd=str(tmp_path / "jax"))
+    COMMANDS["stack"].fn(js, words)
+    ts = cli.run(["-d", str(tmp_path / "port"), "--device", "cpu",
+                  "stack", *words])
+    np.testing.assert_array_equal(ts.sequence.reg(0).H, reg.H)
+    np.testing.assert_array_equal(ts.sequence.reg(0).weighted_fwhm,
+                                  reg.weighted_fwhm)
+    a = read_fits(str(tmp_path / "jax" / "out.fit")).host()
+    b = read_fits(str(tmp_path / "port" / "out.fit")).host()
+    np.testing.assert_allclose(b, a, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("card,what", [("TF", "FITS-cube"), ("TS", "SER"),
+                                       ("TA", "film")])
+def test_unported_seq_cards_raise(tmp_path, card, what):
+    p = tmp_path / "x.seq"
+    p.write_text(f"S 'x' 0 2 2 5 -1 7 0 0 0\n{card}\nL 1\nI 0 1\nI 1 1\n")
+    with pytest.raises(NotImplementedError, match=what):
+        seqfile.read_seqfile(str(p))
+    for flags, word in (("1 0 0", "different sizes"), ("0 1 0", "fz")):
+        p.write_text(f"S 'x' 0 2 2 5 -1 7 {flags}\nL 1\nI 0 1\nI 1 1\n")
+        with pytest.raises(NotImplementedError, match=word):
+            seqfile.read_seqfile(str(p))
+
+
+def test_engine_hook_error_stops_the_run(tmp_path):
+    """An exception from a hook is not taken for a frame's fault: it
+    propagates, whatever raised it and whatever its text, and no frame is
+    unselected (a hook drops a frame by returning None)."""
+    _frames(str(tmp_path))
+    seq = Sequence.scan("a_", str(tmp_path))
+
+    def image(ctx, idx, img):
+        if idx == 1:
+            raise ValueError("a library error that does not name the card")
+        return img
+
+    with pytest.raises(ValueError, match="does not name the card"):
+        engine.run_sequence(engine.SeqArgs(seq=seq, prefix="h_",
+                                           image=image))
+    assert seq.incl.all()
