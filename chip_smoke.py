@@ -23,7 +23,9 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               K1d at N=8, 16, 32 (register-path column sizes; K1d also
               over every normalization and with weights); K1e (weights,
               per frame and per pixel) over winsorized, sigma, sigmedian,
-              linearfit and GESDT × {float32, int16}; and each of K1b-K1e
+              linearfit and GESDT × {float32, int16}, and winsorized with
+              per-pixel weights at the feathered mosaic's call (N=4,
+              P=SIZE², float32); and each of K1b-K1e
               at the stack command's call size (N=FRAMES, P=SIZE²,
               float32, additive+scaling), with its bound and, for K1b and
               K1c, the rounds its pixels ran; for SIGMEDIAN, the pixels
@@ -40,10 +42,23 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               (P=2^20), each held against the plain version on 2^14
               pixels in runs spread over P, with the bound from the plain
               version's work on them scaled to P;
+  warps  — each rung of the FFT warp ladder on 4 frames of SIZE² rendered
+              through exact maps of its family (rotation ±0.5°, affine
+              scale 0.99-1.01, perspective third-row terms ~1e-6 /px; each
+              with a frame turned by ~180°): the gates pick it, it agrees
+              with the gather warp within WARP_GATHER_BOUND (held on the
+              CPU by tests/test_torch_interp.py), its milliseconds per
+              frame beside the gather warp's (CUDA events), and its peak
+              device memory within what the fused path reserves;
   4. fusedstack — the main path through the CLI entry point
               (``python -m siril_tpu_torch.cli -d <dir> fusedstack light_``)
               on FRAMES synthetic SIZE×SIZE 16-bit frames, checked against the
               known scene, with the time of each stage;
+  fusedstack_homography — ``fusedstack light_ -transf=homography`` on
+              FRAMES turned 16-bit SIZE² lights (field rotation up to
+              ±0.5°, the second half turned by a further 180°, shifts and
+              ray tracks), checked as fusedstack, and the ladder's rung
+              taken, not the gather warp;
   stack  — the staged ``stack`` command through the CLI on FRAMES aligned
               float32 SIZE×SIZE frames (``r_light_``, as registration leaves
               them) with SIGMEDIAN, LINEARFIT, GESDT, noise weights, and
@@ -61,9 +76,17 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               register (homography, lanczos4) and stack, with each
               command's wall, stages and K1 launches; then fusedstack
               -bias= -dark= -flat= -cc=dark with the same masters on
-              FRAMES lights that are only shifted (fusedstack registers by
-              shifts); both checked against the known scene, its hot
-              pixels and rays.
+              FRAMES lights that are only shifted; both checked against the
+              known scene, its hot pixels and rays; and between them ``stack
+              r_pp_light rej 3 3 -norm=addscale -filter-fwhm=90%`` (the
+              kept count and the scene) and ``stack r_pp_light sum``;
+  mosaic — 4 SIZE² tiles with MOSAIC_OVERLAP px overlaps of one sky, each
+              with its own level and gain: ``register mosaic_ -transf=shift
+              -noout`` (the known shifts written into the .seq where the
+              triangle match does not span the overlaps), ``stack mosaic_
+              rej 3 3 -norm=addscale -overlap_norm -feather=64`` (K1e with
+              per-pixel weights; the level across each seam) and ``stack
+              mosaic_ max -maximize`` (the union of the footprints).
 Then a JSON line describing every kernel, the card line, and last the
 result line.  Any failure exits non-zero without a result line.  The script
 needs CUDA and the repository beside it; it imports nothing of JAX.
@@ -296,7 +319,8 @@ def make_stack(gen, n: int, p: int, device):
     x = torch.where((u >= 0.02) & (u < 0.03), 0.002, x)
     guard = (torch.arange(p, device=device) % 8) == 0
     tail = torch.zeros(n, p, device=device)
-    tail[-6:] = 0.3 + 0.4 * torch.rand(6, p, generator=gen, device=device)
+    k = min(6, n)
+    tail[-k:] = 0.3 + 0.4 * torch.rand(k, p, generator=gen, device=device)
     tail[:2] = -0.03
     x = torch.where(guard, x + tail, x)
     x = torch.where(torch.rand(n, p, generator=gen, device=device) < 0.03,
@@ -594,6 +618,18 @@ def phase_k1(seed: int):
                     tag, data, scale, offset, mul, rtype, ADDITIVE_SCALING,
                     sl, sh, weights=w, **gesdt_kw(rtype, n, sl, sh)))
     del stack, raw, wp
+    # the feathered mosaic stack's call (the mosaic phase): winsorized,
+    # float32 blocks of 4 frames, additive+scaling, per-pixel weights, one
+    # block of SIZE² pixels; on a generator of its own
+    g4 = torch.Generator(device=dev)
+    g4.manual_seed(seed + 4)
+    st4 = make_stack(g4, 4, SIZE * SIZE, dev)
+    w4 = 0.01 + 0.99 * torch.rand(4, SIZE * SIZE, generator=g4, device=dev)
+    tag = (f"K1e winsorized/f32/addscale weights per pixel N=4 "
+           f"P={SIZE * SIZE} (the feathered mosaic's call size)")
+    record("K1e", tag, compare_k1(tag, st4, *coeffs(4, g4), rj.WINSORIZED,
+                                  ADDITIVE_SCALING, 3.0, 3.0, weights=w4))
+    del st4, w4
 
     # each variant at the stack command's call size: the resident layer
     results = {}
@@ -1004,6 +1040,160 @@ def write_f32_fits(path: str, img) -> None:
         f.write(b"\0" * ((-len(body)) % 2880))
 
 
+def similar_map(scale, deg, dx, dy, g1=0.0, g2=0.0, size=(SIZE, SIZE)):
+    """Frame → reference homography of an (H, W) ``size`` frame: scale
+    and turn by ``deg`` about the centre, shift by (dx, dy), third row
+    (g1, g2)."""
+    import numpy as np
+
+    c = np.array([(size[1] - 1) / 2.0, (size[0] - 1) / 2.0])
+    th = np.deg2rad(deg)
+    A = scale * np.array([[np.cos(th), -np.sin(th)],
+                          [np.sin(th), np.cos(th)]])
+    Hm = np.eye(3)
+    Hm[:2, :2] = A
+    Hm[:2, 2] = c - A @ c + [dx, dy]
+    Hm[2, :2] = [g1, g2]
+    return Hm
+
+
+#: the ladder's families for the warps phase: the rung each must take
+#: and its frames' maps (scale, degrees, dx, dy, g1, g2), the reference
+#: first and a frame turned by ~180° (a meridian flip) last; third-row
+#: terms of ~1e-6 /px give the perspective split D = 8 at 4096²
+WARP_FAMILIES = [
+    ("rotation", [(1, 0, 0, 0), (1, 0.5, 3.3, -2.7), (1, -0.5, -5.1, 4.2),
+                  (1, 179.6, 2.2, 1.4)]),
+    ("affine", [(1, 0, 0, 0), (1.01, 0.3, 3.3, -2.7),
+                (0.99, -0.2, -5.1, 4.2), (1.005, 179.6, 2.2, 1.4)]),
+    ("perspective", [(1, 0, 0, 0), (1.002, 0.3, 3.3, -2.7, 1e-6, -0.8e-6),
+                     (0.998, -0.2, -5.1, 4.2, -0.9e-6, 1e-6),
+                     (1.001, 179.6, 2.2, 1.4, 0.7e-6, 0.6e-6)]),
+]
+#: each rung against the gather warp (lanczos4 with its clamp) on the
+#: interior where both are non-zero: the most mean |Δ| on the warps
+#: phase's frames (noise σ 0.01), held at a small size on the CPU by
+#: tests/test_torch_interp.py and at SIZE² on the card; the rungs
+#: interpolate with exact sinc, the gather warp with lanczos4
+WARP_GATHER_BOUND = 2e-3
+
+
+def warp_family_frames(seed: int, size: int, maps, nstars: int):
+    """Frames rendered at the maps' star positions (the scene seen through
+    each frame→reference map, inverted), float32 with noise σ 0.01, as
+    an (N, 1, size, size) array, and the maps as homographies."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sx, sy, amp = _star_field(rng, size, nstars)
+    Hs = np.stack([similar_map(*m, size=(size, size)) for m in maps])
+    frames = np.empty((len(maps), 1, size, size), np.float32)
+    for k, Hm in enumerate(Hs):
+        v = np.linalg.inv(Hm) @ np.stack([sx, sy, np.ones_like(sx)])
+        frames[k, 0] = _render(size, 0.1, v[0] / v[2], v[1] / v[2], amp)
+        frames[k, 0] += 0.01 * rng.standard_normal((size, size),
+                                                   dtype=np.float32)
+    return frames, Hs
+
+
+def rung_vs_gather(frames, Hs, rung: str, margin: int):
+    """The rung ``pick_rung`` chooses for ``Hs`` and its output, the
+    gather warp's, and the mean |Δ| between them on the interior where
+    both are non-zero (tensors on the frames' device)."""
+    import torch
+
+    from siril_tpu_torch.ops import interp
+    from siril_tpu_torch.pipeline import pick_rung
+
+    size = tuple(frames.shape[-2:])
+    name, params = pick_rung(Hs, size, interp.INTERP_LANCZOS4)
+    warp = {"rotation": interp.warp_rotation_batch,
+            "affine": interp.warp_affine_batch,
+            "perspective": interp.warp_perspective_batch}.get(name)
+    out = warp(frames, params) if warp else None
+    ref = interp.warp_homography_batch(frames, Hs, size)
+    if out is None:
+        return name, params, None, ref, float("nan")
+    inner = torch.zeros(size, dtype=torch.bool, device=frames.device)
+    inner[margin:-margin, margin:-margin] = True
+    both = (out != 0) & (ref != 0) & inner
+    err = float((out - ref).abs()[both].mean())
+    return name, params, out, ref, err
+
+
+def phase_warps(seed: int):
+    """Each rung of the FFT warp ladder at SIZE² on the card: the gate
+    picks it, it runs, it agrees with the gather warp within
+    WARP_GATHER_BOUND, and its time per frame beside the gather warp's;
+    its peak device memory beyond the frames within what the fused path
+    reserves for the ladder.  Returns {rung: numbers}."""
+    import torch
+
+    from siril_tpu_torch.ops import interp
+    from siril_tpu_torch.pipeline import BLOCK_BYTES, FusedArgs
+
+    dev = torch.device("cuda")
+    results, failed = {}, []
+    for i, (family, maps) in enumerate(WARP_FAMILIES):
+        t = time.perf_counter()
+        host, Hs = warp_family_frames(seed + 20 + i, SIZE, maps, 4000)
+        frames = torch.from_numpy(host).to(dev)
+        del host
+        log(f"  {family}: synthesized {len(maps)} frames of {SIZE}x{SIZE} "
+            f"in {time.perf_counter() - t:.2f}s")
+        name, params, out, ref, err = rung_vs_gather(frames, Hs, family, 64)
+        del out, ref
+        n = frames.shape[0]
+        fn = {"rotation": interp.warp_rotation_batch,
+              "affine": interp.warp_affine_batch,
+              "perspective": interp.warp_perspective_batch}[family]
+        peak = float("nan")
+        if name == family:
+            # the rung's own peak beyond the frames (its output included)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn(frames, params)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+        ms = _events_ms(lambda: fn(frames, params), 3) / n \
+            if name == family else float("nan")
+        gather_ms = _events_ms(lambda: interp.warp_homography_batch(
+            frames, Hs, (SIZE, SIZE)), 1) / n
+        # what the fused path reserves beside the stack: a frame chunk in
+        # and out of the warp, the stream block, the ladder's transients
+        reserve = 3 * FusedArgs().frame_chunk * SIZE * SIZE * 4 + \
+            interp.ladder_transient_bytes(1, SIZE, SIZE)
+        extra = f", D = {params[4]}" if family == "perspective" and \
+            name == family else ""
+        flips = int(params[3 if name == "rotation" else 2].sum()) \
+            if name == family else 0
+        log(f"  {family}: rung {name}{extra}, flipped frames {flips}; "
+            f"{ms:.2f} ms a frame (gather warp {gather_ms:.2f} ms, "
+            f"{gather_ms / ms:.1f}x); interior mean |Δ| against the gather "
+            f"warp {err:.3g} (bound {WARP_GATHER_BOUND}); peak device "
+            f"memory beyond the {n} frames {peak / 2**20:.0f} MiB (the fused "
+            f"path reserves {reserve / 2**20:.0f} MiB with its "
+            f"{BLOCK_BYTES >> 20} MiB stream block)")
+        checks = {f"the gates pick {family}": name == family,
+                  "within the bound of the gather warp":
+                      err <= WARP_GATHER_BOUND,
+                  "one flipped frame": flips == 1,
+                  "peak within the fused path's reserve": peak <= reserve}
+        for k, ok in checks.items():
+            if not ok:
+                log(f"  check {family}: {k}: FAILED")
+                failed.append(f"{family}: {k}")
+        results[family] = dict(rung=name, ms=ms, gather_ms=gather_ms,
+                               err=err, peak_mib=peak / 2**20,
+                               **({"D": params[4]} if extra else {}))
+        del frames
+        torch.cuda.empty_cache()
+    if failed:
+        raise RuntimeError(f"warps checks failed: {failed}")
+    return results
+
+
 def phase_fusedstack(seed: int):
     import numpy as np
     import torch
@@ -1064,6 +1254,162 @@ def phase_fusedstack(seed: int):
         if not all(checks.values()):
             raise RuntimeError("fusedstack checks failed")
         return launches, res.stage_s, wall
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def synth_turned(root: str, seed: int, size: int, n: int, nstars: int = 4000,
+                 gain: float = 1.0):
+    """A night of field rotation with a meridian flip, for fusedstack
+    -transf=homography: ``n`` 16-bit lights of the scene of
+    ``synth_frames`` turned by up to ±0.5° about the centre, the second
+    half by a further 180°, shifted by up to ±12.5 px, each with noise σ
+    0.01 and a cosmic-ray track of 3-5 pixels per 400,000 pixels, written
+    under ``root`` (the fused path's detection fits its 500 brightest
+    candidates, which the script phase's track per 40,000 pixels fills at
+    4096²).  Frame 1 is the reference.  Returns (scene, noise σ,
+    ray value, the reference frame's ray pixels, the frames' maps)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sky, sigma_n, ray = 0.1, 0.01, 1.0
+    sx, sy, amp = _star_field(rng, size, nstars)
+    amp = np.minimum(amp * gain, 0.55)
+    maps, rays = [], None
+    for k in range(n):
+        deg = dx = dy = 0.0
+        if k:
+            deg = float(rng.uniform(-0.5, 0.5)) + (180.0 if k >= n // 2
+                                                   else 0.0)
+            dx, dy = (float(rng.integers(-12, 13) + rng.uniform(-0.5, 0.5))
+                      for _ in range(2))
+        Hm = similar_map(1.0, deg, dx, dy, size=(size, size))
+        maps.append(Hm)
+        v = np.linalg.inv(Hm) @ np.stack([sx, sy, np.ones_like(sx)])
+        f = _render(size, sky, v[0] / v[2], v[1] / v[2], amp)
+        f += sigma_n * rng.standard_normal((size, size), dtype=np.float32)
+        hit = _ray_tracks(rng, f, max(size * size // 400000, 4), ray)
+        if k == 0:
+            rays = hit
+        write_u16_fits(os.path.join(root, f"light_{k + 1:05d}.fit"),
+                       np.rint(np.clip(f, 0, 1) * 65535.0).astype(np.uint16))
+    scene = _render(size, sky, sx, sy, amp)
+    return scene, sigma_n, ray, rays, np.stack(maps)
+
+
+def spy_rungs(calls: dict):
+    """Wrap the port's warp functions so that each call of a rung counts
+    in ``calls``; returns a function that puts them back."""
+    from siril_tpu_torch.ops import interp
+
+    names = {"translation": "warp_translation_batch",
+             "rotation": "warp_rotation_batch",
+             "affine": "warp_affine_batch",
+             "perspective": "warp_perspective_batch",
+             "gather": "warp_homography_batch"}
+    real = {k: getattr(interp, v) for k, v in names.items()}
+
+    def wrap(key):
+        def run(*a, **kw):
+            calls[key] = calls.get(key, 0) + 1
+            return real[key](*a, **kw)
+        return run
+
+    for k, v in names.items():
+        setattr(interp, v, wrap(k))
+
+    def restore():
+        for k, v in names.items():
+            setattr(interp, v, real[k])
+
+    return restore
+
+
+def phase_fusedstack_homography(seed: int):
+    """fusedstack -transf=homography through the CLI on FRAMES turned
+    16-bit SIZE² lights (field rotation, a meridian flip): checked as the
+    fusedstack phase, and the ladder's rung taken, not the gather warp.
+    Returns (K1a launches, stages, wall, rung)."""
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch import cli
+    from siril_tpu_torch.kernels import reject_stack as k1
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_turned_")
+    try:
+        t = time.perf_counter()
+        scene, sigma_n, ray, (ry, rx), maps = synth_turned(
+            tmp, seed + 31, SIZE, FRAMES)
+        log(f"  synthesized and wrote {FRAMES} turned 16-bit lights of "
+            f"{SIZE}x{SIZE} (frames {FRAMES // 2 + 1}-{FRAMES} flipped) in "
+            f"{time.perf_counter() - t:.2f}s")
+        rungs = {}
+        restore = spy_rungs(rungs)
+        try:
+            k1.reset_counts()
+            t = time.perf_counter()
+            session = cli.run(["-d", tmp, "fusedstack", "light_",
+                               "-transf=homography"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = sum(k1.launches.values())
+        finally:
+            restore()
+        res = session.result
+        for stage, s in res.stage_s.items():
+            log(f"  stage {stage:<10} {s:8.3f} s")
+        rung = ",".join(sorted(rungs))
+        reg = session.sequence.reg(0)
+        c = np.array([[0, 0, 1], [SIZE - 1, 0, 1], [0, SIZE - 1, 1],
+                      [SIZE - 1, SIZE - 1, 1.0]])
+        qa = np.einsum("nij,cj->nci", reg.H, c)
+        qb = np.einsum("nij,cj->nci", maps, c)
+        corner = float(np.abs(qa[..., :2] / qa[..., 2:]
+                              - qb[..., :2] / qb[..., 2:]).max())
+        log(f"  fusedstack -transf=homography wall {wall:.2f}s, K1a "
+            f"launches {launches}, warp rung {rung} ({rungs}); fitted H "
+            f"within {corner:.3f} px of the truth at the corners")
+        out = res.image.host()[0]
+        rows = (256 << 20) // (FRAMES * SIZE * 4)
+        want_blocks = -(-SIZE // rows)
+        m = 48
+        inner = np.s_[m:-m, m:-m]
+        err = float(np.abs(out[inner] - scene[inner]).mean())
+        # the reference frame's rays on the sky of the interior (near the
+        # edges the turned and flipped frames leave a column too few
+        # values to reject from)
+        bgv = float(np.median(scene))
+        sky = (np.abs(scene[ry, rx] - bgv) < 1e-3) & (ry >= m) & \
+            (ry < SIZE - m) & (rx >= m) & (rx < SIZE - m)
+        ray_err = float(np.abs(out[ry, rx] - scene[ry, rx])[sky].max())
+        rl, rh = res.total_rejected
+        checks = {
+            "all frames registered": int(reg.valid.sum()) == FRAMES,
+            f"K1a launches == {want_blocks} row blocks":
+                launches == want_blocks,
+            "interior mean |Δ| < noise/3": err < sigma_n / 3,
+            "cosmic rays rejected (rej_high > 0, |Δ| < 0.02 at the "
+            "reference frame's rays)": rh > 0 and ray_err < 0.02,
+            "no loop stopped at its bound": res.capped == 0,
+            "a rung of the ladder warped, not the gather warp":
+                bool(rungs) and "gather" not in rungs
+                and "translation" not in rungs,
+            "result finite, expected shape":
+                bool(np.isfinite(out).all()) and out.shape == (SIZE, SIZE),
+            "result file written":
+                os.path.exists(os.path.join(tmp, "light_fused.fit")),
+        }
+        log(f"  interior mean |Δ| vs scene {err:.5f} (noise {sigma_n}), "
+            f"rejected low/high {rl}/{rh}, the reference frame's ray pixels "
+            f"on the interior's sky {int(sky.sum())}, max |Δ| there "
+            f"{ray_err:.5f}, "
+            f"max {float(out.max()):.4f}")
+        for name, good in checks.items():
+            log(f"  check {name}: {'ok' if good else 'FAILED'}")
+        if not all(checks.values()):
+            raise RuntimeError("fusedstack -transf=homography checks failed")
+        return launches, res.stage_s, wall, rung
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1199,6 +1545,56 @@ def phase_script(seed: int):
                 pp_hot < 5 * made["sigma_n"],
             "result file written": os.path.exists(
                 os.path.join(proc, "result.fit"))})
+        # the registered lights again: the best 90 % by FWHM, and a sum
+        k1.reset_counts()
+        t = time.perf_counter()
+        filt = cli.run(["-d", proc, "stack", "r_pp_light", "rej", "3", "3",
+                        "-norm=addscale", "-filter-fwhm=90%",
+                        "-out=filtered"])
+        torch.cuda.synchronize()
+        filt_wall = time.perf_counter() - t
+        filt_launch = dict(k1.launches)
+        kept = filt.result.image.keywords.stackcnt
+        log(f"  stack r_pp_light rej 3 3 -norm=addscale -filter-fwhm=90%: "
+            f"wall {filt_wall:.2f}s, frames kept {kept} of {FRAMES}, K1 "
+            f"launches { {k: v for k, v in filt_launch.items() if v} }")
+        log("    stages: " + ", ".join(
+            f"{k} {v:.3f}s" for k, v in filt.result.stage_s.items()))
+        failed += _scene_checks(
+            "filtered stack", filt.result.image.host()[0], made,
+            made["rays"]["lights"], filt.result, filt_launch, {
+                f"{round(0.9 * FRAMES)} frames kept":
+                    kept == round(0.9 * FRAMES)})[0]
+        t = time.perf_counter()
+        summed = cli.run(["-d", proc, "stack", "r_pp_light", "sum",
+                          "-out=summed"])
+        torch.cuda.synchronize()
+        sum_wall = time.perf_counter() - t
+        sout = summed.result.image.host()[0][m:-m, m:-m]
+        scene = made["scene"][m:-m, m:-m]
+        # on the stars (≥ 0.02 above the sky): the sky holds the noise and
+        # the rays the sum keeps
+        on = scene - float(np.median(scene)) >= 0.02
+        corr = float(np.corrcoef(sout[on], scene[on])[0, 1])
+        log(f"  stack r_pp_light sum: wall {sum_wall:.2f}s, max "
+            f"{float(sout.max()):.4f}, correlation with the scene on its "
+            f"{int(on.sum())} star pixels of the interior {corr:.4f}")
+        log("    stages: " + ", ".join(
+            f"{k} {v:.3f}s" for k, v in summed.result.stage_s.items()))
+        for name, good in {
+                "sum finite": bool(np.isfinite(sout).all()),
+                "sum peaks at 1":
+                    float(summed.result.image.host().max()) == 1.0,
+                "sum's stars in place (correlation with the scene > 0.95)":
+                    corr > 0.95}.items():
+            if not good:
+                log(f"  check sum: {name}: FAILED")
+                failed.append(f"sum: {name}")
+        rows["stack r_pp_light rej 3 3 -norm=addscale -filter-fwhm=90%"] = \
+            dict(seconds=filt_wall, launches=filt_launch,
+                 stages=filt.result.stage_s)
+        rows["stack r_pp_light sum"] = dict(seconds=sum_wall, launches={},
+                                            stages=summed.result.stage_s)
         # the same masters through fusedstack's calibration flags, on the
         # shift-only lights (fusedstack registers by shifts)
         for f in os.listdir(proc):
@@ -1227,10 +1623,157 @@ def phase_script(seed: int):
                     float(fout.max()) < 0.8 * made["ray"]})
         if failed or ffailed:
             raise RuntimeError(f"script checks failed: {failed + ffailed}")
-        return ({"script": launches, "fusedstack calibrated": flaunch},
+        return ({"script": launches, "fusedstack calibrated": flaunch,
+                 "stack -filter-fwhm=90%": filt_launch},
                 rows, dict(script=wall, fused=fwall, script_err=err,
                            fused_err=ferr,
                            fused_stages=fused.result.stage_s))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: the mosaic phase: 2 × 2 tiles of SIZE² with MOSAIC_OVERLAP px overlaps
+#: cut from one sky, each with its own sky level and gain (tile 1, the
+#: reference, first)
+MOSAIC_OVERLAP = 1024
+MOSAIC_LEVELS = [(0.10, 1.00), (0.13, 0.92), (0.08, 1.07), (0.115, 0.96)]
+
+
+def synth_mosaic(root: str, seed: int, size: int, overlap: int,
+                 nstars: int = 4000):
+    """The mosaic's tiles as 16-bit files ``mosaic_0000k.fit`` under
+    ``root``: the sky's stars (``nstars`` per size² of sky), each tile's
+    level + gain × stars + noise σ 0.01.  Returns (stars of the whole sky,
+    the tiles' corners, noise σ)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    step = size - overlap
+    full = size + step
+    sx, sy, amp = _star_field(rng, full, int(nstars * (full / size) ** 2))
+    stars = _render(full, 0.0, sx, sy, amp)
+    corners = [(0, 0), (step, 0), (0, step), (step, step)]
+    for k, ((x0, y0), (level, gain)) in enumerate(zip(corners,
+                                                      MOSAIC_LEVELS)):
+        f = level + gain * stars[y0:y0 + size, x0:x0 + size] + \
+            0.01 * rng.standard_normal((size, size), dtype=np.float32)
+        write_u16_fits(os.path.join(root, f"mosaic_{k + 1:05d}.fit"),
+                       np.rint(np.clip(f, 0, 1) * 65535.0).astype(np.uint16))
+    return stars, corners, 0.01
+
+
+def _seam_step(out, want, x=None, y=None, near: int = 32, far: int = 96,
+               edge: int = 256):
+    """Median of out − want on the far side of a seam at column ``x`` (or
+    row ``y``) minus the median on the near side, strips of far − near px
+    at ``near`` px from it, away from the other seam and the edges."""
+    import numpy as np
+
+    d = out - want
+    if x is not None:
+        a = d[edge:x - edge, x - far:x - near]
+        b = d[edge:x - edge, x + near:x + far]
+    else:
+        a = d[y - far:y - near, edge:y - edge]
+        b = d[y + near:y + far, edge:y - edge]
+    return float(np.median(b) - np.median(a))
+
+
+def phase_mosaic(seed: int, size: int = SIZE,
+                 overlap: int = MOSAIC_OVERLAP):
+    """A 2 × 2 mosaic through the CLI: ``register mosaic_ -transf=shift
+    -noout`` (or the known shifts written into the .seq where the
+    triangle match does not span the overlaps), ``stack mosaic_ rej 3 3
+    -norm=addscale -overlap_norm -feather=64`` (K1e with per-pixel
+    weights), checked for a step in level across each seam, and ``stack
+    mosaic_ max -maximize``, checked for the union of the footprints.
+    Returns ({command: {variant: launches}}, {command: seconds}, how the
+    tiles were registered)."""
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch import cli
+    from siril_tpu_torch.core.sequence import Sequence
+    from siril_tpu_torch.kernels import reject_stack as k1
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mosaic_")
+    try:
+        t = time.perf_counter()
+        stars, corners, sigma_n = synth_mosaic(tmp, seed + 41, size,
+                                               overlap)
+        step = size - overlap
+        log(f"  synthesized 4 tiles of {size}x{size} (16-bit) from a "
+            f"{stars.shape[0]}² sky, {overlap} px overlaps, in "
+            f"{time.perf_counter() - t:.2f}s")
+        t = time.perf_counter()
+        session = cli.run(["-d", tmp, "register", "mosaic_",
+                           "-transf=shift", "-noout"])
+        reg = session.sequence.reg(0)
+        known = np.array(corners, float)
+        off = np.abs(reg.H[:, :2, 2] - known).max(axis=1)
+        matched = reg.valid & (off < 1.0)
+        log(f"  register mosaic_ -transf=shift -noout: "
+            f"{time.perf_counter() - t:.2f}s, frames registered "
+            f"{int(reg.valid.sum())}, shifts within 1 px of the truth "
+            f"{int(matched.sum())} of 4 (off by "
+            f"{', '.join(f'{v:.2f}' for v in off)} px)")
+        how = "triangle match"
+        if not matched.all():
+            how = "known shifts"
+            seq = Sequence.scan("mosaic_", tmp)
+            seq.reg(0).H[:, :2, 2] = known
+            seq.reg(0).valid[:] = True
+            seq.save()
+            log("  the triangle match does not span the overlaps: the "
+                "known shifts written into mosaic_.seq")
+        runs, walls, failed = {}, {}, []
+        for cmd in ("rej 3 3 -norm=addscale -overlap_norm -feather=64",
+                    "max -maximize"):
+            k1.reset_counts()
+            t = time.perf_counter()
+            s = cli.run(["-d", tmp, "stack", "mosaic_", *cmd.split(),
+                         "-out=mosaic_result"])
+            torch.cuda.synchronize()
+            walls[cmd] = time.perf_counter() - t
+            runs[cmd] = dict(k1.launches)
+            out = s.result.image.host()[0]
+            log(f"  stack mosaic_ {cmd}: wall {walls[cmd]:.2f}s, launches "
+                f"{ {k: v for k, v in runs[cmd].items() if v} }, canvas "
+                f"{out.shape}")
+            log("    stages: " + ", ".join(
+                f"{k} {v:.3f}s" for k, v in s.result.stage_s.items()))
+            if cmd.startswith("rej"):
+                level, gain = MOSAIC_LEVELS[0]
+                want = level + gain * stars[:size, :size]
+                steps = (_seam_step(out, want, x=step),
+                         _seam_step(out, want, y=step))
+                m = 48
+                err = float(np.abs(out - want)[m:-m, m:-m].mean())
+                log(f"    level step across the seam at x = {step}: "
+                    f"{steps[0]:.2e}, at y = {step}: {steps[1]:.2e} (noise "
+                    f"{sigma_n}); interior mean |Δ| against tile 1's level "
+                    f"and gain {err:.5f}")
+                checks = {
+                    "K1e launched once (per-pixel weights)":
+                        runs[cmd]["K1e"] == 1,
+                    "each seam's step below the noise / 5":
+                        max(abs(v) for v in steps) < sigma_n / 5,
+                    "interior mean |Δ| < noise": err < sigma_n,
+                    "no loop stopped at its bound": s.result.capped == 0}
+            else:
+                full = stars.shape[0]
+                checks = {
+                    "the canvas is the union of the footprints":
+                        out.shape == (full, full) and bool((out > 0).all()),
+                    "no kernel launched": sum(runs[cmd].values()) == 0}
+            checks["result finite"] = bool(np.isfinite(out).all())
+            for name, good in checks.items():
+                if not good:
+                    log(f"    check {name}: FAILED")
+                    failed.append(f"{cmd}: {name}")
+        if failed:
+            raise RuntimeError(f"mosaic checks failed: {failed}")
+        return runs, walls, how
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1351,28 +1894,44 @@ def main(argv=None) -> int:
         k1v = phase_k1(args.seed)
     with Phase("k1col"):
         k1col = phase_k1col(args.seed)
+    with Phase("warps"):
+        phase_warps(args.seed)
     with Phase("fusedstack"):
         launches, stages, wall = phase_fusedstack(args.seed)
+    with Phase("fusedstack_homography"):
+        hom_launches, _, _, _ = phase_fusedstack_homography(args.seed)
     with Phase("stack"):
         stack_launches, _ = phase_stack(args.seed)
         _, stack100 = phase_stack(args.seed + 1, STACK100, SIZE100,
                                   STACK100_RUNS)
     with Phase("script"):
         script_launches, _, _ = phase_script(args.seed)
+    with Phase("mosaic"):
+        mosaic_launches, _, _ = phase_mosaic(args.seed)
     src = "siril_tpu_torch/csrc/reject_stack.cu"
     tpu = "siril_tpu/pallas/reject_stack.py"
-    # K1a runs on two paths: fusedstack, and the script (its winsorized
-    # stacks) with the calibrated fusedstack; launches sums them
+    # K1a runs on several paths: fusedstack (shifts and homographies), and
+    # the script (its winsorized stacks) with the calibrated fusedstack
+    # and the filtered stack; launches sums them
     by_path = {"fusedstack": launches,
+               "fusedstack -transf=homography": hom_launches,
                **{p: c["K1a"] for p, c in script_launches.items()}}
     kernels = [dict(name="reject_stack (K1a)",
                     launches=sum(by_path.values()),
                     launches_by_path=by_path, replaces=f"{tpu}:763", **k1a)]
     lines = {"K1b": 478, "K1c": 521, "K1d": 586, "K1e": 719}
+    # K1e: the noise-weighted stack, and the feathered mosaic stack
+    k1e_paths = {"stack -weight_from_noise": stack_launches["K1e"],
+                 "mosaic -feather": sum(c["K1e"] for c in
+                                        mosaic_launches.values())}
     for var, *_ in STACK_VARIANTS:
+        extra = dict(launches=stack_launches[var])
+        if var == "K1e":
+            extra = dict(launches=sum(k1e_paths.values()),
+                         launches_by_path=k1e_paths)
         kernels.append(dict(name=f"reject_stack ({var})",
-                            launches=stack_launches[var],
-                            replaces=f"{tpu}:{lines[var]}", **k1v[var]))
+                            replaces=f"{tpu}:{lines[var]}", **extra,
+                            **k1v[var]))
     # the column kernel: a row for each 100-frame stack command, at its
     # call size, with its launches; the winsorized row also carries the
     # other timing sizes, which no command launched

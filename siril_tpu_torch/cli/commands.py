@@ -20,6 +20,8 @@ import os
 import re
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
+
 from siril_tpu_torch.cli.context import CommandError, Session
 from siril_tpu_torch.core.image import FLOAT_IMG
 from siril_tpu_torch.ops.rejection import (
@@ -371,8 +373,10 @@ _APPLYREG_UNPORTED = {
 
 
 @command("seqapplyreg", "seqapplyreg sequencename [-framing=] [-interp=] "
-         "[-prefix=] [-layer=] [-scale=] [-noclamp]", min_args=1)
+         "[-prefix=] [-layer=] [-scale=] [-noclamp] [-filter-*=]",
+         min_args=1)
 def cmd_seqapplyreg(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.core.filtering import apply_filters, filter_specs
     from siril_tpu_torch.ops.interp import INTERP_NAMES
     from siril_tpu_torch.registration.global_reg import (
         FRAMING_NAMES,
@@ -382,11 +386,6 @@ def cmd_seqapplyreg(ctx: Session, args: List[str]) -> None:
 
     pos, flags = parse_flags(args)
     _refuse(flags, _APPLYREG_UNPORTED, "seqapplyreg")
-    for key in flags:
-        if key.startswith("filter-"):
-            raise NotImplementedError(
-                f"seqapplyreg -{key}: frame filters are not ported yet "
-                "(ROADMAP §1.4, core/filtering.py)")
     seq = ctx.load_sequence(pos[0])
     aa = ApplyRegArgs()
     if isinstance(flags.get("framing"), str):
@@ -402,6 +401,13 @@ def cmd_seqapplyreg(ctx: Session, args: List[str]) -> None:
         aa.scale = float(flags["scale"])
     if "noclamp" in flags:
         aa.clamp = False
+    specs = filter_specs(flags)
+    if specs:
+        keep = np.zeros(seq.number, bool)
+        keep[apply_filters(seq, specs, aa.reglayer)] = True
+        seq.incl &= keep
+        _log.info("seqapplyreg filter: %d of %d frames kept",
+                  int(seq.incl.sum()), seq.number)
     if not seq.has_reg(aa.reglayer):
         raise CommandError(
             "no registration data in this sequence (homographies from "
@@ -432,12 +438,11 @@ def cmd_fusedstack(ctx: Session, args: List[str]) -> None:
     )
     from siril_tpu_torch.ops.stacking import StackArgs
     from siril_tpu_torch.pipeline import FusedArgs, fused_preprocess_stack
+    from siril_tpu_torch.registration.matching import (
+        HOMOGRAPHY_TRANSFORMATION,
+    )
 
     pos, flags = parse_flags(args)
-    if flags.get("transf") == "homography":
-        raise NotImplementedError(
-            "fusedstack -transf=homography: only shift registration is "
-            "ported on the fused path (ROADMAP §1.2, the FFT warp ladder)")
     seq = ctx.load_sequence(pos[0])
     calib = None
     if any(k in flags for k in ("bias", "dark", "flat")):
@@ -454,6 +459,10 @@ def cmd_fusedstack(ctx: Session, args: List[str]) -> None:
                                   ADDITIVE_SCALING)
     fa = FusedArgs(calib=calib, stack=sa, starfinder=_sf_params(ctx),
                    register="noreg" not in flags)
+    # any other -transf= value registers by shifts, as the reference's
+    # command does (siril_tpu/cli/commands2.py:877-878)
+    if flags.get("transf") == "homography":
+        fa.ttype = HOMOGRAPHY_TRANSFORMATION
     try:
         res = fused_preprocess_stack(seq, fa, device=ctx.device)
     except MemoryError as e:
@@ -552,42 +561,40 @@ def stack_args_from_flags(pos: List[str], flags: dict):
 
 #: flags of the stack command whose features are not ported yet
 _STACK_UNPORTED = {
-    "drizzle": "drizzle stacking (ROADMAP §1, off-path modules: "
-               "ops/drizzle.py)",
-    "upscale": "the x2 up-scale before stacking (ROADMAP §1, off-path "
-               "modules: ops/geometry.py)",
-    "feather": "seam feathering (ROADMAP §1, stacking beyond rejection)",
-    "overlap_norm": "overlap normalization (ROADMAP §1, stacking beyond "
-                    "rejection)",
-    "maximize": "maximize framing (ROADMAP §1, stacking beyond rejection)",
+    "drizzle": "drizzle stacking (ROADMAP §1.4, the rest of the stack "
+               "command: ops/drizzle.py)",
+    "upscale": "the x2 up-scale before stacking (ROADMAP §1.4, the rest of "
+               "the stack command: ops/geometry.py)",
 }
 
 
 @command("stack", "stack seqfilename {sum|min|max|med|rej} [type] "
-         "[sigma_low sigma_high] [-norm=] [-weight_from_…] [-out=]",
-         min_args=1)
+         "[sigma_low sigma_high] [-norm=] [-weight_from_…] [-feather=] "
+         "[-overlap_norm] [-maximize] [-filter-*=] [-out=]", min_args=1)
 def cmd_stack(ctx: Session, args: List[str]) -> None:
     """Stack a registered sequence: normalization, weights and pixel
     rejection on the device; writes ``<seq>stacked.fit`` (or ``-out=``)
     and, with ``-rejmaps``, ``rejmap_low``/``rejmap_high``."""
+    from siril_tpu_torch.core.filtering import apply_filters, filter_specs
     from siril_tpu_torch.core.image import USHORT_IMG
     from siril_tpu_torch.io.fits_io import write_fits
     from siril_tpu_torch.ops.stacking import stack_sequence
 
     pos, flags = parse_flags(args)
     _refuse(flags, _STACK_UNPORTED, "stack")
-    for key in flags:
-        if key.startswith("filter-"):
-            raise NotImplementedError(
-                f"stack -{key}: frame filters are not ported yet "
-                "(ROADMAP §1, off-path modules: core/filtering.py)")
     seq = ctx.load_sequence(pos[0])
     sa = stack_args_from_flags(pos, flags)
     from siril_tpu_torch.utils.devmem import MEMORY_RATIO
 
     # setmem → device block budget (commands.py _apply_mem_budget)
     sa.block_mb = max(int(2048 * min(MEMORY_RATIO, 4.0)), 128)
-    res = stack_sequence(seq, sa, device=ctx.device)
+    indices = None
+    specs = filter_specs(flags)
+    if specs:
+        indices = apply_filters(seq, specs, sa.reglayer)
+        _log.info("Stacking filter: %d of %d frames kept", len(indices),
+                  seq.number)
+    res = stack_sequence(seq, sa, indices=indices, device=ctx.device)
     name = flags.get("out") if isinstance(flags.get("out"), str) \
         else seq.name + "stacked"
     p = ctx.path(name)
@@ -600,7 +607,7 @@ def cmd_stack(ctx: Session, args: List[str]) -> None:
     ctx.stages = res.stage_s
     _log.info(
         "Stacked %d images, rejected %d/%d px (low/high) in %.2fs → %s",
-        len(seq.selected_indices()), *res.total_rejected, res.elapsed_s,
+        res.image.keywords.stackcnt, *res.total_rejected, res.elapsed_s,
         os.path.basename(p))
     _warn_capped(res)
     if sa.create_rejmaps and res.rejmap_low is not None:

@@ -1,6 +1,9 @@
 """Stacking normalization — counterpart of ``siril_tpu/ops/normalization.py``
 (settings.h:34-40 modes, ``NormCoeffs``, ``compute_normalization``:62,
-``factors_from_estimators``:121, ``_compute_missing``:151, ``_cache``:199).
+``factors_from_estimators``:121, ``_compute_missing``:151, ``_cache``:199)
+and the overlap normalization of mosaics (``compute_overlap``:218,
+``_pair_estimators``:245, ``solve_overlap_coeffs``:272,
+``compute_overlap_normalization``:303).
 
 Per frame and per layer, location/scale estimators (IKSSlite, or
 median/1.5·MAD with ``lite``; normalization.c:98-142) become offset/scale/
@@ -17,7 +20,9 @@ Applied per pixel in the stack kernel (median_and_mean.c:1655-1689):
   multiplicative:  v' = v·scale·mul
 
 The estimators are ``ops/statistics.norm_estimators`` (sorts on the
-device); they are kept in the sequence's in-memory stats store.
+device); they are kept in the sequence's in-memory stats store.  The
+overlap normalization's pairwise estimators are host numpy medians over
+each overlap, as the reference's are (it warns above 30 frames).
 """
 
 from __future__ import annotations
@@ -175,3 +180,129 @@ def cache_estimators(seq, layer, idx, med, mad, location, scale, lite):
     st.total = st.total or seq.rx * seq.ry
     st.ngoodpix = st.ngoodpix or st.total
     seq.set_frame_stats(layer, idx, st)
+
+
+# ---------------------------------------------------------------------------
+# overlap normalization (mosaics) — normalization.c:296-925
+# ---------------------------------------------------------------------------
+
+
+def compute_overlap(seq, layer: int, i: int, j: int):
+    """Overlap rectangles ((xi, yi, w, h), (xj, yj, w, h)) of frames i and
+    j in each frame's pixels, from their shift-only H
+    (normalization.c:420), or None."""
+    H = seq.reg(layer).H
+    txi, tyi = round(float(H[i][0, 2])), round(float(H[i][1, 2]))
+    txj, tyj = round(float(H[j][0, 2])), round(float(H[j][1, 2]))
+    x0, y0 = max(txi, txj), max(tyi, tyj)
+    x1 = min(txi + seq.rx, txj + seq.rx)
+    y1 = min(tyi + seq.ry, tyj + seq.ry)
+    if x0 >= x1 or y0 >= y1:
+        return None
+    w, h = x1 - x0, y1 - y0
+    return (x0 - txi, y0 - tyi, w, h), (x0 - txj, y0 - tyj, w, h)
+
+
+def _pair_estimators(di: np.ndarray, dj: np.ndarray, lite: bool):
+    """(count, (loc_i, scale_i), (loc_j, scale_j)) over the overlap's
+    pixels that are non-zero in both frames (normalization.c:458-600)."""
+    from siril_tpu_torch.ops.statistics import ikss_lite_np
+
+    m = (di != 0) & (dj != 0)
+    n = int(m.sum())
+    if n == 0:
+        return 0, (0.0, 1.0), (0.0, 1.0)
+    out = []
+    for v in (di[m].astype(np.float64), dj[m].astype(np.float64)):
+        med = float(np.median(v))
+        mad = float(np.median(np.abs(v - med)))
+        ls = ikss_lite_np(v, med, mad) if mad > 0 and not lite else None
+        if ls is None:
+            out.append((med, 1.5 * mad if mad > 0 else 1.0))
+        else:
+            out.append((float(ls[0]), float(ls[1]) if ls[1] > 0 else 1.0))
+    return n, out[0], out[1]
+
+
+def solve_overlap_coeffs(nb: int, ref: int, Nij: np.ndarray,
+                         Mij: np.ndarray, additive: bool) -> np.ndarray:
+    """Per-frame offsets (additive) or scale ratios from the pairwise
+    estimators by weighted least squares, the reference frame at the
+    identity (normalization.c:296-355)."""
+    index = [i for i in range(nb) if i != ref]
+    N = nb - 1
+    A = np.zeros((N, N))
+    B = np.zeros(N)
+    for a, ii in enumerate(index):
+        if additive:
+            B[a] = Nij[ii, ref] * (Mij[ref, ii] - Mij[ii, ref])
+        else:
+            B[a] = Nij[ii, ref] * Mij[ref, ii] * Mij[ii, ref]
+        for b, ij in enumerate(index):
+            if ii == ij:
+                for k in range(nb):
+                    if k != ii:
+                        A[a, b] += (Nij[ii, k] if additive
+                                    else Nij[ii, k] * Mij[ii, k] ** 2)
+            else:
+                A[a, b] = (-float(Nij[ii, ij]) if additive
+                           else -Nij[ii, ij] * Mij[ii, ij] * Mij[ij, ii])
+                if additive:
+                    B[a] += Nij[ii, ij] * (Mij[ij, ii] - Mij[ii, ij])
+    x = np.linalg.solve(A, B)
+    full = np.zeros(nb) if additive else np.ones(nb)
+    for a, ii in enumerate(index):
+        full[ii] = x[a]
+    return full
+
+
+def compute_overlap_normalization(seq, indices: np.ndarray, mode: int,
+                                  lite: bool = False,
+                                  reglayer: int = 0) -> NormCoeffs:
+    """Normalization of a mosaic (normalization.c:680-925): estimators of
+    each pair of frames over their overlap, and a least-squares solve so
+    that every frame agrees with its neighbours, anchored at the
+    reference frame.  The frames are read on the host."""
+    idx = [int(v) for v in indices]
+    nb = len(idx)
+    L = seq.nb_layers
+    offset = np.zeros((L, nb))
+    mul = np.ones((L, nb))
+    scale = np.ones((L, nb))
+    if mode == NO_NORM or nb < 2:
+        return NormCoeffs(offset, mul, scale)
+    ref_abs = seq.get_reference()
+    ref = idx.index(ref_abs) if ref_abs in idx else 0
+    layer = min(max(reglayer, 0), L - 1)
+    frames = {k: seq.read_frame(k).host() for k in idx}
+    Nij = np.zeros((L, nb, nb))
+    Mij = np.zeros((L, nb, nb))
+    Sij = np.ones((L, nb, nb))
+    for a in range(nb):
+        for b in range(a + 1, nb):
+            ov = compute_overlap(seq, layer, idx[a], idx[b])
+            if ov is None:
+                continue
+            (xi, yi, w, h), (xj, yj, _, _) = ov
+            for n in range(L):
+                di = frames[idx[a]][n][yi:yi + h, xi:xi + w]
+                dj = frames[idx[b]][n][yj:yj + h, xj:xj + w]
+                cnt, (la, sa), (lb, sb) = _pair_estimators(di, dj, lite)
+                Nij[n, a, b] = Nij[n, b, a] = cnt
+                Mij[n, a, b], Mij[n, b, a] = la, lb
+                Sij[n, a, b], Sij[n, b, a] = sa, sb
+    for n in range(L):
+        Mn = Mij[n]
+        if mode in (MULTIPLICATIVE_SCALING, ADDITIVE_SCALING):
+            scale[n] = solve_overlap_coeffs(nb, ref, Nij[n], Sij[n],
+                                            additive=False)
+            Mn = Mij[n] * scale[n][:, None]
+        if mode in (ADDITIVE, ADDITIVE_SCALING):
+            # the kernel computes v·scale − offset and the solved terms
+            # are added (normalization.c:894: poffset = −coeffs)
+            offset[n] = -solve_overlap_coeffs(nb, ref, Nij[n], Mn,
+                                              additive=True)
+        elif mode == MULTIPLICATIVE:
+            mul[n] = solve_overlap_coeffs(nb, ref, Nij[n], Mn,
+                                          additive=False)
+    return NormCoeffs(offset, mul, scale)

@@ -11,9 +11,12 @@ path shares: ``StackArgs``/``StackResult`` (:56/:78), ``_norm_apply``
 
 Every rejection mode and the weighted mean run in kernel K1
 (``kernels/reject_stack.py``) on the card, or its plain version on the
-CPU.  Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: the sum/min/max stacks (``_stack_accumulate``), seam
-feathering, overlap normalization and ``maximize``.
+CPU.  Also: the sum/min/max stacks with ``maximize`` framing
+(``_stack_accumulate``:519, ``_shift_into``:563), on the device, the sum
+in float64; seam feathering (``compute_feather_masks``:191), whose masks
+multiply into K1e's per-pixel weights on the streamed path (:452-461);
+and the overlap normalization of mosaics on the streamed path
+(``ops/normalization.compute_overlap_normalization``).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from siril_tpu_torch.ops.normalization import (
     NormCoeffs,
     cache_estimators,
     compute_normalization,
+    compute_overlap_normalization,
     has_estimators,
 )
 from siril_tpu_torch.utils.devmem import resident_budget_bytes
@@ -277,6 +281,47 @@ def read_block(seq, chan: int, frame_idx: int, y0: int, y1: int,
     return out
 
 
+def compute_feather_masks(seq, indices: np.ndarray, feather_dist: int,
+                          reglayer: int) -> np.ndarray:
+    """(N, H, W) float16 seam-feathering masks in selection order
+    (blending.c): the smoothstep r³(6r² − 15r + 10) of r = the distance to
+    the nearest uncovered pixel over ``feather_dist``, each frame's
+    coverage (any layer > 0) moved by its integer shift."""
+    from scipy.ndimage import distance_transform_edt
+
+    shifts = frame_shifts(seq, indices, reglayer)
+    masks = []
+    for k, idx in enumerate(indices):
+        cov = np.any(seq.read_frame(int(idx)).host() > 0.0, axis=0)
+        if shifts is not None:
+            cov = shift_into(cov.astype(np.float32)[None],
+                             int(shifts[0][k]), int(shifts[1][k]))[0] > 0.5
+        r = np.clip(distance_transform_edt(cov) / float(feather_dist),
+                    0.0, 1.0)
+        masks.append((r * r * r * (6.0 * r * r - 15.0 * r + 10.0)).astype(
+            np.float16))
+    return np.stack(masks)
+
+
+def shift_into(img, dx: int, dy: int, out_h: Optional[int] = None,
+               out_w: Optional[int] = None):
+    """(C, h, w) ``img`` (numpy or torch) placed at (dx, dy) on a zero
+    canvas of (out_h, out_w), cropped to it."""
+    c, h, w = img.shape
+    oh = h if out_h is None else out_h
+    ow = w if out_w is None else out_w
+    if isinstance(img, torch.Tensor):
+        out = torch.zeros((c, oh, ow), dtype=img.dtype, device=img.device)
+    else:
+        out = np.zeros((c, oh, ow), img.dtype)
+    sy0, sy1 = max(dy, 0), min(h + dy, oh)
+    sx0, sx1 = max(dx, 0), min(w + dx, ow)
+    if sy1 > sy0 and sx1 > sx0:
+        out[:, sy0:sy1, sx0:sx1] = img[:, sy0 - dy:sy1 - dy,
+                                       sx0 - dx:sx1 - dx]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # weights (median_and_mean.c:1111-1230)
 # ---------------------------------------------------------------------------
@@ -348,19 +393,8 @@ def compute_weights(seq, indices: np.ndarray, args: StackArgs,
 
 
 def _check_stack_args(args: StackArgs) -> None:
-    if args.method in ("sum", "min", "max"):
-        raise NotImplementedError(
-            f"the {args.method} stack (_stack_accumulate) is not ported yet "
-            "(ROADMAP §1, stacking beyond rejection)")
-    if args.method not in ("rej", "mean", "med"):
+    if args.method not in ("rej", "mean", "med", "sum", "min", "max"):
         raise ValueError(f"unknown stacking method {args.method!r}")
-    for name, on in (("seam feathering", args.feather_dist > 0),
-                     ("overlap normalization", args.overlap_norm),
-                     ("maximize framing", args.maximize)):
-        if on:
-            raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP §1, stacking beyond "
-                "rejection)")
 
 
 def _kernel_config(args: StackArgs, n: int):
@@ -379,9 +413,11 @@ def _kernel_config(args: StackArgs, n: int):
 
 def stack_sequence(seq, args: StackArgs, indices: Optional[np.ndarray] = None,
                    device: DeviceLike = None) -> StackResult:
-    """Stack the selected frames of ``seq`` on ``device`` (CUDA unless
-    "cpu"): the device-resident path when the raw frames fit and need no
-    shifts or rejection maps, else row blocks streamed from the files."""
+    """Stack the selected frames of ``seq`` (or ``indices``) on ``device``
+    (CUDA unless "cpu"): sum/min/max frame by frame; else the
+    device-resident path when the raw frames fit and need no shifts,
+    rejection maps, feathering or overlap normalization, else row blocks
+    streamed from the files."""
     from siril_tpu_torch.kernels import reject_stack as k1
 
     dev = resolve_device(device)
@@ -400,7 +436,10 @@ def stack_sequence(seq, args: StackArgs, indices: Optional[np.ndarray] = None,
     L, H, W = seq.nb_layers, seq.ry, seq.rx
     clock = StageClock(dev)
 
-    res = _resident_stack(seq, args, indices, dev, clock)
+    if args.method in ("sum", "min", "max"):
+        res = _stack_accumulate(seq, args, indices, dev, clock)
+    else:
+        res = _resident_stack(seq, args, indices, dev, clock)
     if res is None:
         res = _streamed_stack(seq, args, indices, dev, clock, L, H, W)
     res.capped = k1.capped_pixels() - capped0
@@ -431,11 +470,16 @@ def _streamed_stack(seq, args, indices, dev, clock, L, H, W) -> StackResult:
     n = len(indices)
     do_norm = args.method in ("rej", "mean") and args.normalize != NO_NORM
     with clock("estimators"):
-        coeffs = compute_normalization(
-            seq, indices, args.normalize if do_norm else NO_NORM,
-            lite=args.lite_norm, force=args.force_norm,
-            equalize_rgb=args.equalize_rgb, reglayer=args.reglayer,
-            device=dev)
+        if do_norm and args.overlap_norm:
+            coeffs = compute_overlap_normalization(
+                seq, indices, args.normalize, lite=args.lite_norm,
+                reglayer=args.reglayer)
+        else:
+            coeffs = compute_normalization(
+                seq, indices, args.normalize if do_norm else NO_NORM,
+                lite=args.lite_norm, force=args.force_norm,
+                equalize_rgb=args.equalize_rgb, reglayer=args.reglayer,
+                device=dev)
 
     def frame_layer(k, layer):
         return torch.from_numpy(
@@ -446,11 +490,18 @@ def _streamed_stack(seq, args, indices, dev, clock, L, H, W) -> StackResult:
         with clock("noise"):
             weights = compute_weights(seq, indices, args, coeffs,
                                       frame_layer)
+    # seam feathering: per-pixel masks multiplied into the weights
+    feather = None
+    if args.method in ("rej", "mean") and args.feather_dist > 0:
+        with clock("feather"):
+            feather = torch.from_numpy(compute_feather_masks(
+                seq, indices, int(args.feather_dist), args.reglayer)).to(dev)
     rtype, mode, max_outliers, critical = _kernel_config(args, n)
     maps = args.create_rejmaps and rtype != MEDIAN
     kernel = None if rtype == MEDIAN else make_block_kernel(
         rtype, mode, float(args.siglow), float(args.sighigh), n,
-        max_outliers, critical, weights is not None, want_maps=maps)
+        max_outliers, critical, weights is not None or feather is not None,
+        want_maps=maps)
 
     rows_per_block = plan_blocks(H, W, n, args.block_mb)
     blocks = [(c, y, min(y + rows_per_block, H))
@@ -487,6 +538,9 @@ def _streamed_stack(seq, args, indices, dev, clock, L, H, W) -> StackResult:
                 else:
                     w = None if weights is None else torch.as_tensor(
                         weights[c][:, None], **f32)
+                    if feather is not None:
+                        fm = feather[:, y0:y1].reshape(n, -1).float()
+                        w = fm if w is None else w * fm
                     mean, rl, rh = kernel(
                         block, torch.as_tensor(coeffs.scale[c], **f32),
                         torch.as_tensor(coeffs.offset[c], **f32),
@@ -525,8 +579,9 @@ def _resident_stack(seq, args, indices, dev, clock):
     """Single-upload stack: the raw u16 (or f32) frames go to the device
     once, estimators, noise, rejection and mean run there, and one fetch
     returns the result.  Returns None when the streamed path must run
-    (shifted frames, rejection maps, or a stack over the budget)."""
-    if args.create_rejmaps:
+    (shifted frames, rejection maps, feathering, overlap normalization,
+    or a stack over the budget)."""
+    if args.create_rejmaps or args.feather_dist or args.overlap_norm:
         return None
     n = len(indices)
     L, H, W = seq.nb_layers, seq.ry, seq.rx
@@ -636,3 +691,68 @@ def _resident_fill_stats(seq, indices, stack, layer_f32, lite: bool,
         for k, idx in enumerate(indices):
             cache_estimators(seq, layer, int(idx), med[k], mad[k], loc[k],
                              sca[k], lite)
+
+
+# ---------------------------------------------------------------------------
+# sum / min / max (sum.c, stackminmax.c)
+# ---------------------------------------------------------------------------
+
+#: frames the sum/min/max stack reads ahead
+READ_AHEAD = 4
+
+
+def _stack_accumulate(seq, args, indices, dev, clock) -> StackResult:
+    """sum / min / max of the frames moved by their integer shifts, on the
+    device; ``maximize`` spreads the canvas over the union of the shifted
+    footprints (compute_max_framing, stacking.h:207).  The sum runs in
+    float64 and is divided by its maximum; min and max keep float32 and
+    put 0 where no frame reached."""
+    L, H, W = seq.nb_layers, seq.ry, seq.rx
+    shifts = frame_shifts(seq, indices, args.reglayer)
+    ox = oy = 0
+    if args.maximize and shifts is not None:
+        dxs, dys = shifts
+        x0, y0 = min(0, int(dxs.min())), min(0, int(dys.min()))
+        W = max(W, W + int(dxs.max())) - x0
+        H = max(H, H + int(dys.max())) - y0
+        ox, oy = -x0, -y0
+    if args.method == "sum":
+        acc = torch.zeros((L, H, W), dtype=torch.float64, device=dev)
+    else:
+        fill = float("inf") if args.method == "min" else float("-inf")
+        acc = torch.full((L, H, W), fill, dtype=torch.float32, device=dev)
+    def read(k):
+        return seq.read_frame(int(indices[k])).host()
+
+    # READ_AHEAD frames read in parallel, at most that many held on the host
+    n = len(indices)
+    with cf.ThreadPoolExecutor(max_workers=READ_AHEAD) as pool:
+        ahead = [pool.submit(read, k) for k in range(min(READ_AHEAD, n))]
+        for k in range(n):
+            with clock("read"):
+                host = ahead.pop(0).result()
+            if k + READ_AHEAD < n:
+                ahead.append(pool.submit(read, k + READ_AHEAD))
+            with clock("upload"):
+                img = torch.from_numpy(np.ascontiguousarray(host)).to(dev)
+            with clock("accumulate"):
+                if shifts is not None:
+                    img = shift_into(img, int(shifts[0][k]) + ox,
+                                     int(shifts[1][k]) + oy, H, W)
+                elif (H, W) != tuple(img.shape[1:]):
+                    img = shift_into(img, ox, oy, H, W)
+                if args.method == "sum":
+                    acc += img
+                elif args.method == "min":
+                    acc = torch.minimum(acc, img)
+                else:
+                    acc = torch.maximum(acc, img)
+    with clock("fetch"):
+        if args.method == "sum":
+            m = acc.max()
+            result = torch.where(m > 0, acc / m, acc).float()
+        else:
+            result = torch.where(torch.isfinite(acc), acc, 0.0)
+        result = result.cpu().numpy()
+    seq.close_readers()
+    return StackResult(image=finalize_metadata(seq, indices, result))

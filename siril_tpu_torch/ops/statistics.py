@@ -2,7 +2,9 @@
 ``siril_tpu/ops/statistics.py``: ``ImStats`` (:52), the basic statistics
 of ``compute_stats_np(…, STATS_BASIC)`` (:223) with the background noise
 ``bgnoise_np`` (:177) / ``_bgnoise_dense`` (:132), ``hist_median_jax``
-(:344) and ``norm_estimators_hist_jax`` (:413).
+(:344) and ``norm_estimators_hist_jax`` (:413); and the host numpy
+IKSSlite of the overlap normalization (``median_np``:89, ``mad_np``:93,
+``bwmv_np``:101, ``ikss_lite_np``:114).
 
 The reference's median is the lower-median sample for odd counts and the
 mean of the middle pair for even counts, 0 for an empty row.  The TPU
@@ -21,6 +23,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from siril_tpu_torch.ops.rejection import fma
@@ -194,3 +197,45 @@ def compute_stats_basic(layer2d: torch.Tensor) -> ImStats:
     n = s.numel()
     st.median = float(0.5 * (s[(n - 1) // 2] + s[n // 2]))
     return st
+
+
+# ---------------------------------------------------------------------------
+# host numpy estimators (the overlap normalization's, on one overlap)
+# ---------------------------------------------------------------------------
+
+
+def median_np(x: np.ndarray) -> float:
+    return float(np.median(x)) if x.size else 0.0
+
+
+def mad_np(x: np.ndarray, med: float) -> float:
+    """median(|x − med|) (statistics_float.c:80)."""
+    if x.size == 0:
+        return 0.0
+    return float(np.median(np.abs(x - np.float32(med))))
+
+
+def bwmv_np(x: np.ndarray, mad: float, med: float) -> float:
+    """Biweight midvariance (statistics_float.c:103-127)."""
+    if mad <= 0.0 or x.size == 0:
+        return 0.0
+    factor = np.float32(1.0 / (9.0 * mad))
+    i_med = x - np.float32(med)
+    yi = i_med * factor
+    yi2 = np.where(np.abs(yi) < 1.0, yi * yi, np.float32(1.0))
+    up = ((i_med * (1.0 - yi2) ** 2) ** 2).sum(dtype=np.float64)
+    down = ((1.0 - yi2) * (1.0 - 5.0 * yi2)).sum(dtype=np.float64)
+    return float(x.size * (up / (down * down))) if down else 0.0
+
+
+def ikss_lite_np(x: np.ndarray, med: float, mad: float):
+    """IKSSlite (location, scale) of ``x`` (statistics_float.c:199-230),
+    or None if degenerate."""
+    kept = x[(x >= med - 6.0 * mad) & (x <= med + 6.0 * mad)]
+    if kept.size == 0:
+        return None
+    loc = median_np(kept)
+    m2 = mad_np(kept, loc)
+    if m2 == 0.0:
+        return None
+    return loc, float(np.sqrt(bwmv_np(kept, m2, loc)) * 0.991)

@@ -1,14 +1,20 @@
 """Fused device-resident preprocessing + stacking — counterpart of
 ``siril_tpu/pipeline.py`` (``FusedArgs``:60, ``fused_preprocess_stack``:74,
-``_block_stream_fn``:428, ``_device_norm_coeffs``:631).
+the warp dispatch :270-345, ``_block_stream_fn``:428,
+``_device_norm_coeffs``:631).
 
 The whole sequence stays on the device across stages:
 
   raw u16 upload → device decode → calibration (bias, dark, flat,
   cosmetic correction) → star detection (stats, candidates, batched PSF
   fit) → [host: triangle match + RANSAC] → per-frame IKSS
-  estimators → translation warp → normalize + reject + mean streamed over
+  estimators → warp → normalize + reject + mean streamed over
   pixel-row blocks (kernel K1a) → one fetch of the result
+
+The warp takes the cheapest rung of the ladder whose gate holds every
+frame: translation, then for lanczos4 the FFT rotation three-shear, the
+affine chirp-Z and the perspective split (``ops/interp.py``), else the
+gather warp; the rung taken is logged.
 
 Frames live as a list of (n_i, L, H, W) chunks; each row block gathers the
 same rows of every chunk into one (N, rows·W) stack of about 256 MiB.
@@ -21,10 +27,9 @@ Calibration runs on each decoded chunk before detection, as
 per-frame dark optimization of the staged ``calibrate`` when asked for
 (the JAX fused path ignores it).  Every rejection mode runs; GESDT gets
 its outlier budget and λ table as in ``siril_tpu/pipeline.py:366-376``.
-Transforms other than shift raise ``NotImplementedError``: their warps
-are the FFT warp ladder (ROADMAP §1.2).  Frame weights are not
-supported on the fused path, as in the JAX package (its fused block
-kernel is built without weights, ``siril_tpu/pipeline.py:441-442``).
+Frame weights are not supported on the fused path, as in the JAX package
+(its fused block kernel is built without weights,
+``siril_tpu/pipeline.py:441-442``).
 """
 
 from __future__ import annotations
@@ -50,11 +55,7 @@ from siril_tpu_torch.ops.calibration import (
 )
 from siril_tpu_torch.ops.calibration import check_supported as \
     check_calibration
-from siril_tpu_torch.ops.interp import (
-    INTERP_LANCZOS4,
-    translations_from_Hs,
-    warp_translation_batch,
-)
+from siril_tpu_torch.ops import interp
 from siril_tpu_torch.ops.normalization import (
     NO_NORM,
     NormCoeffs,
@@ -97,7 +98,7 @@ class FusedArgs:
     starfinder: StarFinderParams = field(default_factory=StarFinderParams)
     max_stars: int = 500
     min_pairs: int = 4
-    interpolation: int = INTERP_LANCZOS4
+    interpolation: int = interp.INTERP_LANCZOS4
     clamp: bool = True
     stack: StackArgs = field(default_factory=lambda: StackArgs(
         method="rej", rejection=rj.WINSORIZED))
@@ -108,11 +109,6 @@ def check_supported(args: FusedArgs) -> None:
     """Raise NotImplementedError for what the port does not cover yet."""
     if args.calib is not None:
         check_calibration(args.calib)
-    if args.register and args.ttype != SHIFT_TRANSFORMATION:
-        raise NotImplementedError(
-            f"fused registration with transform type {args.ttype}: only "
-            "shifts are ported on the fused path; its rotation, affine "
-            "and perspective warps are the FFT warp ladder (ROADMAP §1.2)")
     sa = args.stack
     if sa.method == "rej":
         rj.check_rtype(sa.rejection)
@@ -136,7 +132,11 @@ def fused_preprocess_stack(seq: Sequence, args: Optional[FusedArgs] = None,
         raise ValueError("no frames selected")
     r0 = seq.open_reader(int(indices[0]))
     L, H, W = r0.nchans, r0.height, r0.width
+    # the stack, a chunk in and out of the warp and the stream block, and
+    # the warp ladder's transients (one frame's chirp-Z planes)
     need = n * L * H * W * 4 + 3 * args.frame_chunk * L * H * W * 4
+    if args.register and args.ttype != SHIFT_TRANSFORMATION:
+        need += interp.ladder_transient_bytes(L, H, W)
     if need > fused_budget_bytes(dev):
         raise MemoryError(
             f"fused pipeline needs ~{need >> 30} GiB of device memory; use "
@@ -233,24 +233,13 @@ def fused_preprocess_stack(seq: Sequence, args: Optional[FusedArgs] = None,
             Hs = Hs[good]
             indices = indices[good]
             n = len(indices)
-        shifts = translations_from_Hs(Hs)
-        if shifts is None:
-            raise NotImplementedError(
-                "non-translation registration needs the rotation/affine/"
-                "perspective/homography warps (ROADMAP §1)")
         # estimators on the pre-warp frames, as the reference pipeline
         # does (the clamp smooths the background of warped frames)
         if do_norm:
             with clock("normalize"):
                 coeffs = _device_norm_coeffs(frames, n, L, sa, seq, indices)
         with clock("warp"):
-            base = 0
-            for ci, c in enumerate(frames):
-                ni = c.shape[0]
-                frames[ci] = warp_translation_batch(
-                    c, shifts[base:base + ni], args.interpolation, args.clamp)
-                base += ni
-            del c
+            _warp_frames(frames, Hs, (H, W), args)
 
     if coeffs is None:
         with clock("normalize"):
@@ -303,6 +292,56 @@ def fused_preprocess_stack(seq: Sequence, args: Optional[FusedArgs] = None,
     return StackResult(image=img, total_rejected=tot,
                        elapsed_s=time.perf_counter() - t0,
                        stage_s=clock.seconds, capped=capped)
+
+
+def pick_rung(Hs, size, interpolation: int):
+    """The ladder's rung for frame→reference homographies ``Hs`` and its
+    parameters: ("translation", shifts), and for lanczos4 ("rotation",
+    rot), ("affine", aff) or ("perspective", persp), the first whose gate
+    holds every frame; else ("gather", None).  The FFT rungs interpolate
+    with exact sinc, so other interpolations take the gather warp
+    (siril_tpu/pipeline.py:288-296)."""
+    shifts = interp.translations_from_Hs(Hs)
+    if shifts is not None:
+        return "translation", shifts
+    if interpolation == interp.INTERP_LANCZOS4:
+        for name, gate in (("rotation", interp.rotations_from_Hs),
+                           ("affine", interp.affines_from_Hs),
+                           ("perspective", interp.perspective_split_from_Hs)):
+            params = gate(Hs, size)
+            if params is not None:
+                return name, params
+    return "gather", None
+
+
+def _warp_frames(frames: List[torch.Tensor], Hs, size,
+                 args: FusedArgs) -> None:
+    """Replace each (n_i, L, H, W) chunk of ``frames`` by its frames warped
+    by their homographies, on the rung ``pick_rung`` chooses for the whole
+    batch (one chunk's input and output live at a time)."""
+    rung, params = pick_rung(Hs, size, args.interpolation)
+    _log.info("fused: warp rung %s for %d frames", rung, len(Hs))
+    base = 0
+    for ci, c in enumerate(frames):
+        sl = slice(base, base + c.shape[0])
+        base += c.shape[0]
+        if rung == "translation":
+            w = interp.warp_translation_batch(c, params[sl],
+                                              args.interpolation, args.clamp)
+        elif rung == "rotation":
+            w = interp.warp_rotation_batch(
+                c, tuple(a[sl] for a in params), clamp=args.clamp)
+        elif rung == "affine":
+            w = interp.warp_affine_batch(
+                c, tuple(a[sl] for a in params), clamp=args.clamp)
+        elif rung == "perspective":
+            M, b, flip, K, D = params
+            w = interp.warp_perspective_batch(
+                c, (M[sl], b[sl], flip[sl], K[sl], D), clamp=args.clamp)
+        else:
+            w = interp.warp_homography_batch(c, Hs[sl], size,
+                                             args.interpolation, args.clamp)
+        frames[ci] = w
 
 
 def _calibrate_chunk(x: torch.Tensor, cal: dict, ca: CalibArgs,

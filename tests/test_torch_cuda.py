@@ -29,7 +29,19 @@ JAX):
 - the preprocessing script (chip_smoke.PREPROCESSING_SCRIPT on a small
   synthetic night) on the card against the CPU: the masters and pp_
   frames within one 16-bit step, H within 0.2 px at the corners and the
-  results within 1e-4 on average (tests/test_torch_script.py's reasons).
+  results within 1e-4 on average (tests/test_torch_script.py's reasons);
+- each rung of the FFT warp ladder on the card against the CPU: cuFFT and
+  pocketfft round differently, so the tolerance of
+  tests/test_torch_interp.py (2e-5 but where a clamp or mask decided
+  otherwise, on at most 1e-3 of the pixels);
+- fusedstack with a homography registration (field rotation and a
+  meridian flip) on the card against the CPU: the same rung, H within
+  0.01 px at the corners, the interior within 1e-4 but on 0.05 % of the
+  pixels (a rejection flipped by LM fits that differ between devices),
+  at most 5e-3 there;
+- a feathered, overlap-normalized mosaic stack (K1e with per-pixel
+  weights) and ``max -maximize`` on the card against the CPU: within
+  2e-6 and equal.
 """
 
 import numpy as np
@@ -338,3 +350,151 @@ def test_script_on_card_vs_cpu(tmp_path):
     b = read_fits(os.path.join(gdir, "process", "result.fit")).host()[0]
     inner = np.s_[16:-16, 16:-16]
     assert np.abs(a[inner] - b[inner]).mean() < 1e-4
+
+
+def _stars(rng, n, h, w, nstars=12):
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = np.full((n, 1, h, w), 0.05, np.float32)
+    for k in range(n):
+        for _ in range(nstars):
+            x0, y0 = rng.uniform(8, w - 8), rng.uniform(8, h - 8)
+            out[k, 0] += 0.5 * np.exp(-((xx - x0) ** 2 + (yy - y0) ** 2)
+                                      / (2 * 1.5 ** 2))
+        out[k, 0] += rng.normal(0, 0.01, (h, w)).astype(np.float32)
+    return out
+
+
+def _similar(*params, size=(200, 240)):
+    from chip_smoke import similar_map
+
+    return similar_map(*params, size=size)
+
+
+LADDER = {
+    "rotation": ("rotations_from_Hs", "warp_rotation_batch",
+                 [(1, 0, 0, 0), (1, 0.6, 2.3, -1.2), (1, 179.6, -1.5, 2.2)]),
+    "affine": ("affines_from_Hs", "warp_affine_batch",
+               [(1, 0, 0, 0), (1.01, 0.6, 2.3, -1.2),
+                (0.99, 179.6, -1.5, 2.2)]),
+    "perspective": ("perspective_split_from_Hs", "warp_perspective_batch",
+                    [(1, 0, 0, 0), (1.004, 0.5, 2, -1, 1e-4, -0.6e-4),
+                     (0.997, 179.3, -2, 2, -0.7e-4, 0.5e-4)]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", sorted(LADDER))
+def test_ladder_rung_on_card_vs_cpu(rung):
+    _need_card()
+    from siril_tpu_torch.ops import interp
+
+    gate, warp, params = LADDER[rung]
+    size = (200, 240)
+    frames = torch.from_numpy(_stars(np.random.default_rng(83), 3, *size))
+    prm = getattr(interp, gate)(np.stack([_similar(*p) for p in params]),
+                                size)
+    assert prm is not None
+    for clamp in (True, False):
+        a = getattr(interp, warp)(frames, prm, clamp=clamp).numpy()
+        b = getattr(interp, warp)(frames.cuda(), prm,
+                                  clamp=clamp).cpu().numpy()
+        far = np.abs(a - b) > 2e-5
+        assert far.sum() <= 1e-3 * a.size
+        assert np.abs(a - b)[~far].max() <= 2e-5
+        assert ((a == 0) != (b == 0)).sum() <= 1e-3 * a.size
+
+
+@pytest.mark.cuda
+def test_fused_homography_on_card_vs_cpu(tmp_path):
+    """A field-rotated session with a meridian flip (frames 3 and 4
+    turned by 180°): the rotation rung on both devices."""
+    _need_card()
+    from siril_tpu_torch.ops import interp
+    from siril_tpu_torch.registration.matching import (
+        HOMOGRAPHY_TRANSFORMATION,
+    )
+
+    h, w = 160, 192
+    rng = np.random.default_rng(84)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    stars = [(rng.uniform(30, w - 30), rng.uniform(30, h - 30))
+             for _ in range(24)]
+    maps = [_similar(1, th, tx, ty, size=(h, w)) for th, tx, ty in
+            ((0, 0, 0), (0.6, 2, -1), (180.4, -2, 2), (179.5, 1, 1),
+             (-0.5, 3, -2))]
+    for i, Hm in enumerate(maps):
+        img = np.full((h, w), 0.05, np.float32)
+        for x0, y0 in stars:
+            v = Hm @ [x0, y0, 1.0]
+            img += 0.5 * np.exp(-(((xx - v[0]) ** 2 + (yy - v[1]) ** 2)
+                                  / (2 * 2.0 ** 2)))
+        img += rng.normal(0, 0.002, (h, w)).astype(np.float32)
+        si = SirilImage(data=np.clip(img, 1e-4, 1)[None].astype(np.float32))
+        si.keywords.exposure = 10.0
+        write_fits(si, str(tmp_path / f"rot_{i:05d}.fit"), bitdepth=16)
+    args = FusedArgs(ttype=HOMOGRAPHY_TRANSFORMATION,
+                     starfinder=StarFinderParams(radius=6))
+    args.stack.normalize = ADDITIVE_SCALING
+    runs = {}
+    real = interp.warp_rotation_batch
+    for dev in ("cpu", "cuda"):
+        calls = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(interp, "warp_rotation_batch",
+                       lambda *a, **k: calls.append(1) or real(*a, **k))
+            seq = Sequence.scan("rot_", str(tmp_path))
+            res = fused_preprocess_stack(seq, args, device=dev)
+        assert calls
+        runs[dev] = (seq, res)
+    (cseq, cres), (gseq, gres) = runs["cpu"], runs["cuda"]
+    c = np.array([[0, 0, 1], [w - 1, 0, 1], [0, h - 1, 1],
+                  [w - 1, h - 1, 1.0]])
+    qa = np.einsum("nij,cj->nci", cseq.reg(0).H, c)
+    qb = np.einsum("nij,cj->nci", gseq.reg(0).H, c)
+    assert np.abs(qa[..., :2] / qa[..., 2:]
+                  - qb[..., :2] / qb[..., 2:]).max() < 0.01
+    inner = np.s_[20:-20, 20:-20]
+    a, b = cres.image.host()[0][inner], gres.image.host()[0][inner]
+    d = np.abs(a - b)
+    assert (d > 1e-4).sum() <= 5e-4 * d.size
+    assert d.max() <= 5e-3
+    for r, g in zip(cres.total_rejected, gres.total_rejected):
+        assert abs(r - g) <= 0.005 * r
+
+
+@pytest.mark.cuda
+def test_mosaic_stack_on_card_vs_cpu(tmp_path):
+    """stack rej -norm=addscale -overlap_norm -feather= (K1e with
+    per-pixel weights) and max -maximize on 4 shifted tiles."""
+    _need_card()
+    from siril_tpu_torch.ops.stacking import StackArgs, stack_sequence
+
+    rng = np.random.default_rng(85)
+    sky = _stars(rng, 1, 120, 150, nstars=30)[0, 0]
+    th, tw = 72, 90
+    tiles = [(0, 0), (60, 0), (0, 48), (60, 48)]
+    for i, (x0, y0) in enumerate(tiles):
+        f = 0.02 * i + (1.0 - 0.03 * i) * sky[y0:y0 + th, x0:x0 + tw]
+        si = SirilImage(data=np.clip(f, 0, 1)[None].astype(np.float32))
+        write_fits(si, str(tmp_path / f"mos_{i + 1:05d}.fit"), bitdepth=-32)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        seq = Sequence.scan("mos_", str(tmp_path))
+        seq.reg(0).H[:, :2, 2] = tiles
+        seq.reg(0).valid[:] = True
+        k1.reset_counts()
+        rej = stack_sequence(seq, StackArgs(normalize=ADDITIVE_SCALING,
+                                            overlap_norm=True,
+                                            feather_dist=12), device=dev)
+        launches = dict(k1.launches)
+        mx = stack_sequence(seq, StackArgs(method="max", maximize=True),
+                            device=dev)
+        runs[dev] = (rej, mx, launches)
+    (crej, cmax, cl), (grej, gmax, gl) = runs["cpu"], runs["cuda"]
+    assert sum(cl.values()) == 0 and gl["K1e"] == 1
+    np.testing.assert_allclose(grej.image.host(), crej.image.host(), rtol=0,
+                               atol=2e-6)
+    for r, g in zip(crej.total_rejected, grej.total_rejected):
+        assert abs(r - g) <= 1e-5 * th * tw + 1
+    assert gmax.image.host().shape == (1, 120, 150)
+    np.testing.assert_array_equal(gmax.image.host(), cmax.image.host())

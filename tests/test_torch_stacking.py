@@ -19,7 +19,15 @@ CPU, on the same small FITS sequences made from a seed with numpy.
 - ``stack`` through the CLI writes the image, its STACKCNT and the
   rejection maps;
 - ``fusedstack`` with SIGMEDIAN, LINEARFIT and GESDT against the JAX
-  fused path (tolerances of tests/test_torch_pipeline.py).
+  fused path (tolerances of tests/test_torch_pipeline.py);
+- seam feathering (``-feather=``: per-pixel weights into the weighted
+  mean), in the cases above;
+- sum / min / max with and without ``-maximize``, with and without
+  shifts: equal (the same float64 sums in the same order);
+- the overlap normalization of a shifted mosaic of 4 tiles: the
+  coefficients equal (the same numpy code) and the stack within 1e-5;
+- the frame filters (``-filter-*`` in their absolute, ``%`` and ``k``
+  forms and ``-filter-incl``) on ``stack`` and ``seqapplyreg``.
 """
 
 import dataclasses
@@ -122,6 +130,11 @@ CASES = {
     "weight_wfwhm": ("u_", dict(normalize=3, weighting=2), None),
     "weight_nbstars": ("u_", dict(normalize=3, weighting=1), None),
     "weight_nbstack": ("f_", dict(normalize=3, weighting=4), None),
+    "feather_shifts": ("u_", dict(normalize=3, feather_dist=6),
+                       [(0, 0), (2, -1), (-3, 1), (1, 2), (0, -2), (3, 3),
+                        (-1, 0)]),
+    "feather_weight_noise": ("f_", dict(normalize=3, weighting=3,
+                                        feather_dist=4), None),
     "median": ("u_", dict(method="med"), None),
     "median_streamed": ("f_", dict(method="med", create_rejmaps=True),
                         [(1, 0)] * N),
@@ -312,10 +325,8 @@ def test_stack_args_from_flags_vs_jax():
 
 
 def test_stack_unported_raise(seqdir):
-    for words in (["u_", "sum"], ["u_", "-feather=5"], ["u_", "-drizzle"],
-                  ["u_", "-filter-fwhm=80%"], ["u_", "-maximize"],
-                  ["u_", "-overlap_norm"], ["u_", "-upscale"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for words in (["u_", "-drizzle"], ["u_", "-upscale"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP §1.4"):
             cli.run(["-d", seqdir, "--device", "cpu", "stack", *words])
 
 
@@ -363,3 +374,262 @@ def test_fusedstack_rejections_vs_jax(fused_dir, rtype, sl, sh):
     assert sum(got.total_rejected) > 0
     assert got.capped == 0
     assert np.abs(b[inner] - base[inner]).mean() < 0.01
+
+
+# ---------------------------------------------------------------------------
+# sum / min / max, maximize
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("maximize", [False, True])
+@pytest.mark.parametrize("method", ["sum", "min", "max"])
+def test_stack_accumulate_vs_jax(seqdir, method, maximize, shifted):
+    shifts = [(0, 0), (2, -1), (-3, 1), (1, 2), (0, -2), (3, 3),
+              (-1, 0)] if shifted else None
+    jseq, tseq = _both(seqdir, "f_", shifts)
+    jargs = jst.StackArgs(method=method, maximize=maximize)
+    ref = jst.stack_sequence(jseq, jargs)
+    got = tst.stack_sequence(
+        tseq, convert.stack_args(dataclasses.asdict(jargs)), device="cpu")
+    a, b = ref.image.host(), got.image.host()
+    want = (1, H + 5, W + 6) if shifted and maximize else (1, H, W)
+    assert a.shape == b.shape == want
+    np.testing.assert_array_equal(b, a)
+    assert got.image.keywords.stackcnt == N
+    assert {"read", "upload", "accumulate", "fetch"} <= set(got.stage_s)
+
+
+def test_cli_stack_sum_max_maximize(tmp_path):
+    d = str(tmp_path)
+    _write(d, "r_", -32)
+    seq = Sequence.scan("r_", d)
+    seq.reg(0).H[:, :2, 2] = [(k, -k) for k in range(N)]
+    seq.reg(0).valid[:] = True
+    seq.save()
+    s = cli.run(["-d", d, "--device", "cpu", "stack", "r_", "sum",
+                 "-out=sum"])
+    out = read_fits(os.path.join(d, "sum.fit")).host()
+    np.testing.assert_array_equal(out, s.result.image.host())
+    assert out.shape == (1, H, W) and out.max() == 1.0
+    s = cli.run(["-d", d, "--device", "cpu", "stack", "r_", "max",
+                 "-maximize", "-out=max"])
+    out = read_fits(os.path.join(d, "max.fit")).host()
+    assert out.shape == (1, H + N - 1, W + N - 1)
+
+
+# ---------------------------------------------------------------------------
+# a mosaic: overlap normalization and feathering
+# ---------------------------------------------------------------------------
+
+#: the mosaic's tiles: top-left corners on the sky, sky level, gain
+TILES = [((0, 0), 0.10, 1.00), ((32, 0), 0.13, 0.92), ((0, 24), 0.08, 1.07),
+         ((32, 24), 0.115, 0.96)]
+TILE_H, TILE_W = 32, 40
+
+
+def _mosaic(d, seed=31):
+    """4 tiles of one sky (56 × 72) with 8-pixel overlaps, each with its
+    own sky level and gain, 16-bit, and their shifts in both packages'
+    sequences; returns the sky."""
+    rng = np.random.default_rng(seed)
+    sky = (0.02 * rng.random((56, 72))).astype(np.float32)
+    yy, xx = np.mgrid[0:56, 0:72]
+    for _ in range(12):
+        x0, y0 = rng.uniform(4, 68), rng.uniform(4, 52)
+        sky += 0.3 * np.exp(-((xx - x0) ** 2 + (yy - y0) ** 2) / 3.0)
+    for i, ((x0, y0), level, gain) in enumerate(TILES):
+        f = level + gain * sky[y0:y0 + TILE_H, x0:x0 + TILE_W] + \
+            rng.normal(0, 0.003, (TILE_H, TILE_W))
+        write_fits(SirilImage(data=np.clip(f, 0, 1)[None].astype(
+            np.float32)), os.path.join(d, f"mos_{i + 1:05d}.fit"),
+            bitdepth=16)
+    seqs = _both(d, "mos_", [xy for xy, _, _ in TILES])
+    return sky, seqs
+
+
+@pytest.mark.parametrize("feather", [0, 8])
+@pytest.mark.parametrize("mode", [3, 1, 2])
+def test_overlap_normalization_vs_jax(tmp_path, mode, feather,
+                                      monkeypatch):
+    """The overlap normalization's coefficients on a shifted mosaic of 4
+    tiles equal the JAX package's; the stack (with and without seam
+    feathering) within 1e-5 of it, counts as test_stack_sequence_vs_jax
+    holds them; additive+scaling takes out each tile's level and gain, so
+    the seams show no step."""
+    from siril_tpu.ops import normalization as jnorm
+    from siril_tpu_torch.ops import normalization as tnorm
+
+    sky, (jseq, tseq) = _mosaic(str(tmp_path))
+    idx = np.arange(4)
+    ref_c = jnorm.compute_overlap_normalization(jseq, idx, mode)
+    got_c = tnorm.compute_overlap_normalization(tseq, idx, mode)
+    for k in ("offset", "mul", "scale"):
+        np.testing.assert_allclose(getattr(got_c, k), getattr(ref_c, k),
+                                   rtol=1e-12, atol=1e-15)
+    jargs = jst.StackArgs(method="rej", rejection=rj.WINSORIZED,
+                          normalize=mode, overlap_norm=True,
+                          feather_dist=feather)
+    ref = jst.stack_sequence(jseq, jargs)
+    calls = spy_k1(monkeypatch)
+    got = tst.stack_sequence(
+        tseq, convert.stack_args(dataclasses.asdict(jargs)), device="cpu")
+    assert calls[0][4]["weights"] is None or feather
+    if feather:
+        assert tuple(calls[0][4]["weights"].shape) == (4, TILE_H * TILE_W)
+    idx_w, _, pcount, jcount = winsorized_block_vs_jax(calls)
+    same = np.ones(TILE_H * TILE_W, bool)
+    same[idx_w] = False
+    a, b = ref.image.host().reshape(-1), got.image.host().reshape(-1)
+    np.testing.assert_allclose(b[same], a[same], rtol=0, atol=1e-5)
+    for g, r, pc, jc in zip(got.total_rejected, ref.total_rejected, pcount,
+                            jcount):
+        assert g - pc == r - jc
+    if mode == 3:
+        # the seam at x = 32 in the reference tile: tile 2 joins there;
+        # the level across it matches within the noise
+        out = got.image.host()[0]
+        step = out[2:22, 33:36].mean() - out[2:22, 28:31].mean()
+        want = sky[2:22, 33:36].mean() - sky[2:22, 28:31].mean()
+        assert abs(step - want) < 0.003
+
+
+def test_mosaic_max_maximize(tmp_path):
+    """max -maximize spreads the canvas over the four tiles' footprints:
+    the union of the mosaic, every pixel covered."""
+    sky, (jseq, tseq) = _mosaic(str(tmp_path))
+    jargs = jst.StackArgs(method="max", maximize=True)
+    ref = jst.stack_sequence(jseq, jargs)
+    got = tst.stack_sequence(tseq, convert.stack_args(
+        dataclasses.asdict(jargs)), device="cpu")
+    out = got.image.host()
+    assert out.shape == (1, 56, 72)
+    np.testing.assert_array_equal(out, ref.image.host())
+    assert (out > 0).all()
+
+
+# ---------------------------------------------------------------------------
+# frame filters
+# ---------------------------------------------------------------------------
+
+FILTERS = ["filter-fwhm=50%", "filter-fwhm=3k", "filter-fwhm=median",
+           "filter-round=75%", "filter-round=median", "filter-wfwhm=2k",
+           "filter-nbstars=50%", "filter-bkg=3k", "filter-quality=75%",
+           "filter-incl"]
+
+
+def _filter_seqs(rng):
+    """Both packages' sequences of N frames with regdata, frame 2
+    excluded and frame 5 without regdata."""
+    seqs = []
+    for mod in (JSequence, Sequence):
+        seq = mod.__new__(mod)
+        mod.__init__(seq, "x")
+        seq.number = N
+        seq.incl = np.ones(N, bool)
+        seq.incl[2] = False
+        seqs.append(seq)
+    vals = {c: rng.uniform(1, 5, N) for c in
+            ("fwhm", "weighted_fwhm", "roundness", "quality",
+             "background_lvl")}
+    vals["number_of_stars"] = rng.integers(10, 90, N)
+    for seq in seqs:
+        r = seq.reg(0)
+        for c, v in vals.items():
+            getattr(r, c)[:] = v
+        r.valid[:] = True
+        r.valid[5] = False
+    return seqs, vals
+
+
+def _flag(word, vals):
+    k, _, v = word.partition("=")
+    if v == "median":
+        attr = {"fwhm": "fwhm", "round": "roundness"}[k[len("filter-"):]]
+        v = repr(float(np.median(vals[attr])))
+    return k, (v or True)
+
+
+@pytest.mark.parametrize("word", FILTERS)
+def test_apply_filters_vs_jax(word):
+    from siril_tpu.core import filtering as jf
+    from siril_tpu_torch.core import filtering as tf
+
+    (jseq, tseq), vals = _filter_seqs(np.random.default_rng(5))
+    k, v = _flag(word, vals)
+    jspec, tspec = jf.parse_filter_flag(k, v), tf.parse_filter_flag(k, v)
+    assert dataclasses.asdict(tspec) == dataclasses.asdict(jspec)
+    want = jf.apply_filters(jseq, [jspec])
+    np.testing.assert_array_equal(tf.apply_filters(tseq, [tspec]), want)
+    assert 2 not in want
+    assert tf.filter_specs({k: v, "filter-nope": "3", "norm": "add"}) == \
+        [tspec]
+
+
+@pytest.fixture(scope="module")
+def registered(tmp_path_factory):
+    """A 4-frame sequence the JAX package registered (its .seq holds
+    each frame's FWHM, roundness, background and star count)."""
+    from siril_tpu.cli.commands import COMMANDS
+    from siril_tpu.cli.context import Session as JSession
+    from siril_tpu.io import seqfile as jsf
+    from tests.test_torch_registration import _reg_seqs
+
+    src = tmp_path_factory.mktemp("filters") / "src"
+    src.mkdir()
+    _reg_seqs(src, np.random.default_rng(44))
+    js = JSession(cwd=str(src))
+    js.prefs.sf_radius = 6
+    COMMANDS["register"].fn(js, ["g_", "-noout", "-transf=shift",
+                                 "-nostarlist"])
+    reg = jsf.read_seqfile(str(src / "g_.seq")).reg(0)
+    assert reg.valid.all() and len(set(reg.fwhm)) == 4
+    return src, {"fwhm": reg.fwhm, "roundness": reg.roundness}
+
+
+@pytest.mark.parametrize("command,word", [
+    ("stack", "filter-fwhm=50%"), ("stack", "filter-round=3k"),
+    ("stack", "filter-fwhm=median"), ("stack", "filter-incl"),
+    ("seqapplyreg", "filter-fwhm=75%"), ("seqapplyreg", "filter-round=2k"),
+    ("seqapplyreg", "filter-round=median")])
+def test_cli_filters_vs_jax(registered, tmp_path, command, word):
+    """``stack`` and ``seqapplyreg`` with a frame filter, through both
+    packages' commands on copies of the registered sequence: the same
+    frames kept, and the same result: the stack within 2e-6 (the same
+    frames), the 16-bit r_ frames within one 16-bit step (warps held to
+    2e-6 in tests/test_torch_interp.py round either way)."""
+    import shutil
+
+    from siril_tpu.cli.commands import COMMANDS
+    from siril_tpu.cli.context import Session as JSession
+
+    src, vals = registered
+    k, v = _flag(word, vals)
+    flag = f"-{k}" if v is True else f"-{k}={v}"
+    for d in ("jax", "port"):
+        shutil.copytree(src, tmp_path / d)
+    if command == "stack":
+        words = ["g_", "rej", "n", "-norm=addscale", flag, "-out=out"]
+    else:
+        words = ["g_", flag]
+    COMMANDS[command].fn(JSession(cwd=str(tmp_path / "jax")), words)
+    ts = cli.run(["-d", str(tmp_path / "port"), "--device", "cpu", command,
+                  *words])
+    if command == "stack":
+        a = read_fits(str(tmp_path / "jax" / "out.fit"))
+        b = read_fits(str(tmp_path / "port" / "out.fit"))
+        assert a.keywords.stackcnt == b.keywords.stackcnt
+        if v is not True:
+            assert b.keywords.stackcnt < 4
+        np.testing.assert_allclose(b.host(), a.host(), rtol=0, atol=2e-6)
+        return
+    names = {d: sorted(f for f in os.listdir(tmp_path / d)
+                       if f.startswith("r_g_") and f.endswith(".fit"))
+             for d in ("jax", "port")}
+    assert names["port"] == names["jax"] and 0 < len(names["port"]) < 4
+    for f in names["port"]:
+        np.testing.assert_allclose(
+            read_fits(str(tmp_path / "port" / f)).host(),
+            read_fits(str(tmp_path / "jax" / f)).host(), rtol=0,
+            atol=1 / 65535 + 1e-7)
+    assert ts.sequence.number == len(names["port"])
