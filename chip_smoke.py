@@ -17,7 +17,9 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               masters' frame count (N=CALIB_FRAMES, P=2^20, both dtypes
               and all three normalizations; then int16 at the masters'
               call size, P=SIZE², without normalization and
-              multiplicative);
+              multiplicative), and at the OSC stack's call (N=OSC_LIGHTS,
+              P=SIZE², int16, additive+scaling), the plain version on
+              2^20 pixels spread over P;
   k1     — the variants K1b SIGMEDIAN, K1c LINEARFIT, K1d GESDT over the
               same dtypes and normalizations at N=24, P=2^20; K1b, K1c and
               K1d at N=8, 16, 32 (register-path column sizes; K1d also
@@ -80,6 +82,17 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               known scene, its hot pixels and rays; and between them ``stack
               r_pp_light rej 3 3 -norm=addscale -filter-fwhm=90%`` (the
               kept count and the scene) and ``stack r_pp_light sum``;
+  osc    — the one-shot-colour script (OSC_SCRIPT) through -s on the
+              script phase's raw biases and darks and a colour night of
+              CALIB_FRAMES flats (a coloured panel) and OSC_LIGHTS 16-bit
+              RGGB SIZE² lights (coloured stars and sky, shifts, ray
+              tracks): the masters, calibrate -cfa -equalize_cfa
+              -debayer (RCD), register on layer 0, stack -output_norm
+              -rgb_equal (K1a once a layer); the result's three layers
+              against the scene after one affine fit each, the stars'
+              R/G and B/G flux ratios, the hot pixels, the rays; then
+              every demosaic method on the card against the CPU on a
+              DEMOSAIC_CROP² crop of a light, and timed on a SIZE² one;
   mosaic — 4 SIZE² tiles with MOSAIC_OVERLAP px overlaps of one sky, each
               with its own level and gain: ``register mosaic_ -transf=shift
               -noout`` (the known shifts written into the .seq where the
@@ -137,6 +150,34 @@ cd ../process
 calibrate light -bias=bias_stacked -dark=pp_dark_stacked -flat=pp_flat_stacked -cc=dark
 register pp_light
 stack r_pp_light rej 3 3 -norm=addscale {stack_flags}-out=result
+close
+"""
+
+# the osc phase: Siril's one-shot-colour preprocessing script
+# (OSC_Preprocessing.ssf) up to its stack, on the script phase's biases and
+# darks and a colour night's flats and lights (the reference script then
+# mirrors and saves the result, image-op commands not ported yet)
+OSC_LIGHTS = 16
+OSC_SCRIPT = """requires 1.2.0
+cd biases
+convert bias -out=../osc
+cd ../osc
+stack bias rej 3 3 -nonorm -out=bias_stacked
+cd ../osc_flats
+convert flat -out=../osc
+cd ../osc
+calibrate flat -bias=bias_stacked
+stack pp_flat rej 3 3 -norm=mul -out=pp_flat_stacked
+cd ../darks
+convert dark -out=../osc
+cd ../osc
+stack dark rej 3 3 -nonorm -out=dark_stacked
+cd ../osc_lights
+convert light -out=../osc
+cd ../osc
+calibrate light -dark=dark_stacked -flat=pp_flat_stacked -cc=dark -cfa -equalize_cfa -debayer
+register pp_light
+stack r_pp_light rej 3 3 -norm=addscale -output_norm -rgb_equal -out=result
 close
 """
 
@@ -395,12 +436,14 @@ def log_steps(name: str, work: dict, p: int) -> None:
 def phase_k1a(seed: int):
     import torch
 
+    from siril_tpu_torch.kernels import reject_stack as k1
     from siril_tpu_torch.ops import rejection as rj
     from siril_tpu_torch.ops.normalization import (
         ADDITIVE_SCALING,
         MULTIPLICATIVE,
         NO_NORM,
     )
+    from siril_tpu_torch.ops.stacking import reject_stack_plain
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -498,8 +541,48 @@ def phase_k1a(seed: int):
         if not r["ok"]:
             failures.append(f"masters' call winsorized/i16/{nname}")
     del rawm
+
+    # the OSC stack's call, once a colour layer: 16-bit registered lights,
+    # winsorized, addscale, N = OSC_LIGHTS, one block of SIZE² pixels; the
+    # kernel over all of them, the plain version on a slice spread over P
+    # (each pixel's result depends on its own column only)
+    n16, p16 = OSC_LIGHTS, SIZE * SIZE
+    g16 = torch.Generator(device=dev)
+    g16.manual_seed(seed + 16)
+    raw16 = (torch.round(make_stack(g16, n16, p16, dev) * 65535.0)
+             - 32768.0).to(torch.int16)
+    sc16 = 1.0 + 0.02 * torch.randn(n16, generator=g16, device=dev)
+    off16, one16 = sc16 * 0.1 - 0.1, torch.ones_like(sc16)
+    kw = dict(rtype=rj.WINSORIZED, mode=ADDITIVE_SCALING, siglow=3.0,
+              sighigh=3.0)
+    got = k1.reject_mean(raw16, sc16, off16, one16, **kw)
+    ms16 = _events_ms(lambda: k1.reject_mean(raw16, sc16, off16, one16,
+                                             **kw), 10)
+    idx = spread_slice(p16, 1 << 20, COLUMN_CHUNKS, dev)
+    work16, refs = {}, []
+    plain16 = _events_ms(lambda: refs.append(reject_stack_plain(
+        raw16[:, idx].contiguous(), sc16, off16, one16,
+        work=None if refs else work16, **kw)), 1)
+    ref = refs[0]
+    nbad = int(((got[1][idx] != ref[1]) | (got[2][idx] != ref[2])).sum())
+    err16 = float((got[0][idx] - ref[0]).abs().max())
+    scaled = {key: work16.get(key, 0) * p16 / idx.numel()
+              for key in ("flops", "compares")}
+    osc = dict(n=n16, p=p16, slice=int(idx.numel()), ms=ms16,
+               plain_ms=plain16, max_abs_err=err16,
+               **_bound(n16 * p16 * 2 + 3 * n16 * 4 + p16 * 12, scaled))
+    log(f"  winsorized/i16/addscale N={n16} P={p16} (the OSC stack's call, "
+        f"one a colour layer): kernel {ms16:.3f} ms; on {idx.numel()} "
+        f"pixels in {COLUMN_CHUNKS} runs over P count mismatches {nbad}, "
+        f"max|Δmean| {err16:.3g}, plain {plain16:.1f} ms; bound "
+        f"{osc['bound_ms']:.4f} ms ({osc['bound_by']}); kernel = "
+        f"{ms16 / osc['bound_ms']:.1f}x the bound")
+    if nbad or err16 != 0.0 or not bool(torch.isfinite(got[0]).all()):
+        failures.append("OSC call winsorized/i16/addscale")
+    del raw16, got
     if failures:
         raise RuntimeError(f"K1a out of tolerance: {failures}")
+    full["other_sizes"] = [osc]
     return full
 
 
@@ -1000,11 +1083,117 @@ def synth_session(root: str, seed: int, size: int, lights: int,
             put(sub, f"light_{k + 1:05d}.fit", f)
     scene = _render(size, sky, sx, sy, amp) * np.float32(vig.mean())
     return dict(scene=scene, sigma_n=sigma_n, ray=ray, hot=(hy, hx),
-                transforms=transforms, rays=rays)
+                transforms=transforms, rays=rays, bias=bias, dark=dark)
 
 
-def write_u16_fits(path: str, u16) -> None:
-    """Minimal 16-bit FITS (BZERO 32768, bottom-up rows)."""
+#: the OSC night's per-site response of the flat panel (R, G, B): a
+#: coloured flat, which -equalize_cfa takes out of the master flat
+OSC_PANEL = (0.8, 1.0, 0.6)
+#: the OSC night's sky level in R, G, B
+OSC_SKY = (0.10, 0.12, 0.08)
+#: the OSC night's star σ, px: a colour sensor samples red and blue on
+#: every other pixel, so a star of the mono nights' 1.3 px is demosaiced
+#: into a blocky, non-round red or blue profile
+OSC_PSF = 2.0
+
+
+def _render_cfa(sky_cfa, cx, cy, amp_rgb):
+    """An RGGB mosaic of stars of σ OSC_PSF on ``sky_cfa`` (the sky's
+    mosaic): each pixel takes the star amplitudes of its site's colour
+    (site (y % 2) + (x % 2): 0 R, 1 G, 2 B)."""
+    import numpy as np
+
+    size = sky_cfa.shape[0]
+    img = sky_cfa.copy()
+    r = 6
+    oy, ox = np.mgrid[-r:r + 1, -r:r + 1]
+    px = np.floor(cx).astype(np.int64)[:, None, None] + ox[None]
+    py = np.floor(cy).astype(np.int64)[:, None, None] + oy[None]
+    d2 = (px + 0.5 - cx[:, None, None]) ** 2 + \
+        (py + 0.5 - cy[:, None, None]) ** 2
+    a = np.take_along_axis(amp_rgb[:, None, None, :],
+                           ((py % 2) + (px % 2))[..., None], axis=3)[..., 0]
+    val = a * np.exp(-d2 / (2 * OSC_PSF ** 2))
+    inb = (px >= 0) & (px < size) & (py >= 0) & (py < size)
+    np.add.at(img, (py[inb], px[inb]), val[inb].astype(np.float32))
+    return img
+
+
+def synth_osc(root: str, seed: int, size: int, lights: int, flats: int,
+              nstars: int, bias, dark, gain: float = 1.0) -> dict:
+    """A one-shot-colour night beside a mono night's raw biases and darks
+    (a colour sensor's bias and dark have no colour, so ``bias`` and
+    ``dark`` are that night's): ``flats`` flats (bias + the vignetting
+    through the panel's colour OSC_PANEL) under ``osc_flats/`` and
+    ``lights`` 16-bit RGGB lights under ``osc_lights/`` of a field of
+    ``nstars`` stars, each with its own colour (R/G and B/G drawn in
+    [0.5, 1.5]), on the coloured sky OSC_SKY, seen through the same
+    vignetting, with bias, dark current and noise as ``synth_session``'s
+    and a ray track of 3-5 px per 4,000,000 px (4 at 4096²: the
+    demosaic spreads a track into a round blob on every layer, brighter
+    than any star, and register's triangle match takes the brightest
+    detections; with the mono night's one per 40,000 px every light's
+    brightest detections were tracks and no match held); frame 0 is the
+    reference, the others shifted by up to ±12.5 px.  Returns the scene per colour as calibration leaves
+    it ((3, size, size), × the flat's mean), the star positions and
+    colours, the noise, the reference frame's rays, each
+    light's shift and the reference frame's mosaic without noise,
+    vignetting or calibration frames ("clean")."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sigma_n, ray, read_n = 0.01, 1.0, 0.002
+    sx, sy, amp = _star_field(rng, size, nstars)
+    amp = np.minimum(amp * gain, 0.45)
+    colour = np.stack([rng.uniform(0.5, 1.5, nstars), np.ones(nstars),
+                       rng.uniform(0.5, 1.5, nstars)], axis=1)
+    amp_rgb = (amp[:, None] * colour).astype(np.float32)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    c = size / 2.0
+    vig = 1.0 - 0.3 * ((xx + 0.5 - c) ** 2 + (yy + 0.5 - c) ** 2) / \
+        (2 * c * c)
+    site = ((yy.astype(np.int64) % 2) + (xx.astype(np.int64) % 2))
+    panel = np.asarray(OSC_PANEL, np.float32)[site]
+    sky_cfa = np.asarray(OSC_SKY, np.float32)[site]
+    del yy, xx, site
+
+    def noise(s):
+        return s * rng.standard_normal((size, size), dtype=np.float32)
+
+    def put(sub, name, f):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        write_u16_fits(os.path.join(root, sub, name),
+                       np.rint(np.clip(f, 0, 1) * 65535.0).astype(np.uint16),
+                       bayer="RGGB")
+
+    for i in range(flats):
+        put("osc_flats", f"flat_{i + 1:05d}.fit",
+            bias + 0.5 * vig * panel + noise(read_n))
+    del panel
+    rays, shifts = None, []
+    for k in range(lights):
+        dx = dy = 0.0
+        if k:
+            dx, dy = (float(rng.integers(-12, 13) + rng.uniform(-0.5, 0.5))
+                      for _ in range(2))
+        shifts.append((dx, dy))
+        f = bias + dark + vig * _render_cfa(sky_cfa, sx + dx, sy + dy,
+                                            amp_rgb) + noise(sigma_n)
+        hit = _ray_tracks(rng, f, max(size * size // 4_000_000, 4), ray)
+        if k == 0:
+            rays = hit
+        put("osc_lights", f"light_{k + 1:05d}.fit", f)
+    scene = np.stack([_render(size, OSC_SKY[ch], sx, sy, amp_rgb[:, ch],
+                              OSC_PSF) for ch in range(3)]) * \
+        np.float32(vig.mean())
+    return dict(scene=scene, sx=sx, sy=sy, amp=amp_rgb, sigma_n=sigma_n,
+                rays=rays, shifts=shifts,
+                clean=_render_cfa(sky_cfa, sx, sy, amp_rgb))
+
+
+def write_u16_fits(path: str, u16, bayer: str = "") -> None:
+    """Minimal 16-bit FITS (BZERO 32768, bottom-up rows); ``bayer`` adds
+    a BAYERPAT card (a one-shot-colour camera's raw frame)."""
     import numpy as np
 
     h, w = u16.shape
@@ -1012,7 +1201,10 @@ def write_u16_fits(path: str, u16) -> None:
              "NAXIS   =                    2",
              f"NAXIS1  = {w:>20}", f"NAXIS2  = {h:>20}",
              "BZERO   =              32768.0", "BSCALE  =                  1.0",
-             "EXPTIME =                 60.0", "END"]
+             "EXPTIME =                 60.0"]
+    if bayer:
+        cards.append(f"BAYERPAT= '{bayer}'")
+    cards.append("END")
     hdr = "".join(c.ljust(80) for c in cards).encode("ascii")
     hdr += b" " * ((-len(hdr)) % 2880)
     body = (u16[::-1].astype(np.int32) - 32768).astype(">i2").tobytes()
@@ -1471,10 +1663,12 @@ def _scene_checks(name, out, made, rays, session_result, launches, extra):
     return failed, err
 
 
-def phase_script(seed: int):
+def phase_script(seed: int, osc_root: str):
     """The standard preprocessing script through the port's -s entry on a
     synthetic night at full width, then fusedstack with the same masters.
-    Returns ({path: {variant: launches}}, {command: row}, walls)."""
+    The night's raw biases and darks then move to ``osc_root`` for the
+    osc phase.  Returns ({path: {variant: launches}}, {command: row},
+    walls, the night's bias, dark and hot pixels)."""
     import numpy as np
     import torch
 
@@ -1623,13 +1817,267 @@ def phase_script(seed: int):
                     float(fout.max()) < 0.8 * made["ray"]})
         if failed or ffailed:
             raise RuntimeError(f"script checks failed: {failed + ffailed}")
+        for sub in ("biases", "darks"):
+            shutil.move(os.path.join(tmp, sub), os.path.join(osc_root, sub))
         return ({"script": launches, "fusedstack calibrated": flaunch,
                  "stack -filter-fwhm=90%": filt_launch},
                 rows, dict(script=wall, fused=fwall, script_err=err,
                            fused_err=ferr,
-                           fused_stages=fused.result.stage_s))
+                           fused_stages=fused.result.stage_s),
+                {k: made[k] for k in ("bias", "dark", "hot")})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: the osc phase compares every demosaic method (X-Trans with a standard
+#: 6×6 pattern on the same pixels) cuda against cpu on a crop of a light
+DEMOSAIC_CROP = 1024
+#: the flux ratio tolerances, on the median over bright isolated stars of
+#: measured R/G (B/G) over a reference ratio: against the same demosaic
+#: of the reference frame's mosaic without noise or calibration, within
+#: 3 % (noise, the flat and the stack are all that differ); against the
+#: stars' true colours, within 10 % (measured on noiseless 1024² mosaics
+#: of σ 2 px stars: RCD, the reference's re-derivation, reads R/G and B/G
+#: 5.2 % low, bilinear 0.5-0.8 %).  Without -equalize_cfa the flat's
+#: colour would move the ratios by 20-40 %.
+OSC_RATIO_TOL = 0.03
+OSC_TRUE_RATIO_TOL = 0.10
+
+
+def _star_fluxes(img, xs, ys):
+    """Per star, per layer: the sum over a 13² box (3 σ of OSC_PSF) of
+    ``img`` (C, H, W) minus the median of the box's edge, × the box's
+    pixel count."""
+    import numpy as np
+
+    half = 6
+    out = np.empty((len(xs), img.shape[0]))
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        box = img[:, y - half:y + half + 1, x - half:x + half + 1]
+        edge = np.concatenate([box[:, 0], box[:, -1], box[:, 1:-1, 0],
+                               box[:, 1:-1, -1]], axis=1)
+        out[i] = box.sum(axis=(1, 2)) - np.median(edge, axis=1) * box[0].size
+    return out
+
+
+def _bright_isolated(made, size: int):
+    """Indices of the 60 brightest stars (green amplitude) at least 64 px
+    inside the frame with no other star within 14 px (beyond the flux
+    box)."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    sx, sy = made["sx"], made["sy"]
+    pts = np.stack([sx, sy], axis=1)
+    d, _ = cKDTree(pts).query(pts, k=2)
+    ok = (d[:, 1] > 14.0) & (sx > 64) & (sx < size - 64) & (sy > 64) & \
+        (sy < size - 64)
+    idx = np.nonzero(ok)[0]
+    return idx[np.argsort(made["amp"][idx, 1])[::-1][:60]]
+
+
+def _star_ratios(img, made, idx):
+    """(len(idx), 2) R/G and B/G flux ratios of the stars ``idx``."""
+    import numpy as np
+
+    f = _star_fluxes(img, np.floor(made["sx"][idx]).astype(int),
+                     np.floor(made["sy"][idx]).astype(int))
+    return np.stack([f[:, 0] / f[:, 1], f[:, 2] / f[:, 1]], axis=1)
+
+
+def _ratio_check(name, got, want, gains=(1.0, 1.0, 1.0)):
+    """Median over the stars of measured R/G and B/G (``got``) over the
+    reference ratios ``want`` × gains[c]/gains[1]; returns the two
+    medians."""
+    import numpy as np
+
+    q = got / (want * np.array([gains[0], gains[2]]) / gains[1])
+    meds = [float(np.median(q[:, k])) for k in (0, 1)]
+    spread = [float(np.percentile(q[:, k], 84) - np.percentile(q[:, k], 16))
+              for k in (0, 1)]
+    log(f"  {name}: over {len(q)} bright isolated stars, R/G median "
+        f"{meds[0]:.4f} (16-84 % spread {spread[0]:.4f}), B/G {meds[1]:.4f} "
+        f"({spread[1]:.4f})")
+    return meds
+
+
+def phase_osc(seed: int, root: str, night: dict):
+    """The one-shot-colour script through the port's -s entry at full
+    width, on the script phase's biases and darks (in ``root``) and a
+    rendered colour night; then every demosaic method on the card against
+    the CPU on a crop of a light, and each timed on a full light.
+    Returns ({variant: launches}, {command: row}, walls, {method: ms})."""
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch import cli
+    from siril_tpu_torch.io.fits_io import read_fits
+    from siril_tpu_torch.kernels import reject_stack as k1
+    from siril_tpu_torch.ops import demosaic as dm
+    from siril_tpu_torch.ops.xtrans import XTRANS_PATTERNS
+
+    t = time.perf_counter()
+    made = synth_osc(root, seed + 21, SIZE, OSC_LIGHTS, CALIB_FRAMES, 4000,
+                     night["bias"], night["dark"])
+    log(f"  synthesized {CALIB_FRAMES} flats and {OSC_LIGHTS} 16-bit RGGB "
+        f"lights of {SIZE}x{SIZE} in {time.perf_counter() - t:.2f}s (the "
+        f"biases and darks are the script phase's)")
+    script = os.path.join(root, "osc.ssf")
+    with open(script, "w") as f:
+        f.write(OSC_SCRIPT)
+    k1.reset_counts()
+    t = time.perf_counter()
+    session = cli.run(["-d", root, "-s", script])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(k1.launches)
+    rows = {}
+    for e in session.command_log:
+        if e["seconds"] < 1e-3 and not e["launches"]:
+            continue
+        rows[e["command"]] = dict(seconds=e["seconds"],
+                                  launches=e["launches"], stages=e["stages"])
+        log(f"  {e['command']}: {e['seconds']:.3f}s, K1 launches "
+            f"{e['launches'] or 0}")
+        if e["stages"]:
+            log("    stages: " + ", ".join(
+                f"{k} {v:.3f}s" for k, v in e["stages"].items()))
+    proc = os.path.join(root, "osc")
+    out = read_fits(os.path.join(proc, "result.fit")).host()
+    pp = read_fits(os.path.join(proc, "pp_light_00001.fit")).host()
+    r_pp = sorted(f for f in os.listdir(proc)
+                  if f.startswith("r_pp_light_") and f.endswith(".fit"))
+    # registration on layer 0: each light's H against its true shift, at
+    # the frame's corners
+    from siril_tpu_torch.io.seqfile import read_seqfile
+
+    reg = read_seqfile(os.path.join(proc, "pp_light_.seq")).reg(0)
+    corners = np.array([[0, 0, 1], [SIZE, 0, 1], [0, SIZE, 1],
+                        [SIZE, SIZE, 1.0]])
+    reg_err = []
+    for k, (dx, dy) in enumerate(made["shifts"]):
+        q = corners @ reg.H[k].T
+        reg_err.append(float(np.abs(q[:, :2] / q[:, 2:] - corners[:, :2]
+                                    + np.array([dx, dy])).max()))
+    log(f"  register: stars a frame {reg.number_of_stars.tolist()}; H "
+        f"against the true shifts at the corners, px: "
+        f"{', '.join(f'{e:.3f}' for e in reg_err)}")
+    scene, sigma_n = made["scene"], made["sigma_n"]
+    m = 48
+    inner = np.s_[m:-m, m:-m]
+    # per layer, the affine map of the scene onto the result
+    fits, errs, sky_errs = [], [], []
+    for c in range(3):
+        s_, o_ = scene[c][inner].ravel(), out[c][inner].ravel()
+        a, b = np.polyfit(s_, o_, 1)
+        fits.append((a, b))
+        d = np.abs(o_ - (a * s_ + b)) / a
+        errs.append(float(d.mean()))
+        sky_errs.append(float(d[np.abs(s_ - np.median(s_)) < 1e-3].mean()))
+    # hot pixels of the dark on the sky, in scene units
+    hy, hx = night["hot"]
+    sky = np.abs(scene[1][hy, hx] - float(np.median(scene[1]))) < 1e-3
+    hy, hx = hy[sky], hx[sky]
+    hot_err = max((float(np.abs((out[c][hy, hx] - fits[c][1]) / fits[c][0]
+                                - scene[c][hy, hx]).max())
+                   for c in range(3)), default=np.inf)
+    ry, rx = made["rays"]
+    on = np.abs(scene[1][ry, rx] - float(np.median(scene[1]))) < 1e-3
+    ry, rx = ry[on], rx[on]
+    ray_err = max(float(np.abs((out[c][ry, rx] - fits[c][1]) / fits[c][0]
+                               - scene[c][ry, rx]).max()) for c in range(3))
+    pp_hot = float(np.abs(pp[:, hy, hx] - scene[:, hy, hx]).max(
+        initial=np.inf if len(hy) == 0 else 0.0))
+    # star colours: on the calibrated reference frame, and on the result
+    # with the stack's -rgb_equal gains (the scale estimators of the
+    # reference frame's layers; -output_norm is one map for all layers)
+    idx = _bright_isolated(made, SIZE)
+    true = made["amp"][idx][:, [0, 2]] / made["amp"][idx][:, 1:2]
+    clean = _star_ratios(dm.debayer(torch.from_numpy(made["clean"]).cuda(),
+                                    "RGGB").cpu().numpy(), made, idx)
+    # each frame's layer c is scaled by sca[0, ref] / sca[c, k] (the
+    # reference frame's layer 0 over its own scale estimator), so the
+    # result's layer by their mean over the frames
+    seq = session.sequence
+    ref = seq.get_reference()
+    sel = seq.selected_indices()
+    gains = tuple(float(np.mean([seq.get_frame_stats(0, ref).scale
+                                 / seq.get_frame_stats(c, int(k)).scale
+                                 for k in sel])) for c in range(3))
+    meds = {}
+    for name, img, g in (("pp_light_00001 (calibrated, debayered)", pp,
+                          (1.0, 1.0, 1.0)),
+                         ("result (-rgb_equal gains " + ", ".join(
+                             f"{v:.4f}" for v in gains) + ")", out, gains)):
+        got = _star_ratios(img, made, idx)
+        meds[name.split()[0]] = (
+            _ratio_check(f"{name} against the clean mosaic's RCD", got,
+                         clean, g),
+            _ratio_check(f"{name} against the true colours", got, true, g))
+    res = session.result
+    lights_cmd = [c for c in rows if c.startswith("stack r_pp_light")][0]
+    lights_launch = rows[lights_cmd]["launches"]
+    log(f"  OSC script wall {wall:.2f}s; r_pp_ frames {len(r_pp)}; per layer "
+        f"(R, G, B) interior mean |Δ| vs the scene after an affine fit "
+        f"{', '.join(f'{e:.5f}' for e in errs)} (on the sky "
+        f"{', '.join(f'{e:.5f}' for e in sky_errs)}; noise {sigma_n}); hot "
+        f"pixels on the sky {len(hy)}, max |Δ| there {hot_err:.5f} (result) "
+        f"{pp_hot:.5f} (pp_light_00001); the reference frame's {len(ry)} "
+        f"ray pixels on the sky, max |Δ| {ray_err:.5f}; rejected low/high "
+        f"{res.total_rejected[0]}/{res.total_rejected[1]}")
+    checks = {
+        "result: 3 layers of SIZE²": out.shape == (3, SIZE, SIZE),
+        "result finite": bool(np.isfinite(out).all()),
+        f"all {OSC_LIGHTS} lights registered": len(r_pp) == OSC_LIGHTS,
+        "every H within 0.5 px of the true shift at the corners":
+            max(reg_err) < 0.5,
+        "interior mean |Δ| < noise/3 on every layer":
+            max(errs) < sigma_n / 3,
+        "no hot pixel of the dark left (|Δ| < 0.02)": hot_err < 0.02,
+        "calibrated reference frame: no hot pixel (|Δ| < 5σ)":
+            pp_hot < 5 * sigma_n,
+        **{f"{what} flux ratios within {tol:.0%} of the {ref_}'s": max(
+            abs(q - 1.0) for q in meds[what][k]) < tol
+           for what in meds for k, ref_, tol in (
+               (0, "clean mosaic's RCD", OSC_RATIO_TOL),
+               (1, "true colours", OSC_TRUE_RATIO_TOL))},
+        "cosmic rays rejected (rej_high > 0, |Δ| < 0.05 at the reference "
+        "frame's rays)": res.total_rejected[1] > 0 and ray_err < 0.05,
+        "no loop stopped at its bound": res.capped == 0,
+        "K1a launched once a layer by the lights' stack, once by each "
+        "master": lights_launch == {"K1a": 3} and launches.get("K1a") == 6}
+    failed = [k for k, ok in checks.items() if not ok]
+    for k in failed:
+        log(f"  check osc: {k}: FAILED")
+
+    # every demosaic method: cuda against cpu on a crop, then timed
+    light = read_fits(os.path.join(root, "osc_lights", "light_00001.fit"))
+    pat = light.keywords.bayer_pattern
+    full = torch.from_numpy(light.host()[0]).cuda()
+    crop = full[:DEMOSAIC_CROP, :DEMOSAIC_CROP]
+    timings, worst = {}, 0.0
+
+    def run(method, x):
+        if method == "xtrans":
+            return dm.debayer(x, XTRANS_PATTERNS[0])
+        return dm.debayer(x, pat, dm.METHOD_NAMES[method])
+
+    for method in dm.METHOD_NAMES:
+        got = run(method, crop).cpu()
+        want = run(method, crop.cpu())
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        run(method, full)
+        ms = _events_ms(lambda: run(method, full), 3)
+        timings[method] = dict(ms=ms, cuda_vs_cpu=err)
+        log(f"  debayer {method}: cuda vs cpu on a {DEMOSAIC_CROP}² crop max "
+            f"|Δ| {err:.3g}; {ms:.3f} ms per {SIZE}² frame (CUDA events, "
+            f"median of 3)")
+        if not (err <= 1e-6 and bool(torch.isfinite(got).all())):
+            failed.append(f"debayer {method} cuda vs cpu")
+    if failed:
+        raise RuntimeError(f"osc checks failed: {failed}")
+    return launches, rows, dict(osc=wall, errs=errs), timings
 
 
 #: the mosaic phase: 2 × 2 tiles of SIZE² with MOSAIC_OVERLAP px overlaps
@@ -1904,8 +2352,15 @@ def main(argv=None) -> int:
         stack_launches, _ = phase_stack(args.seed)
         _, stack100 = phase_stack(args.seed + 1, STACK100, SIZE100,
                                   STACK100_RUNS)
-    with Phase("script"):
-        script_launches, _, _ = phase_script(args.seed)
+    osc_root = tempfile.mkdtemp(prefix="chip_smoke_osc_")
+    try:
+        with Phase("script"):
+            script_launches, _, _, night = phase_script(args.seed, osc_root)
+        with Phase("osc"):
+            osc_launches, _, _, _ = phase_osc(args.seed, osc_root, night)
+        del night
+    finally:
+        shutil.rmtree(osc_root, ignore_errors=True)
     with Phase("mosaic"):
         mosaic_launches, _, _ = phase_mosaic(args.seed)
     src = "siril_tpu_torch/csrc/reject_stack.cu"
@@ -1915,7 +2370,8 @@ def main(argv=None) -> int:
     # and the filtered stack; launches sums them
     by_path = {"fusedstack": launches,
                "fusedstack -transf=homography": hom_launches,
-               **{p: c["K1a"] for p, c in script_launches.items()}}
+               **{p: c["K1a"] for p, c in script_launches.items()},
+               "osc script": osc_launches["K1a"]}
     kernels = [dict(name="reject_stack (K1a)",
                     launches=sum(by_path.values()),
                     launches_by_path=by_path, replaces=f"{tpu}:763", **k1a)]

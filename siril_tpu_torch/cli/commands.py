@@ -1,9 +1,13 @@
 """The ported commands — counterpart of ``siril_tpu/cli/commands.py``
-(``requires``:321, ``cd``:217, ``setext``:237, ``close``:205, ``convert``
-:473, ``link``:500, ``_load_master``:601, ``_calib_args_from_flags``:617,
-``calibrate``:651, ``setfindstar``:833, ``_sf_params``:874, ``register``
+(``load``:98, ``save``:117, ``requires``:321, ``cd``:217, ``setext``:237,
+``close``:205, ``convert``:473, ``link``:500, ``_load_master``:601,
+``_calib_args_from_flags``:617, ``calibrate``:651, ``split_cfa``:763,
+``extract_Ha``:776, ``extract_Green``:790, ``extract_HaOIII``:802,
+``merge_cfa``:817, ``setfindstar``:833, ``_sf_params``:874, ``register``
 :910, ``seqapplyreg``:1059, ``stack``:1197, ``_stack_args_from_flags``
-:1121) and ``siril_tpu/cli/commands2.py`` (``fusedstack``:836).
+:1121, ``_seq_apply``:2684, ``seqsplit_cfa``:2792, ``seqextract_Ha``
+:2818, ``seqextract_Green``:2836, ``seqextract_HaOIII``:2846) and
+``siril_tpu/cli/commands2.py`` (``seqmerge_cfa``:369, ``fusedstack``:836).
 
 Each command keeps the reference's name, argument order and ``-key=value``
 flags, so the standard preprocessing scripts run unchanged.  Device work
@@ -134,6 +138,41 @@ def cmd_close(ctx: Session, args: List[str]) -> None:
     ctx.image = None
 
 
+@command("load", "load filename", min_args=1)
+def cmd_load(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.io.conversion import load_any
+
+    p = ctx.path(args[0])
+    if not os.path.exists(p):
+        for ext in (ctx.ext, ".fit", ".fits", ".fts", ".tif", ".png"):
+            if os.path.exists(p + ext):
+                p = p + ext
+                break
+        else:
+            raise CommandError(f"file not found: {args[0]}")
+    img = load_any(p)
+    ctx.set_image(img, os.path.basename(p))
+    _log.info("Reading FITS: '%s', %d layer(s), %dx%d", os.path.basename(p),
+              img.nchans, img.width, img.height)
+
+
+@command("save", "save filename", min_args=1)
+def cmd_save(ctx: Session, args: List[str]) -> None:
+    """Write the loaded image at its bit depth; ``$KEY:fmt$`` in the name
+    takes the image's keywords."""
+    from siril_tpu_torch.io.fits_io import write_fits
+    from siril_tpu_torch.utils.pathparse import parse_path
+
+    img = ctx.require_image()
+    pos, _ = parse_flags(args)
+    p = ctx.path(parse_path(pos[0], img) if "$" in pos[0] else pos[0])
+    os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
+    if not os.path.splitext(p)[1]:
+        p += ctx.ext
+    write_fits(img, p, bitdepth=img.orig_bitdepth)
+    _log.info("Saving FITS: '%s'", os.path.basename(p))
+
+
 # ===========================================================================
 # conversion
 # ===========================================================================
@@ -169,7 +208,7 @@ def cmd_convert(ctx: Session, args: List[str]) -> None:
     ctx.sequence = convert_to_sequence(
         files, pos[0], out_dir, output=output,
         start=int(_f(flags.get("start"), 1) or 1),
-        debayer="debayer" in flags)
+        debayer="debayer" in flags, device=ctx.device)
 
 
 @command("link", "link basename [-start=] [-out=]", min_args=1)
@@ -252,6 +291,190 @@ def cmd_calibrate(ctx: Session, args: List[str]) -> None:
 
 
 # ===========================================================================
+# CFA: channel extraction of one image and of sequences
+# ===========================================================================
+
+
+def _image_base(ctx: Session) -> str:
+    return os.path.splitext(ctx.image_name or "image")[0]
+
+
+def _prefix(flags: dict, default: str, key: str = "prefix") -> str:
+    return flags[key] if isinstance(flags.get(key), str) else default
+
+
+@command("split_cfa", "split_cfa")
+def cmd_split_cfa(ctx: Session, args: List[str]) -> None:
+    """The four CFA sites of the loaded image → CFA0_…CFA3_<name>."""
+    from siril_tpu_torch.io.fits_io import write_fits
+    from siril_tpu_torch.ops.extraction import split_cfa
+
+    base = _image_base(ctx)
+    for i, sub in enumerate(split_cfa(ctx.require_image())):
+        write_fits(sub, ctx.path(f"CFA{i}_{base}{ctx.ext}"))
+    _log.info("Extracted 4 CFA channels from %s", base)
+
+
+@command("extract_Ha", "extract_Ha [-upscale]")
+def cmd_extract_ha(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.io.fits_io import write_fits
+    from siril_tpu_torch.ops.extraction import extract_ha
+
+    _, flags = parse_flags(args)
+    out = extract_ha(ctx.require_image(), upscale="upscale" in flags)
+    base = _image_base(ctx)
+    write_fits(out, ctx.path(f"Ha_{base}{ctx.ext}"))
+    ctx.set_image(out, f"Ha_{base}")
+
+
+
+@command("extract_Green", "extract_Green")
+def cmd_extract_green(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.io.fits_io import write_fits
+    from siril_tpu_torch.ops.extraction import extract_green
+
+    out = extract_green(ctx.require_image())
+    base = _image_base(ctx)
+    write_fits(out, ctx.path(f"Green_{base}{ctx.ext}"))
+    ctx.set_image(out, f"Green_{base}")
+
+
+@command("extract_HaOIII", "extract_HaOIII [-resample=ha|oiii]")
+def cmd_extract_haoiii(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.io.fits_io import write_fits
+    from siril_tpu_torch.ops.extraction import extract_ha_oiii
+
+    _, flags = parse_flags(args)
+    ha, oiii = extract_ha_oiii(ctx.require_image(),
+                               resample=str(flags.get("resample", "oiii")))
+    base = _image_base(ctx)
+    write_fits(ha, ctx.path(f"Ha_{base}{ctx.ext}"))
+    write_fits(oiii, ctx.path(f"OIII_{base}{ctx.ext}"))
+    _log.info("Extracted Ha and OIII layers")
+
+
+@command("merge_cfa", "merge_cfa f0 f1 f2 f3 pattern", min_args=5)
+def cmd_merge_cfa(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.io.conversion import load_any
+    from siril_tpu_torch.ops.extraction import merge_cfa
+
+    imgs = [load_any(ctx.path(a)) for a in args[:4]]
+    ctx.set_image(merge_cfa(imgs, args[4]), "merged_cfa")
+
+
+def _seq_apply(ctx: Session, seqname: str, prefix: str, desc: str,
+               fn: Callable, output_bitdepth: Optional[int] = None):
+    """A single-image operation over a sequence through the engine → the
+    ``prefix`` sequence (the reference's generic_seq_args)."""
+    from siril_tpu_torch.core.engine import SeqArgs, run_sequence
+
+    seq = ctx.load_sequence(seqname)
+    res = run_sequence(SeqArgs(seq=seq, description=desc, prefix=prefix,
+                               image=lambda c, idx, img: fn(img),
+                               output_bitdepth=output_bitdepth))
+    ctx.sequence = res.new_seq or seq
+    ctx.stages = res.stage_s
+    _log.info("%s: %d images processed", desc, res.processed)
+    return res
+
+
+def _seq_write_each(ctx: Session, seqname: str, desc: str,
+                    outputs: Callable) -> None:
+    """Run ``outputs(img)`` → [(prefix, image), …] on every selected frame
+    and write each image beside the sequence as ``<prefix><name><num>``;
+    the engine writes nothing (the reference's hooks return no frame)."""
+    from siril_tpu_torch.core.engine import SeqArgs, run_sequence
+    from siril_tpu_torch.io.fits_io import write_fits
+
+    seq = ctx.load_sequence(seqname)
+
+    def image(c, idx, img):
+        num = int(seq.filenum[idx])
+        for prefix, out in outputs(img):
+            write_fits(out, os.path.join(
+                seq.directory,
+                f"{prefix}{seq.name}{num:0{seq.fixed_len}d}.fit"))
+        return None
+
+    run_sequence(SeqArgs(seq=seq, description=desc, image=image))
+
+
+@command("seqsplit_cfa", "seqsplit_cfa sequencename [-prefix=]",
+         min_args=1)
+def cmd_seqsplit_cfa(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.extraction import split_cfa
+
+    pos, flags = parse_flags(args)
+    prefix = _prefix(flags, "CFA_")
+    _seq_write_each(ctx, pos[0], "seqsplit_cfa", lambda img: [
+        (f"{prefix}{i}_", s) for i, s in enumerate(split_cfa(img))])
+
+
+@command("seqextract_Ha", "seqextract_Ha sequencename [-prefix=] "
+         "[-upscale]", min_args=1)
+def cmd_seqextract_ha(ctx: Session, args: List[str]) -> None:
+    """Each frame's red site; with ``-upscale`` resampled ×2 (lanczos4
+    with the clamp, on the session's device)."""
+    from siril_tpu_torch.ops.extraction import extract_ha
+    from siril_tpu_torch.ops.geometry import resample
+
+    pos, flags = parse_flags(args)
+
+    def op(img):
+        out = extract_ha(img)
+        if "upscale" in flags:
+            out = resample(out, out.width * 2, out.height * 2,
+                           device=ctx.device)
+        return out
+
+    _seq_apply(ctx, pos[0], _prefix(flags, "Ha_"), "seqextract_Ha", op)
+
+
+@command("seqextract_Green", "seqextract_Green sequencename [-prefix=]",
+         min_args=1)
+def cmd_seqextract_green(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.extraction import extract_green
+
+    pos, flags = parse_flags(args)
+    _seq_apply(ctx, pos[0], _prefix(flags, "Green_"), "seqextract_Green",
+               extract_green)
+
+
+@command("seqextract_HaOIII", "seqextract_HaOIII sequencename "
+         "[-resample=ha|oiii]", min_args=1)
+def cmd_seqextract_haoiii(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.extraction import extract_ha_oiii
+
+    pos, flags = parse_flags(args)
+    resample = str(flags.get("resample", "oiii")).lower()
+    _seq_write_each(ctx, pos[0], "seqextract_HaOIII", lambda img: zip(
+        ("Ha_", "OIII_"), extract_ha_oiii(img, resample=resample)))
+
+
+@command("seqmerge_cfa", "seqmerge_cfa seq0 seq1 seq2 seq3 pattern "
+         "[-prefixout=]", min_args=5)
+def cmd_seqmerge_cfa(ctx: Session, args: List[str]) -> None:
+    """Four sequences of CFA sites → one mosaic sequence, float32."""
+    from siril_tpu_torch.core.sequence import Sequence
+    from siril_tpu_torch.io.fits_io import write_fits
+    from siril_tpu_torch.ops.extraction import merge_cfa
+
+    pos, flags = parse_flags(args)
+    seqs = [ctx.load_sequence(p) for p in pos[:4]]
+    prefix = _prefix(flags, "mCFA_", "prefixout")
+    n = min(s.number for s in seqs)
+    files = []
+    for i in range(n):
+        p = ctx.path(f"{prefix}{i + 1:05d}{ctx.ext}")
+        write_fits(merge_cfa([s.read_frame(i) for s in seqs], pos[4]), p,
+                   bitdepth=FLOAT_IMG)
+        files.append(p)
+    ctx.sequence = Sequence.from_files(files, name=prefix.rstrip("_"))
+    ctx.sequence.save()
+    _log.info("seqmerge_cfa: %d frames merged", n)
+
+
+# ===========================================================================
 # registration
 # ===========================================================================
 
@@ -303,11 +526,11 @@ def _sf_params(ctx: Session):
 
 
 _REGISTER_UNPORTED = {
-    "3stars": "1/2/3-star registration (ROADMAP §1.5, the rest of "
+    "3stars": "1/2/3-star registration (ROADMAP §1.4, the rest of "
               "registration: registration/threestars.py)",
-    "drizzle": "drizzle output (ROADMAP §1.5, the rest of registration: "
+    "drizzle": "drizzle output (ROADMAP §1.1, drizzle and -upscale: "
                "register -drizzle)",
-    "disto": "SIP distortion correction (ROADMAP §1.5, the rest of "
+    "disto": "SIP distortion correction (ROADMAP §1.4, the rest of "
              "registration: register -disto)",
 }
 
@@ -365,9 +588,9 @@ def cmd_register(ctx: Session, args: List[str]) -> None:
 
 
 _APPLYREG_UNPORTED = {
-    "drizzle": "drizzle output (ROADMAP §1.5, the rest of registration: "
+    "drizzle": "drizzle output (ROADMAP §1.1, drizzle and -upscale: "
                "seqapplyreg -drizzle)",
-    "disto": "SIP distortion correction (ROADMAP §1.5, the rest of "
+    "disto": "SIP distortion correction (ROADMAP §1.4, the rest of "
              "registration: seqapplyreg -disto)",
 }
 
@@ -411,7 +634,7 @@ def cmd_seqapplyreg(ctx: Session, args: List[str]) -> None:
     if not seq.has_reg(aa.reglayer):
         raise CommandError(
             "no registration data in this sequence (homographies from "
-            "plate-solved frames are not ported: ROADMAP §1.5, the rest of "
+            "plate-solved frames are not ported: ROADMAP §1.4, the rest of "
             "registration: registration/astrometric.py)")
     res = apply_reg_sequence(seq, aa, device=ctx.device)
     ctx.sequence = res.new_seq or seq
@@ -561,10 +784,10 @@ def stack_args_from_flags(pos: List[str], flags: dict):
 
 #: flags of the stack command whose features are not ported yet
 _STACK_UNPORTED = {
-    "drizzle": "drizzle stacking (ROADMAP §1.4, the rest of the stack "
-               "command: ops/drizzle.py)",
-    "upscale": "the x2 up-scale before stacking (ROADMAP §1.4, the rest of "
-               "the stack command: ops/geometry.py)",
+    "drizzle": "drizzle stacking (ROADMAP §1.1, drizzle and -upscale: "
+               "ops/drizzle.py)",
+    "upscale": "the x2 up-scale before stacking (ROADMAP §1.1, drizzle and "
+               "-upscale: the doubled shifts of cli/commands.py:1228-1245)",
 }
 
 

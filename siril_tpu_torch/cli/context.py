@@ -1,7 +1,9 @@
 """CLI session state — counterpart of ``siril_tpu/cli/context.py``
-(``Session``:17, ``load_sequence``:86, ``CommandError``:118): the working
-directory, the FITS extension, the star-finder preferences, the current
-sequence and the last result of a headless run.
+(``Session``:17, ``require_image``:44, ``set_image``:59,
+``load_sequence``:86, ``CommandError``:118): the working directory, the
+FITS extension, the star-finder preferences, the loaded image and its
+name, the current sequence and the last result of a headless run.
+(The reference's undo stack is not ported: ROADMAP §1.9, the surfaces.)
 """
 
 from __future__ import annotations
@@ -31,12 +33,22 @@ class Session:
     pixel_size: float = 0.0                      # setfindstar -pixelsize=
     sequence: Optional[Sequence] = None
     image: Optional[SirilImage] = None
+    image_name: str = ""
     #: the last stack command's StackResult
     result: Optional[object] = None
     #: seconds per stage of the last command that keeps them
     stages: dict = field(default_factory=dict)
     #: one entry per script command: words, seconds, K1 launches, stages
     command_log: List[dict] = field(default_factory=list)
+
+    def require_image(self) -> SirilImage:
+        if self.image is None:
+            raise CommandError("no image loaded (use `load` first)")
+        return self.image
+
+    def set_image(self, img: SirilImage, name: str) -> None:
+        self.image = img
+        self.image_name = name
 
     def path(self, name: str) -> str:
         return name if os.path.isabs(name) else os.path.join(self.cwd, name)
@@ -54,7 +66,7 @@ class Session:
             seq = read_seqfile(self.path(base + ".seq"))
         elif os.path.exists(self.path(base + ".ser")) or name.endswith(".ser"):
             raise NotImplementedError(
-                f"{name}: SER sequences are not ported yet (ROADMAP §1.5, "
+                f"{name}: SER sequences are not ported yet (ROADMAP §1.3, "
                 "SER / FITS-cube / film sequences)")
         else:
             try:

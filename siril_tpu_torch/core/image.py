@@ -40,6 +40,8 @@ class Keywords:
     telescop: str = ""
     observer: str = ""
     bayer_pattern: str = ""
+    bayer_xoffset: int = 0
+    bayer_yoffset: int = 0
     exposure: float = 0.0
     livetime: float = 0.0
     stackcnt: int = 0
@@ -77,6 +79,10 @@ class SirilImage:
 
     def host(self) -> np.ndarray:
         return np.asarray(self.data, dtype=np.float32)
+
+    def is_cfa(self) -> bool:
+        """One layer with a Bayer or X-Trans pattern (BAYERPAT)."""
+        return self.nchans == 1 and bool(self.keywords.bayer_pattern)
 
     def copy(self, data: Any = None) -> "SirilImage":
         """A copy with ``data`` (default: a copy of this data); keywords

@@ -6,8 +6,9 @@ chunk reader ``siril_tpu/pipeline.py:501``.
 
 A trimmed copy: REGULAR sequences (one FITS file per frame), with what a
 ``.seq`` sidecar keeps (``io/seqfile.py``): file numbers, the selection,
-the reference, per-layer registration data and per-frame statistics.
-SER, FITS cubes and films are off the ported paths (ROADMAP §1.5).
+the reference, the frame sizes of a variable-size sequence, per-layer
+registration data and per-frame statistics.  SER, FITS cubes and films
+are off the ported paths (ROADMAP §1.3).
 """
 
 from __future__ import annotations
@@ -75,6 +76,9 @@ class Sequence:
         self.nb_layers = -1
         self.rx = 0
         self.ry = 0
+        #: frames of different sizes: (N, 2) (rx, ry) of each frame
+        self.is_variable = False
+        self.imgsize: Optional[np.ndarray] = None
         self.filenum = np.zeros(0, dtype=np.int64)
         #: layer → (N, 14) float64 statistics, NaN where absent
         self.stats: Dict[int, np.ndarray] = {}

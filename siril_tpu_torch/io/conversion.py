@@ -1,12 +1,14 @@
 """Format conversion — counterpart of ``siril_tpu/io/conversion.py``
-(``load_any``:26, ``convert_to_sequence``:106; reference
-``src/io/conversion.c``).
+(``load_any``:26, ``convert_to_sequence``:106, ``_read_item``:213;
+reference ``src/io/conversion.c``).
 
-FITS inputs only: ``convert`` rewrites them as ``name_00001.fit`` …,
-``link`` symlinks them (FITS_symlink.c), and either writes the ``.seq``.
-Other inputs raise ``NotImplementedError`` naming their ROADMAP item:
-camera raw and PIL images (§1.5 OSC and the image formats), SER and films
-(§1.5 SER / FITS-cube / film sequences), and the SER / FITS-cube outputs.
+FITS inputs only: ``convert`` rewrites them as ``name_00001.fit`` …
+(with ``-debayer``, a CFA frame demosaiced on ``device`` first: three
+layers, or half size with super-pixel), ``link`` symlinks them
+(FITS_symlink.c), and either writes the ``.seq``.  Other inputs raise
+``NotImplementedError`` naming their ROADMAP item: SER and films, and
+the SER / FITS-cube outputs (§1.3 SER / FITS-cube / film sequences),
+camera raw and PIL images (§1.5 image formats for convert).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Sequence as Seq
 
 from siril_tpu_torch.core.image import SirilImage
 from siril_tpu_torch.core.sequence import Sequence
+from siril_tpu_torch.device import DeviceLike
 
 _log = logging.getLogger(__name__)
 
@@ -33,27 +36,26 @@ def load_any(path: str) -> SirilImage:
     if ext in (".ser", ".avi", ".mp4", ".mov", ".mkv", ".webm"):
         raise NotImplementedError(
             f"{path}: SER and film inputs are not ported yet (ROADMAP "
-            "§1.5, SER / FITS-cube / film sequences)")
+            "§1.3, SER / FITS-cube / film sequences)")
     raise NotImplementedError(
         f"{path}: only FITS inputs are ported; camera raw, TIFF/PNG/JPEG "
-        "and the other formats are not yet (ROADMAP §1.5, OSC and the "
-        "image formats of io/)")
+        "and the other formats are not yet (ROADMAP §1.5, image formats "
+        "for convert)")
 
 
 def convert_to_sequence(inputs: Seq[str], dest_name: str,
                         directory: str = ".", output: str = "fits",
                         symlink: bool = False, start: int = 1,
-                        debayer: bool = False) -> Sequence:
+                        debayer: bool = False,
+                        device: DeviceLike = None) -> Sequence:
     """``convert`` / ``link``: FITS files → ``dest_name%05d.fit`` and its
-    ``.seq`` (conversion.c convert worker)."""
+    ``.seq`` (conversion.c convert worker); ``debayer`` demosaics CFA
+    frames on ``device`` (CUDA unless "cpu") before writing them.  A
+    symlinked FITS file is linked as it is."""
     if output != "fits":
         raise NotImplementedError(
             f"convert to {output}: SER and FITS-cube outputs are not ported "
-            "yet (ROADMAP §1.5, SER / FITS-cube / film sequences)")
-    if debayer:
-        raise NotImplementedError(
-            "convert -debayer: demosaicing is not ported yet (ROADMAP §1.5, "
-            "OSC)")
+            "yet (ROADMAP §1.3, SER / FITS-cube / film sequences)")
     inputs = sorted(inputs)
     if not inputs:
         raise ValueError("no input files")
@@ -72,7 +74,12 @@ def convert_to_sequence(inputs: Seq[str], dest_name: str,
         else:
             from siril_tpu_torch.io.fits_io import write_fits
 
-            write_fits(load_any(src), out)
+            img = load_any(src)
+            if debayer and img.is_cfa():
+                from siril_tpu_torch.ops.demosaic import debayer_image
+
+                img = debayer_image(img, device=device)
+            write_fits(img, out)
         files.append(out)
     _log.info("Converted %d files to sequence %s", len(files), dest_name)
     seq = Sequence.from_files(files, name=dest_name, directory=directory)

@@ -193,7 +193,8 @@ def image_hdus(path: Union[str, os.PathLike]) -> List[HDUInfo]:
         if h.bitpix not in _DTYPES:
             raise NotImplementedError(
                 f"{path}: BITPIX {h.bitpix} is not ported yet (the port "
-                "reads BITPIX 16 and -32; ROADMAP §1 off-path modules)")
+                "reads BITPIX 16 and -32; ROADMAP §1.2, FITS BITPIX "
+                "8/32/-64)")
     return hdus
 
 
@@ -225,6 +226,8 @@ _KEYMAP = {
     "TELESCOP": "telescop",
     "OBSERVER": "observer",
     "BAYERPAT": "bayer_pattern",
+    "XBAYROFF": "bayer_xoffset",
+    "YBAYROFF": "bayer_yoffset",
     "EXPTIME": "exposure",
     "LIVETIME": "livetime",
     "STACKCNT": "stackcnt",
@@ -324,7 +327,7 @@ def write_fits(img: SirilImage, path: Union[str, os.PathLike],
     else:
         raise NotImplementedError(
             f"saving bitdepth {bd} is not ported yet (BITPIX 16 and -32 "
-            "only; ROADMAP §1 off-path modules)")
+            "only; ROADMAP §1.2, FITS BITPIX 8/32/-64)")
     naxis = 2 if c == 1 else 3
     cards.append(("NAXIS", naxis, "number of data axes"))
     cards.append(("NAXIS1", wid, "length of data axis 1"))

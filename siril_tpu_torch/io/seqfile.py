@@ -6,13 +6,13 @@ writeseqfile:720).  Cards:
   S 'name' beg number selnum fixed ref version [variable fz drizzle]
   TS / TA / TF            sequence type (SER / film / FITS cube)
   L nb_layers
-  I filenum incl
+  I filenum incl [rx,ry]  (the size of each frame of a variable-size sequence)
   Rx fwhm wfwhm roundness quality bg nbstars H h00..h22
   Mx-y total ngoodpix mean median sigma avgdev mad sqrtbwmv loc scale min max norm bgnoise
   D/O/E cards — kept as opaque lines and written back unchanged.
 
-Sequences of uncompressed FITS files of one size only: a SER, film or
-FITS-cube sidecar, a compressed (fz) or a variable-size one raises
+Sequences of uncompressed FITS files (of one size, or of each frame's own
+size): a SER, film or FITS-cube sidecar, or a compressed (fz) one, raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -53,22 +53,21 @@ def read_seqfile(path: str) -> Sequence:
                 # toks[3] = selnum (recomputed), toks[4] = fixed
                 seq.fixed_len = int(toks[4])
                 seq.reference_image = int(toks[5])
-                if len(toks) > 7 and int(toks[7]):
-                    raise NotImplementedError(
-                        f"{path}: sequences of frames of different sizes "
-                        "are not ported yet (ROADMAP §1.4, the rest of the "
-                        "stack command: -maximize)")
+                if len(toks) > 7:
+                    seq.is_variable = bool(int(toks[7]))
                 if len(toks) > 8 and int(toks[8]):
                     raise NotImplementedError(
                         f"{path}: compressed (fz) sequences are not ported "
-                        "yet (ROADMAP §1.5, tiled compression)")
+                        "yet (ROADMAP §1.2, tiled compression)")
                 seq.filenum = np.zeros(seq.number, dtype=np.int64)
                 seq.incl = np.ones(seq.number, dtype=bool)
+                if seq.is_variable:
+                    seq.imgsize = np.zeros((seq.number, 2), dtype=np.int64)
             elif c0 == "T" and seq is not None:
                 kind = _UNPORTED_TYPES.get(line[1] if len(line) > 1 else "F")
                 raise NotImplementedError(
                     f"{path}: {kind} sequences are not ported yet "
-                    "(ROADMAP §1.5, SER / FITS-cube / film sequences)")
+                    "(ROADMAP §1.3, SER / FITS-cube / film sequences)")
             elif c0 == "L" and seq is not None:
                 seq.nb_layers = int(line[1:].split()[0])
             elif c0 == "I" and seq is not None:
@@ -76,6 +75,10 @@ def read_seqfile(path: str) -> Sequence:
                 if img_i < seq.number:
                     seq.filenum[img_i] = int(toks[0])
                     seq.incl[img_i] = bool(int(toks[1]))
+                    if len(toks) > 2 and "," in toks[2] and \
+                            seq.imgsize is not None:
+                        rx, ry = toks[2].split(",")
+                        seq.imgsize[img_i] = (int(rx), int(ry))
                     img_i += 1
             elif c0 == "R" and seq is not None:
                 layer = 0 if line[1] == "*" else int(line[1])
@@ -138,11 +141,16 @@ def write_seqfile(seq: Sequence, path: Optional[str] = None) -> None:
         "reference_image version variable_size fz_flag drizzle",
         "S '%s' %d %d %d %d %d %d %d %d %d" % (
             seq.name, seq.beg, seq.number, seq.selnum, seq.fixed_len,
-            seq.reference_image, CURRENT_SEQFILE_VERSION, 0, 0, 0)]
+            seq.reference_image, CURRENT_SEQFILE_VERSION,
+            int(seq.is_variable), 0, 0)]
     if seq.nb_layers > 0:
         lines.append(f"L {seq.nb_layers}")
     for i in range(seq.number):
-        lines.append("I %d %d" % (seq.filenum[i], int(seq.incl[i])))
+        if seq.is_variable and seq.imgsize is not None:
+            lines.append("I %d %d %d,%d" % (
+                seq.filenum[i], int(seq.incl[i]), *seq.imgsize[i]))
+        else:
+            lines.append("I %d %d" % (seq.filenum[i], int(seq.incl[i])))
     lines.extend(seq._opaque_cards)
     for layer, reg in sorted(seq.regparam.items()):
         if not reg.valid.any():

@@ -10,7 +10,9 @@ correction from the master dark's deviant map, as torch code on the
 frame's device.  ``x − k·dark`` is one fused multiply-add
 (``ops/rejection.fma``), as XLA:CPU compiles the reference's program; the
 flat's mean μ is numpy's float32 sum on the host, as in the reference.
-``-debayer`` raises ``NotImplementedError`` (ROADMAP §1.5, OSC).
+With ``-debayer`` a CFA frame is demosaiced after its calibration
+(``siril_tpu/ops/calibration.py:220-223``), on the calibrated tensor
+where it lies (``ops/demosaic.py``, the default method RCD).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from siril_tpu_torch.ops.cosmetic import (
     detect_deviant_from_dark,
     deviant_plan,
 )
+from siril_tpu_torch.ops.demosaic import debayer_tensor
 from siril_tpu_torch.ops.rejection import fma
 from siril_tpu_torch.ops.stacking import StageClock
 
@@ -53,13 +56,6 @@ class CalibArgs:
     debayer: bool = False
     flat_norm: Optional[float] = None        # computed if None
     prefix: str = "pp_"
-
-
-def check_supported(args: CalibArgs) -> None:
-    if args.debayer:
-        raise NotImplementedError(
-            "calibrate -debayer: demosaicing is not ported yet (ROADMAP "
-            "§1.5, OSC)")
 
 
 def evaluate_offset_level(expr: str, img: SirilImage) -> float:
@@ -164,7 +160,6 @@ def prepare_calibration(args: CalibArgs, sample: SirilImage,
                         device: DeviceLike = None) -> dict:
     """prepro_prepare_hook (preprocess.c:304): masters on the device, the
     flat's mean, the deviant map and the calibration function."""
-    check_supported(args)
     dev = resolve_device(device)
 
     def up(a):
@@ -219,8 +214,10 @@ def calibrate_tensor(x: torch.Tensor, st: dict, k: float = 1.0
 def calibrate_image(raw: SirilImage, args: CalibArgs,
                     _state: Optional[dict] = None,
                     device: DeviceLike = None, clock=None) -> SirilImage:
-    """calibrate_single_image (preprocess.c:518) — one frame; ``clock``
-    (a ``StageClock``) times upload, calibrate and fetch."""
+    """calibrate_single_image (preprocess.c:518) — one frame, debayered
+    after its calibration with ``args.debayer`` when it is a CFA frame;
+    ``clock`` (a ``StageClock``) times upload, calibrate, debayer and
+    fetch."""
     st = _state if _state is not None else \
         prepare_calibration(args, raw, device)
     clock = clock or StageClock(st["device"])
@@ -233,6 +230,10 @@ def calibrate_image(raw: SirilImage, args: CalibArgs,
                                     raw.keywords.exposure,
                                     args.dark.keywords.exposure)
         x = calibrate_tensor(x, st, k)
+    debayer = args.debayer and raw.is_cfa()
+    if debayer:
+        with clock("debayer"):
+            x = debayer_tensor(x, raw)
     with clock("fetch"):
         res = raw.copy(data=x.cpu().numpy())
     if args.bias is not None or args.bias_level is not None:
@@ -242,6 +243,9 @@ def calibrate_image(raw: SirilImage, args: CalibArgs,
             f" (optimized k={k:.3f})" if args.use_dark_optim else ""))
     if args.flat is not None:
         res.log_history("Calibrated with a master flat")
+    if debayer:
+        res.keywords.bayer_pattern = ""
+        res.log_history("Debayer applied")
     return res
 
 
@@ -250,7 +254,6 @@ def calibrate_sequence(seq: Sequence, args: CalibArgs,
     """``calibrate`` over a sequence → a new ``pp_`` sequence."""
     from siril_tpu_torch.core.engine import SeqArgs, run_sequence
 
-    check_supported(args)
     dev = resolve_device(device)
     state: dict = {}
     clock = StageClock(dev)

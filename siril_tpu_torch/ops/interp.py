@@ -1,7 +1,8 @@
 """Warps — counterpart of ``siril_tpu/ops/interp.py``: the general
 gather warp (``_cubic_weights``:45, ``_lanczos_weights``:61,
 ``_gather_plane``:74, ``sample_plane``:86, ``_warp_body``:135,
-``warp_homography_batch``:218, ``warp_homography``:238, ``_dilate3``:258),
+``warp_homography_batch``:218, ``warp_homography``:238, ``_dilate3``:258,
+``resize``:267),
 the pure-translation warp (constants :26, ``_shift_batch_fn``:365,
 ``warp_translation_batch``:460, ``translations_from_Hs``:482) and the FFT
 warp ladder of the fused path: the rotation three-shear
@@ -23,9 +24,9 @@ clamp substitutes the bilinear guide where the result undershoots
 0.98·guide, dilated 3×3 with wrap-around (opencv.cpp:264-276).
 
 The integer part of a shift is a padded slice, the fractional part a
-separable 8-tap lanczos4 (4-tap cubic, 2-tap bilinear) filter written as
-explicit weighted sums of shifted slices, in float32 — no convolution, so
-cuDNN's TF32 does not apply.
+separable 8-tap lanczos4 (4-tap cubic, 2-tap for the other methods)
+filter written as explicit weighted sums of shifted slices, in float32 —
+no convolution, so cuDNN's TF32 does not apply.
 
 The ladder interpolates with exact sinc through batched 1-D FFTs
 (``torch.fft``) and elementwise phases; the gates (numpy, float64) pick
@@ -67,7 +68,10 @@ CLAMPING_FACTOR = 0.98
 #: output pixels of one row block of the gather warp
 WARP_BLOCK_PIXELS = 1 << 22
 
-_TAPS = {INTERP_LANCZOS4: 4, INTERP_BICUBIC: 2, INTERP_BILINEAR: 1}
+#: taps a side of the translation warp's separable filter: every method
+#: but lanczos4 and bicubic shifts with two taps weighted (1 − t, t)
+#: (siril_tpu/ops/interp.py:385-404)
+_TAPS = {INTERP_LANCZOS4: 4, INTERP_BICUBIC: 2}
 
 
 def _frac_weights(t: np.float32, method: int, A: int) -> list:
@@ -105,7 +109,7 @@ def _dilate3(mask: torch.Tensor) -> torch.Tensor:
 def _shift_one(fr: torch.Tensor, dx: float, dy: float, method: int,
                clamp: bool, margin: int) -> torch.Tensor:
     """out(x) = in(x − d) for one (C, H, W) frame; outside is zero."""
-    A = _TAPS[method]
+    A = _TAPS.get(method, 1)
     C, H, W = fr.shape
     pad = margin + A + 1
     sx = np.float32(-dx)
@@ -143,10 +147,6 @@ def warp_translation_batch(frames: torch.Tensor, shifts,
     """Warp a (N, C, H, W) batch by per-frame translations ``shifts``
     (N, 2) frame→ref (dx, dy): out(x) = in(x − d).  Frames are warped one
     at a time into a new tensor."""
-    if method not in _TAPS:
-        raise NotImplementedError(
-            f"interpolation {method} is not ported for the translation "
-            "warp (ROADMAP §1, the warp ladder)")
     sh = np.asarray(shifts, np.float32)
     need = int(np.ceil(np.abs(sh).max())) + 1 if sh.size else 1
     margin = 32
@@ -279,6 +279,21 @@ def warp_homography_batch(frames: torch.Tensor, Hs, out_shape,
     return torch.stack([warp_homography(frames[i], Hs[i], out_shape,
                                         method, clamp)
                         for i in range(frames.shape[0])])
+
+
+def resize(data: torch.Tensor, to_w: int, to_h: int,
+           method: int = INTERP_BILINEAR, clamp: bool = False
+           ) -> torch.Tensor:
+    """Scale a (C, H, W) tensor to (C, to_h, to_w) with the gather warp
+    (cvResizeGaussian): pixel centres aligned, src = (dst + 0.5)·s − 0.5
+    (``siril_tpu/ops/interp.py:267``)."""
+    c, h, w = data.shape
+    sx, sy = w / to_w, h / to_h
+    Hinv = np.array([[sx, 0, 0.5 * sx - 0.5],
+                     [0, sy, 0.5 * sy - 0.5],
+                     [0, 0, 1.0]])
+    return warp_homography(data, np.linalg.inv(Hinv), (to_h, to_w), method,
+                           clamp)
 
 
 # ---------------------------------------------------------------------------

@@ -189,14 +189,19 @@ def cache_estimators(seq, layer, idx, med, mad, location, scale, lite):
 
 def compute_overlap(seq, layer: int, i: int, j: int):
     """Overlap rectangles ((xi, yi, w, h), (xj, yj, w, h)) of frames i and
-    j in each frame's pixels, from their shift-only H
-    (normalization.c:420), or None."""
+    j in each frame's pixels, from their shift-only H and each frame's
+    own size (normalization.c:420), or None."""
     H = seq.reg(layer).H
     txi, tyi = round(float(H[i][0, 2])), round(float(H[i][1, 2]))
     txj, tyj = round(float(H[j][0, 2])), round(float(H[j][1, 2]))
+    if seq.is_variable and seq.imgsize is not None:
+        (rxi, ryi), (rxj, ryj) = seq.imgsize[i], seq.imgsize[j]
+    else:
+        rxi = rxj = seq.rx
+        ryi = ryj = seq.ry
     x0, y0 = max(txi, txj), max(tyi, tyj)
-    x1 = min(txi + seq.rx, txj + seq.rx)
-    y1 = min(tyi + seq.ry, tyj + seq.ry)
+    x1 = min(txi + int(rxi), txj + int(rxj))
+    y1 = min(tyi + int(ryi), tyj + int(ryj))
     if x0 >= x1 or y0 >= y1:
         return None
     w, h = x1 - x0, y1 - y0

@@ -53,8 +53,6 @@ from siril_tpu_torch.ops.calibration import (
     dark_optimization_k,
     prepare_calibration,
 )
-from siril_tpu_torch.ops.calibration import check_supported as \
-    check_calibration
 from siril_tpu_torch.ops import interp
 from siril_tpu_torch.ops.normalization import (
     NO_NORM,
@@ -107,8 +105,12 @@ class FusedArgs:
 
 def check_supported(args: FusedArgs) -> None:
     """Raise NotImplementedError for what the port does not cover yet."""
-    if args.calib is not None:
-        check_calibration(args.calib)
+    if args.calib is not None and args.calib.debayer:
+        raise NotImplementedError(
+            "fusedstack -debayer: the fused path never debayers, as the JAX "
+            "package's fusedstack reads no -debayer (siril_tpu/cli/"
+            "commands2.py:836-890); run calibrate -debayer, register and "
+            "stack instead")
     sa = args.stack
     if sa.method == "rej":
         rj.check_rtype(sa.rejection)

@@ -230,9 +230,56 @@ def test_calibrate_sequence_vs_jax(tmp_path, frames):
         b = read_fits(str(tmp_path / "port" / f"pp_l_{i + 1:05d}.fit"))
         assert a.orig_bitdepth == b.orig_bitdepth == USHORT_IMG
         np.testing.assert_array_equal(b.host(), a.host())
-    with pytest.raises(NotImplementedError, match="OSC"):
-        cal.calibrate_sequence(Sequence.scan("l_", str(tmp_path / "port")),
-                               cal.CalibArgs(debayer=True), device="cpu")
+    # -debayer leaves frames without a Bayer pattern as they are (mono)
+    ja = jcal.CalibArgs(bias=frames["bias"], debayer=True, prefix="d_")
+    jcal.calibrate_sequence(JSeq.scan("l_", str(tmp_path / "jax")), ja)
+    cal.calibrate_sequence(Sequence.scan("l_", str(tmp_path / "port")),
+                           convert.calib_args(dataclasses.asdict(ja)),
+                           device="cpu")
+    for i in range(3):
+        a = jread(str(tmp_path / "jax" / f"d_l_{i + 1:05d}.fit"))
+        b = read_fits(str(tmp_path / "port" / f"d_l_{i + 1:05d}.fit"))
+        assert a.nchans == b.nchans == 1
+        np.testing.assert_array_equal(b.host(), a.host())
+
+
+def test_calibrate_debayer_vs_jax(tmp_path, frames):
+    """``calibrate -cfa -equalize_cfa -debayer`` on 16-bit CFA frames
+    (BAYERPAT GBRG with an x offset): the masters, the CFA-aware cosmetic
+    correction, then RCD on the calibrated frame; three 16-bit layers, no
+    pattern left, "Debayer applied" last in the history.  Within one
+    16-bit step of the JAX package's frames: the calibrated values agree
+    to 1e-6 and RCD to 1e-6 (tests/test_torch_demosaic.py), so a value
+    near a rounding boundary can land on the next step."""
+    rng = np.random.default_rng(17)
+    for d in ("jax", "port"):
+        os.makedirs(tmp_path / d)
+    for i in range(2):
+        raw = frames["raw"].host() + rng.normal(0, 0.003, (1, H, W))
+        img = _img(np.clip(raw, 0, 1))
+        img.keywords.bayer_pattern = "GBRG"
+        img.keywords.bayer_xoffset = 1
+        for d in ("jax", "port"):
+            jwrite(img, str(tmp_path / d / f"c_{i + 1:05d}.fit"),
+                   bitdepth=USHORT_IMG)
+    ja = jcal.CalibArgs(bias=frames["bias"], dark=frames["dark"],
+                        flat=frames["flat"], is_cfa=True, equalize_cfa=True,
+                        debayer=True)
+    jres = jcal.calibrate_sequence(JSeq.scan("c_", str(tmp_path / "jax")), ja)
+    tres = cal.calibrate_sequence(Sequence.scan("c_", str(tmp_path / "port")),
+                                  convert.calib_args(dataclasses.asdict(ja)),
+                                  device="cpu")
+    assert tres.processed == jres.processed == 2
+    assert "debayer" in tres.stage_s
+    for i in range(2):
+        a = jread(str(tmp_path / "jax" / f"pp_c_{i + 1:05d}.fit"))
+        b = read_fits(str(tmp_path / "port" / f"pp_c_{i + 1:05d}.fit"))
+        assert a.orig_bitdepth == b.orig_bitdepth == USHORT_IMG
+        assert a.nchans == b.nchans == 3
+        assert a.keywords.bayer_pattern == b.keywords.bayer_pattern == ""
+        assert b.history[-1] == a.history[-1] == "Debayer applied"
+        np.testing.assert_allclose(b.host(), a.host(), rtol=0,
+                                   atol=1.0 / 65535 + 1e-7)
 
 
 def test_calibrate_sequence_drops_frame_without_exposure(tmp_path, frames):

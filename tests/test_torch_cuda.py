@@ -41,7 +41,11 @@ JAX):
   at most 5e-3 there;
 - a feathered, overlap-normalized mosaic stack (K1e with per-pixel
   weights) and ``max -maximize`` on the card against the CPU: within
-  2e-6 and equal.
+  2e-6 and equal;
+- every demosaic method (and X-Trans) on the card against the CPU within
+  1e-6 (the same eager float32 operations; chip_smoke.py measured 0 on a
+  1024² crop), and ``calibrate -cfa -equalize_cfa -debayer`` over a
+  small CFA sequence on the card against the CPU within one 16-bit step.
 """
 
 import numpy as np
@@ -52,6 +56,7 @@ from siril_tpu_torch.core.image import SirilImage
 from siril_tpu_torch.core.sequence import Sequence
 from siril_tpu_torch.io.fits_io import write_fits
 from siril_tpu_torch.kernels import reject_stack as k1
+from siril_tpu_torch.ops.demosaic import METHOD_NAMES
 from siril_tpu_torch.ops import rejection as rj
 from siril_tpu_torch.ops.normalization import (
     ADDITIVE_SCALING,
@@ -498,3 +503,59 @@ def test_mosaic_stack_on_card_vs_cpu(tmp_path):
         assert abs(r - g) <= 1e-5 * th * tw + 1
     assert gmax.image.host().shape == (1, 120, 150)
     np.testing.assert_array_equal(gmax.image.host(), cmax.image.host())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHOD_NAMES)
+def test_debayer_on_card_vs_cpu(method):
+    _need_card()
+    from siril_tpu_torch.ops import demosaic as dm
+    from siril_tpu_torch.ops.xtrans import XTRANS_PATTERNS
+
+    rng = np.random.default_rng(91)
+    cfa = torch.from_numpy((0.05 + 0.9 * rng.random((210, 246)) ** 3
+                            ).astype(np.float32))
+    for pat, xo, yo in (("GRBG", 1, 0), ("BGGR", 0, 1)):
+        if method == "xtrans":
+            pat = XTRANS_PATTERNS[xo]
+        mid = dm.METHOD_NAMES[method]
+        a = dm.debayer(cfa, pat, mid, xo, yo).numpy()
+        b = dm.debayer(cfa.cuda(), pat, mid, xo, yo).cpu().numpy()
+        assert a.shape == b.shape
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_calibrate_debayer_on_card_vs_cpu(tmp_path):
+    _need_card()
+    import os
+
+    from siril_tpu_torch.io.fits_io import read_fits
+    from siril_tpu_torch.ops.calibration import CalibArgs, calibrate_sequence
+
+    rng = np.random.default_rng(92)
+    h, w = 96, 128
+    dark = 0.02 + rng.normal(0, 0.002, (1, h, w))
+    dark[0, rng.integers(0, h, 20), rng.integers(0, w, 20)] = 0.4
+    ca = CalibArgs(dark=SirilImage(data=dark.astype(np.float32)),
+                   flat=SirilImage(data=(0.5 + 0.1 * rng.random((1, h, w))
+                                         ).astype(np.float32)),
+                   is_cfa=True, equalize_cfa=True, debayer=True)
+    for dev in ("cpu", "cuda"):
+        os.makedirs(tmp_path / dev)
+    for i in range(3):
+        img = SirilImage(data=np.clip(0.1 + dark + rng.normal(
+            0, 0.01, (1, h, w)), 0, 1).astype(np.float32), orig_bitdepth=20)
+        img.keywords.bayer_pattern = "RGGB"
+        for dev in ("cpu", "cuda"):
+            write_fits(img, str(tmp_path / dev / f"c_{i + 1:05d}.fit"))
+    for dev in ("cpu", "cuda"):
+        res = calibrate_sequence(Sequence.scan("c_", str(tmp_path / dev)),
+                                 ca, device=dev)
+        assert res.processed == 3
+    for i in range(3):
+        a, b = (read_fits(str(tmp_path / dev / f"pp_c_{i + 1:05d}.fit"))
+                for dev in ("cpu", "cuda"))
+        assert a.nchans == b.nchans == 3
+        np.testing.assert_allclose(b.host(), a.host(), rtol=0,
+                                   atol=1.0 / 65535 + 1e-7)

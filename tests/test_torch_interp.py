@@ -28,9 +28,7 @@ from siril_tpu_torch.ops import interp
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("method", [interp.INTERP_LANCZOS4,
-                                    interp.INTERP_BICUBIC,
-                                    interp.INTERP_BILINEAR])
+@pytest.mark.parametrize("method", range(6))
 @pytest.mark.parametrize("clamp", [True, False])
 def test_translation_warp_vs_jax(method, clamp):
     rng = np.random.default_rng(21 + method)
@@ -53,10 +51,6 @@ def test_translations_from_Hs():
                                   jinterp.translations_from_Hs(Hs))
     Hs[2, 0, 1] = 0.01
     assert interp.translations_from_Hs(Hs) is None
-    with pytest.raises(NotImplementedError):
-        interp.warp_translation_batch(torch.zeros(1, 1, 8, 8),
-                                      np.zeros((1, 2)),
-                                      interp.INTERP_NEAREST)
 
 
 #: a homography with rotation, scale and perspective (frame → target)

@@ -63,7 +63,7 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     assert out.stdout.strip() == "ok"
 
 
-def test_default_device_is_cuda(monkeypatch):
+def test_default_device_is_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
@@ -102,6 +102,33 @@ def test_default_device_is_cuda(monkeypatch):
                  lambda: execute_script(Session(), "none.ssf")):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+    # the OSC entry points: demosaicing, X-Trans, resampling, convert
+    # -debayer
+    from siril_tpu_torch.core.image import SirilImage
+    from siril_tpu_torch.io.conversion import convert_to_sequence
+    from siril_tpu_torch.ops.demosaic import debayer_image
+    from siril_tpu_torch.ops.geometry import resample
+    from siril_tpu_torch.ops.xtrans import (
+        XTRANS_PATTERNS,
+        demosaic_xtrans_image,
+    )
+
+    cfa = SirilImage(data=np.zeros((1, 12, 12), np.float32))
+    cfa.keywords.bayer_pattern = "RGGB"
+    xt = SirilImage(data=np.zeros((1, 12, 12), np.float32))
+    xt.keywords.bayer_pattern = XTRANS_PATTERNS[0]
+    for call in (lambda: debayer_image(cfa),
+                 lambda: demosaic_xtrans_image(xt),
+                 lambda: resample(cfa, 24, 24)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    src = tmp_path / "cfa.fit"
+    from siril_tpu_torch.io.fits_io import write_fits
+
+    write_fits(cfa, str(src))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert_to_sequence([str(src)], "c", str(tmp_path / "out"),
+                            debayer=True)
 
 
 def test_convert_round_trips():

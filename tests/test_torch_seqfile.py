@@ -108,6 +108,37 @@ def test_seq_written_by_port_loads_in_jax(tmp_path):
     assert s.sequence is seq
 
 
+def test_convert_debayer_vs_jax(tmp_path):
+    """``convert -debayer``: 16-bit CFA frames (BAYERPAT, an x offset)
+    demosaiced with the default method (RCD) before they are written:
+    three 16-bit layers and no pattern, within one 16-bit step of the JAX
+    package's frames (RCD agrees to 1e-6, tests/test_torch_demosaic.py);
+    a frame without a pattern is written as it is."""
+    rng = np.random.default_rng(45)
+    src = tmp_path / "src"
+    os.makedirs(src)
+    for i in range(2):
+        img = SirilImage(data=rng.random((1, 12, 16)).astype(np.float32))
+        img.keywords.bayer_pattern = "GBRG" if i == 0 else ""
+        img.keywords.bayer_xoffset = 1
+        jwrite(img, str(src / f"IMG{i}.fit"), bitdepth=USHORT_IMG)
+    files = sorted(str(src / f) for f in os.listdir(src))
+    jconv.convert_to_sequence(files, "c", str(tmp_path / "jax"),
+                              debayer=True)
+    conversion.convert_to_sequence(files, "c", str(tmp_path / "port"),
+                                   debayer=True, device="cpu")
+    for k, layers in ((1, 3), (2, 1)):
+        a, b = (read_fits(str(tmp_path / d / f"c_{k:05d}.fit"))
+                for d in ("jax", "port"))
+        assert a.nchans == b.nchans == layers
+        assert a.orig_bitdepth == b.orig_bitdepth == USHORT_IMG
+        assert a.keywords.bayer_pattern == b.keywords.bayer_pattern
+        np.testing.assert_allclose(b.host(), a.host(), rtol=0,
+                                   atol=1.0 / 65535 + 1e-7)
+    assert open(tmp_path / "port" / "c_.seq").read() == \
+        open(tmp_path / "jax" / "c_.seq").read()
+
+
 def test_unported_sequence_types_raise(tmp_path):
     (tmp_path / "film.ser").write_bytes(b"")
     with pytest.raises(NotImplementedError, match="SER"):
@@ -211,10 +242,45 @@ def test_unported_seq_cards_raise(tmp_path, card, what):
     p.write_text(f"S 'x' 0 2 2 5 -1 7 0 0 0\n{card}\nL 1\nI 0 1\nI 1 1\n")
     with pytest.raises(NotImplementedError, match=what):
         seqfile.read_seqfile(str(p))
-    for flags, word in (("1 0 0", "different sizes"), ("0 1 0", "fz")):
-        p.write_text(f"S 'x' 0 2 2 5 -1 7 {flags}\nL 1\nI 0 1\nI 1 1\n")
-        with pytest.raises(NotImplementedError, match=word):
-            seqfile.read_seqfile(str(p))
+    p.write_text("S 'x' 0 2 2 5 -1 7 0 1 0\nL 1\nI 0 1\nI 1 1\n")
+    with pytest.raises(NotImplementedError, match="fz"):
+        seqfile.read_seqfile(str(p))
+
+
+def test_variable_size_seq_round_trip(tmp_path):
+    """A sequence of frames of different sizes: the JAX package's .seq
+    (``I filenum incl rx,ry`` lines) reads in the port with each frame's
+    size, and the port writes it back line for line; the overlap of two
+    frames (the overlap normalization's) comes from their own sizes."""
+    from siril_tpu.ops.normalization import compute_overlap as joverlap
+    from siril_tpu_torch.ops.normalization import compute_overlap
+
+    rng = np.random.default_rng(44)
+    sizes = [(16, 12), (20, 9), (11, 14), (16, 12)]
+    for i, (w, h) in enumerate(sizes):
+        jwrite(SirilImage(data=rng.random((1, h, w)).astype(np.float32)),
+               str(tmp_path / f"v_{i + 1:05d}.fit"), bitdepth=USHORT_IMG)
+    js = JSeq.scan("v_", str(tmp_path))
+    _fill(js, rng)
+    js.reg(0).H[:] = np.eye(3)
+    js.reg(0).H[:, :2, 2] = [(0, 0), (5, -3), (-4, 6), (12, 2)]
+    js.is_variable = True
+    js.imgsize = np.array(sizes, dtype=np.int64)
+    js.save()
+    jtext = open(js.seqfile_path()).read().splitlines()
+    got = seqfile.read_seqfile(js.seqfile_path())
+    assert got.is_variable
+    np.testing.assert_array_equal(got.imgsize, sizes)
+    _same(got, jsf.read_seqfile(js.seqfile_path()))
+    got.save()
+    assert open(got.seqfile_path()).read().splitlines() == jtext
+    assert any(line.startswith("I 2 0 20,9") for line in jtext)
+    back = jsf.read_seqfile(js.seqfile_path())
+    for i in range(4):
+        for j in range(4):
+            assert compute_overlap(got, 0, i, j) == joverlap(back, 0, i, j)
+    # frame 1 is 20 × 9 px, not the sequence's 16 × 12
+    assert compute_overlap(got, 0, 0, 1) == ((5, 0, 11, 6), (0, 3, 11, 6))
 
 
 def test_engine_hook_error_stops_the_run(tmp_path):

@@ -326,7 +326,7 @@ def test_stack_args_from_flags_vs_jax():
 
 def test_stack_unported_raise(seqdir):
     for words in (["u_", "-drizzle"], ["u_", "-upscale"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1.4"):
+        with pytest.raises(NotImplementedError, match="ROADMAP §1.1"):
             cli.run(["-d", seqdir, "--device", "cpu", "stack", *words])
 
 
