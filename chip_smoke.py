@@ -17,9 +17,12 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               masters' frame count (N=CALIB_FRAMES, P=2^20, both dtypes
               and all three normalizations; then int16 at the masters'
               call size, P=SIZE², without normalization and
-              multiplicative), and at the OSC stack's call (N=OSC_LIGHTS,
-              P=SIZE², int16, additive+scaling), the plain version on
-              2^20 pixels spread over P;
+              multiplicative), and at the stacks' full calls
+              (K1A_CALLS: the OSC stack's, N=OSC_LIGHTS, P=SIZE², int16;
+              the Bayer-drizzle stack's, the same in float32 with holes;
+              the -upscale stack's, N=4, P=(2·SIZE)², int16; all
+              additive+scaling), the plain version on 2^20 pixels spread
+              over P;
   k1     — the variants K1b SIGMEDIAN, K1c LINEARFIT, K1d GESDT over the
               same dtypes and normalizations at N=24, P=2^20; K1b, K1c and
               K1d at N=8, 16, 32 (register-path column sizes; K1d also
@@ -71,14 +74,15 @@ Phases, each printing a flushed start and end line with elapsed seconds:
   script — the standard preprocessing script through the CLI's -s entry
               (``python -m siril_tpu_torch.cli -d <dir> -s <script>``,
               PREPROCESSING_SCRIPT) on a synthetic night of CALIB_FRAMES
-              biases, flats and darks and FRAMES 16-bit SIZE×SIZE lights
+              biases, flats and darks and SCRIPT_LIGHTS 16-bit SIZE×SIZE
+              lights
               (bias, dark current with hot pixels, a vignetting flat,
               cosmic-ray tracks, frames turned by up to 0.2° and scaled by
               up to 0.1 %): convert, the masters, calibrate -cc=dark,
               register (homography, lanczos4) and stack, with each
               command's wall, stages and K1 launches; then fusedstack
               -bias= -dark= -flat= -cc=dark with the same masters on
-              FRAMES lights that are only shifted; both checked against the
+              as many lights that are only shifted; both checked against the
               known scene, its hot pixels and rays; and between them ``stack
               r_pp_light rej 3 3 -norm=addscale -filter-fwhm=90%`` (the
               kept count and the scene) and ``stack r_pp_light sum``;
@@ -93,6 +97,26 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               R/G and B/G flux ratios, the hot pixels, the rays; then
               every demosaic method on the card against the CPU on a
               DEMOSAIC_CROP² crop of a light, and timed on a SIZE² one;
+  drizzle — in the osc phase's directory, the Bayer-drizzle script
+              (OSC_DRIZZLE_SCRIPT) through -s: calibrate -cfa
+              -equalize_cfa without demosaicing, register -drizzle on the
+              raw mosaic (scale 1, the master flat as the weight plane),
+              the stack; each layer against the scene after an affine
+              fit (DRIZZLE_SHARE), the star colours, the rays, H; then
+              ``stack cfa_light -drizzle -scale=1.0`` (its weight map),
+              and on the script phase's pp_light ``stack pp_light
+              -drizzle -scale=2 -pixfrac=0.9`` ((2·SIZE)², binned against
+              the scene) and ``stack pp_light rej 3 3 -norm=addscale
+              -upscale`` on 4 frames selected in the .seq (against the
+              same 4 stacked without it); drizzle's ms per frame and
+              peak device memory, and every device stage on the card
+              against the CPU on a DRIZZLE_CROP² crop;
+  formats — FORMATS_LIGHTS of the script phase's raw lights: convert
+              -fitseq, convert -ser, link, and rej 3 3 stacks of the
+              cube (bit-equal to the regular one's), the SER video
+              (SER_MEAN_TOL, SER_FLIPS) and the files; a light as BITPIX
+              8, 32 and -64; setcompress rice and gzip2, save, load; the
+              C++ Rice coder's ms and bytes; a 4-frame fz sequence;
   mosaic — 4 SIZE² tiles with MOSAIC_OVERLAP px overlaps of one sky, each
               with its own level and gain: ``register mosaic_ -transf=shift
               -noout`` (the known shifts written into the .seq where the
@@ -181,7 +205,22 @@ stack r_pp_light rej 3 3 -norm=addscale -output_norm -rgb_equal -out=result
 close
 """
 
+# the drizzle phase: Siril's Bayer-drizzle preprocessing script
+# (OSC_Preprocessing_BayerDrizzle.ssf) after its masters, run in the osc
+# phase's directory on its converted raw lights and masters: calibrate
+# without demosaicing, register on the raw mosaic and drizzle each
+# light's CFA sites onto three planes, stack
+OSC_DRIZZLE_SCRIPT = """requires 1.2.0
+calibrate light -dark=dark_stacked -flat=pp_flat_stacked -cc=dark -cfa -equalize_cfa -prefix=cfa_
+register cfa_light -drizzle -scale=1.0 -pixfrac=1.0 -kernel=square -flat=pp_flat_stacked
+stack r_cfa_light rej 3 3 -norm=addscale -output_norm -rgb_equal -out=result_drizzle
+close
+"""
+
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
+#: where the drizzle phase puts its own tensors (the card; a small run of
+#: the phase on the CPU sets "cpu")
+CARD = "cuda"
 F32_OPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 
 
@@ -436,14 +475,12 @@ def log_steps(name: str, work: dict, p: int) -> None:
 def phase_k1a(seed: int):
     import torch
 
-    from siril_tpu_torch.kernels import reject_stack as k1
     from siril_tpu_torch.ops import rejection as rj
     from siril_tpu_torch.ops.normalization import (
         ADDITIVE_SCALING,
         MULTIPLICATIVE,
         NO_NORM,
     )
-    from siril_tpu_torch.ops.stacking import reject_stack_plain
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -542,48 +579,85 @@ def phase_k1a(seed: int):
             failures.append(f"masters' call winsorized/i16/{nname}")
     del rawm
 
-    # the OSC stack's call, once a colour layer: 16-bit registered lights,
-    # winsorized, addscale, N = OSC_LIGHTS, one block of SIZE² pixels; the
-    # kernel over all of them, the plain version on a slice spread over P
-    # (each pixel's result depends on its own column only)
-    n16, p16 = OSC_LIGHTS, SIZE * SIZE
-    g16 = torch.Generator(device=dev)
-    g16.manual_seed(seed + 16)
-    raw16 = (torch.round(make_stack(g16, n16, p16, dev) * 65535.0)
-             - 32768.0).to(torch.int16)
-    sc16 = 1.0 + 0.02 * torch.randn(n16, generator=g16, device=dev)
-    off16, one16 = sc16 * 0.1 - 0.1, torch.ones_like(sc16)
-    kw = dict(rtype=rj.WINSORIZED, mode=ADDITIVE_SCALING, siglow=3.0,
-              sighigh=3.0)
-    got = k1.reject_mean(raw16, sc16, off16, one16, **kw)
-    ms16 = _events_ms(lambda: k1.reject_mean(raw16, sc16, off16, one16,
-                                             **kw), 10)
-    idx = spread_slice(p16, 1 << 20, COLUMN_CHUNKS, dev)
-    work16, refs = {}, []
-    plain16 = _events_ms(lambda: refs.append(reject_stack_plain(
-        raw16[:, idx].contiguous(), sc16, off16, one16,
-        work=None if refs else work16, **kw)), 1)
-    ref = refs[0]
-    nbad = int(((got[1][idx] != ref[1]) | (got[2][idx] != ref[2])).sum())
-    err16 = float((got[0][idx] - ref[0]).abs().max())
-    scaled = {key: work16.get(key, 0) * p16 / idx.numel()
-              for key in ("flops", "compares")}
-    osc = dict(n=n16, p=p16, slice=int(idx.numel()), ms=ms16,
-               plain_ms=plain16, max_abs_err=err16,
-               **_bound(n16 * p16 * 2 + 3 * n16 * 4 + p16 * 12, scaled))
-    log(f"  winsorized/i16/addscale N={n16} P={p16} (the OSC stack's call, "
-        f"one a colour layer): kernel {ms16:.3f} ms; on {idx.numel()} "
-        f"pixels in {COLUMN_CHUNKS} runs over P count mismatches {nbad}, "
-        f"max|Δmean| {err16:.3g}, plain {plain16:.1f} ms; bound "
-        f"{osc['bound_ms']:.4f} ms ({osc['bound_by']}); kernel = "
-        f"{ms16 / osc['bound_ms']:.1f}x the bound")
-    if nbad or err16 != 0.0 or not bool(torch.isfinite(got[0]).all()):
-        failures.append("OSC call winsorized/i16/addscale")
-    del raw16, got
+    # the stacks' calls at full size, each held against the plain version
+    # on 2^20 pixels spread over P (each pixel's result depends on its own
+    # column only): the OSC stack's, once a colour layer (16-bit lights);
+    # the Bayer-drizzle stack's (float32 drizzled lights with holes); the
+    # -upscale stack's (4 16-bit frames of (2·SIZE)²)
+    others = []
+    for label, n_, p_, dtype, seed_ in K1A_CALLS:
+        r = k1a_call(label, n_, p_, dtype, seed + seed_)
+        others.append(r)
+        if not r["ok"]:
+            failures.append(label)
     if failures:
         raise RuntimeError(f"K1a out of tolerance: {failures}")
-    full["other_sizes"] = [osc]
+    full["other_sizes"] = others
     return full
+
+
+#: K1a at the stacks' full call sizes (label, N, P, dtype, seed offset):
+#: winsorized, addscale, one block of P pixels
+K1A_CALLS = [
+    ("the OSC stack's call, one a colour layer", OSC_LIGHTS, SIZE * SIZE,
+     "i16", 16),
+    ("the Bayer-drizzle stack's call, one a colour layer", OSC_LIGHTS,
+     SIZE * SIZE, "f32", 17),
+    ("the -upscale stack's call", 4, 4 * SIZE * SIZE, "i16", 18),
+]
+
+
+def k1a_call(label: str, n: int, p: int, dtype: str, seed: int) -> dict:
+    """K1a winsorized/addscale at a stack command's call: the kernel over
+    all P pixels (CUDA events, median of 10), the plain version on 2^20
+    pixels in COLUMN_CHUNKS runs spread over P, bit-equal; the bound from
+    the plain version's work scaled to P.  A float32 stack gets a zero
+    (a drizzle hole) on one value in 8."""
+    import torch
+
+    from siril_tpu_torch.kernels import reject_stack as k1
+    from siril_tpu_torch.ops import rejection as rj
+    from siril_tpu_torch.ops.normalization import ADDITIVE_SCALING
+    from siril_tpu_torch.ops.stacking import reject_stack_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = make_stack(g, n, p, dev)
+    if dtype == "i16":
+        x = (torch.round(x * 65535.0) - 32768.0).to(torch.int16)
+    else:
+        x = torch.where(torch.rand(n, p, generator=g, device=dev) < 0.125,
+                        0.0, x)
+    sc = 1.0 + 0.02 * torch.randn(n, generator=g, device=dev)
+    off, one = sc * 0.1 - 0.1, torch.ones_like(sc)
+    kw = dict(rtype=rj.WINSORIZED, mode=ADDITIVE_SCALING, siglow=3.0,
+              sighigh=3.0)
+    got = k1.reject_mean(x, sc, off, one, **kw)
+    ms = _events_ms(lambda: k1.reject_mean(x, sc, off, one, **kw), 10)
+    idx = spread_slice(p, 1 << 20, COLUMN_CHUNKS, dev)
+    work, refs = {}, []
+    plain = _events_ms(lambda: refs.append(reject_stack_plain(
+        x[:, idx].contiguous(), sc, off, one,
+        work=None if refs else work, **kw)), 1)
+    ref = refs[0]
+    nbad = int(((got[1][idx] != ref[1]) | (got[2][idx] != ref[2])).sum())
+    err = float((got[0][idx] - ref[0]).abs().max())
+    scaled = {key: work.get(key, 0) * p / idx.numel()
+              for key in ("flops", "compares")}
+    r = dict(label=label, n=n, p=p, dtype=dtype, slice=int(idx.numel()),
+             ms=ms, plain_ms=plain, max_abs_err=err,
+             **_bound(n * p * (2 if dtype == "i16" else 4) + 3 * n * 4
+                      + p * 12, scaled))
+    r["ok"] = nbad == 0 and err == 0.0 and bool(torch.isfinite(got[0]).all())
+    log(f"  winsorized/{dtype}/addscale N={n} P={p} ({label}): kernel "
+        f"{ms:.3f} ms; on {idx.numel()} pixels in {COLUMN_CHUNKS} runs over "
+        f"P count mismatches {nbad}, max|Δmean| {err:.3g}, plain "
+        f"{plain:.1f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+        f"kernel = {ms / r['bound_ms']:.1f}x the bound")
+    del x, got
+    torch.cuda.empty_cache()
+    return r
 
 
 def _bound(nbytes: int, work: dict) -> dict:
@@ -1609,6 +1683,22 @@ def phase_fusedstack_homography(seed: int):
 #: calibration frames of each kind in the script phase (a user shoots
 #: 20-50; PERF.md §4 states the cut)
 CALIB_FRAMES = 8
+#: the script phase's lights (a night has tens to hundreds; cut from 24 to
+#: 12 to make room for the drizzle and formats phases, PERF.md §4)
+SCRIPT_LIGHTS = 12
+
+
+def _log_rows(session, rows):
+    for e in session.command_log:
+        if e["seconds"] < 1e-3 and not e["launches"]:
+            continue
+        rows[e["command"]] = dict(seconds=e["seconds"],
+                                  launches=e["launches"], stages=e["stages"])
+        log(f"  {e['command']}: {e['seconds']:.3f}s, K1 launches "
+            f"{e['launches'] or 0}")
+        if e["stages"]:
+            log("    stages: " + ", ".join(
+                f"{k} {v:.3f}s" for k, v in e["stages"].items()))
 
 
 def _scene_checks(name, out, made, rays, session_result, launches, extra):
@@ -1663,12 +1753,14 @@ def _scene_checks(name, out, made, rays, session_result, launches, extra):
     return failed, err
 
 
-def phase_script(seed: int, osc_root: str):
+def phase_script(seed: int, osc_root: str, tmp: str):
     """The standard preprocessing script through the port's -s entry on a
-    synthetic night at full width, then fusedstack with the same masters.
-    The night's raw biases and darks then move to ``osc_root`` for the
-    osc phase.  Returns ({path: {variant: launches}}, {command: row},
-    walls, the night's bias, dark and hot pixels)."""
+    synthetic night at full width in ``tmp``, then fusedstack with the
+    same masters.  The night's raw biases and darks then move to
+    ``osc_root`` for the osc phase; its raw lights and its calibrated,
+    registered ``pp_light`` stay in ``tmp`` for the drizzle and formats
+    phases.  Returns ({path: {variant: launches}}, {command: row}, walls,
+    the night's bias, dark, hot pixels, scene and noise)."""
     import numpy as np
     import torch
 
@@ -1676,157 +1768,147 @@ def phase_script(seed: int, osc_root: str):
     from siril_tpu_torch.io.fits_io import read_fits
     from siril_tpu_torch.kernels import reject_stack as k1
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_script_")
-    try:
-        t = time.perf_counter()
-        made = synth_session(tmp, seed + 11, SIZE, FRAMES, CALIB_FRAMES,
-                             4000, shifted_dir="fused")
-        log(f"  synthesized {CALIB_FRAMES} biases, flats, darks and 2 × "
-            f"{FRAMES} lights of {SIZE}x{SIZE} (16-bit) in "
-            f"{time.perf_counter() - t:.2f}s")
-        script = os.path.join(tmp, "preprocessing.ssf")
-        with open(script, "w") as f:
-            f.write(PREPROCESSING_SCRIPT.format(stack_flags=""))
-        k1.reset_counts()
-        t = time.perf_counter()
-        session = cli.run(["-d", tmp, "-s", script])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        launches = dict(k1.launches)
-        rows = {}
-        for e in session.command_log:
-            if e["seconds"] < 1e-3 and not e["launches"]:
-                continue
-            rows[e["command"]] = dict(seconds=e["seconds"],
-                                      launches=e["launches"],
-                                      stages=e["stages"])
-            log(f"  {e['command']}: {e['seconds']:.3f}s, K1 launches "
-                f"{e['launches'] or 0}")
-            if e["stages"]:
-                log("    stages: " + ", ".join(
-                    f"{k} {v:.3f}s" for k, v in e["stages"].items()))
-        proc = os.path.join(tmp, "process")
-        res = session.result
-        out = read_fits(os.path.join(proc, "result.fit")).host()[0]
-        r_pp = sorted(f for f in os.listdir(proc)
-                      if f.startswith("r_pp_light_") and f.endswith(".fit"))
-        bits = read_fits(os.path.join(proc, r_pp[0])).orig_bitdepth
-        pp = read_fits(os.path.join(proc, "pp_light_00001.fit")).host()[0]
-        hy, hx = made["hot"]
-        on_sky = np.abs(made["scene"][hy, hx] - float(np.median(
-            made["scene"]))) < 1e-3
-        pp_hot = float(np.abs(pp[hy, hx] - made["scene"][hy, hx])[
-            on_sky].max())
-        m = 48
-        y, x = np.unravel_index(int(np.argmax(out[m:-m, m:-m])),
-                                (out.shape[0] - 2 * m, out.shape[1] - 2 * m))
-        y, x = y + m, x + m
-        vals = [float(read_fits(os.path.join(proc, f)).host()[0][y, x])
-                for f in r_pp]
-        log(f"  interior maximum {float(out[y, x]):.4f} at (y={y}, x={x}), "
-            f"scene {float(made['scene'][y, x]):.4f}; the registered frames "
-            f"there: {', '.join(f'{v:.3f}' for v in vals)}")
-        stacks = [c for c in rows if c.startswith("stack ")]
-        log(f"  script wall {wall:.2f}s; r_pp_ frames {len(r_pp)} at "
-            f"bitpix {bits}; reference frame's hot pixels on the sky after "
-            f"calibration max |Δ| {pp_hot:.5f}")
-        failed, err = _scene_checks(
-            "script", out, made, made["rays"]["lights"], res, launches, {
-            f"all {FRAMES} frames registered": len(r_pp) == FRAMES,
-            "every stack command launched K1":
-                all(sum(rows[c]["launches"].values()) > 0 for c in stacks),
-            "calibrated reference frame: no hot pixel (|Δ| < 5σ)":
-                pp_hot < 5 * made["sigma_n"],
-            "result file written": os.path.exists(
-                os.path.join(proc, "result.fit"))})
-        # the registered lights again: the best 90 % by FWHM, and a sum
-        k1.reset_counts()
-        t = time.perf_counter()
-        filt = cli.run(["-d", proc, "stack", "r_pp_light", "rej", "3", "3",
-                        "-norm=addscale", "-filter-fwhm=90%",
-                        "-out=filtered"])
-        torch.cuda.synchronize()
-        filt_wall = time.perf_counter() - t
-        filt_launch = dict(k1.launches)
-        kept = filt.result.image.keywords.stackcnt
-        log(f"  stack r_pp_light rej 3 3 -norm=addscale -filter-fwhm=90%: "
-            f"wall {filt_wall:.2f}s, frames kept {kept} of {FRAMES}, K1 "
-            f"launches { {k: v for k, v in filt_launch.items() if v} }")
-        log("    stages: " + ", ".join(
-            f"{k} {v:.3f}s" for k, v in filt.result.stage_s.items()))
-        failed += _scene_checks(
-            "filtered stack", filt.result.image.host()[0], made,
-            made["rays"]["lights"], filt.result, filt_launch, {
-                f"{round(0.9 * FRAMES)} frames kept":
-                    kept == round(0.9 * FRAMES)})[0]
-        t = time.perf_counter()
-        summed = cli.run(["-d", proc, "stack", "r_pp_light", "sum",
-                          "-out=summed"])
-        torch.cuda.synchronize()
-        sum_wall = time.perf_counter() - t
-        sout = summed.result.image.host()[0][m:-m, m:-m]
-        scene = made["scene"][m:-m, m:-m]
-        # on the stars (≥ 0.02 above the sky): the sky holds the noise and
-        # the rays the sum keeps
-        on = scene - float(np.median(scene)) >= 0.02
-        corr = float(np.corrcoef(sout[on], scene[on])[0, 1])
-        log(f"  stack r_pp_light sum: wall {sum_wall:.2f}s, max "
-            f"{float(sout.max()):.4f}, correlation with the scene on its "
-            f"{int(on.sum())} star pixels of the interior {corr:.4f}")
-        log("    stages: " + ", ".join(
-            f"{k} {v:.3f}s" for k, v in summed.result.stage_s.items()))
-        for name, good in {
-                "sum finite": bool(np.isfinite(sout).all()),
-                "sum peaks at 1":
-                    float(summed.result.image.host().max()) == 1.0,
-                "sum's stars in place (correlation with the scene > 0.95)":
-                    corr > 0.95}.items():
-            if not good:
-                log(f"  check sum: {name}: FAILED")
-                failed.append(f"sum: {name}")
-        rows["stack r_pp_light rej 3 3 -norm=addscale -filter-fwhm=90%"] = \
-            dict(seconds=filt_wall, launches=filt_launch,
-                 stages=filt.result.stage_s)
-        rows["stack r_pp_light sum"] = dict(seconds=sum_wall, launches={},
-                                            stages=summed.result.stage_s)
-        # the same masters through fusedstack's calibration flags, on the
-        # shift-only lights (fusedstack registers by shifts)
-        for f in os.listdir(proc):
-            if not f.endswith("_stacked.fit"):
-                os.unlink(os.path.join(proc, f))
-        k1.reset_counts()
-        t = time.perf_counter()
-        fused = cli.run(["-d", os.path.join(tmp, "fused"), "fusedstack",
-                         "light_", "-bias=../process/bias_stacked",
-                         "-dark=../process/pp_dark_stacked",
-                         "-flat=../process/pp_flat_stacked", "-cc=dark"])
-        torch.cuda.synchronize()
-        fwall = time.perf_counter() - t
-        flaunch = dict(k1.launches)
-        for stage, sec in fused.result.stage_s.items():
-            log(f"  fusedstack stage {stage:<10} {sec:8.3f} s")
-        log(f"  calibrated fusedstack wall {fwall:.2f}s, K1 launches "
-            f"{ {k: v for k, v in flaunch.items() if v} }")
-        fout = fused.result.image.host()[0]
-        ffailed, ferr = _scene_checks(
-            "calibrated fusedstack", fout, made, made["rays"]["fused"],
-            fused.result, flaunch, {
-                "all frames registered":
-                    int(fused.sequence.reg(0).valid.sum()) == FRAMES,
-                "result max well below the ray value":
-                    float(fout.max()) < 0.8 * made["ray"]})
-        if failed or ffailed:
-            raise RuntimeError(f"script checks failed: {failed + ffailed}")
-        for sub in ("biases", "darks"):
-            shutil.move(os.path.join(tmp, sub), os.path.join(osc_root, sub))
-        return ({"script": launches, "fusedstack calibrated": flaunch,
-                 "stack -filter-fwhm=90%": filt_launch},
-                rows, dict(script=wall, fused=fwall, script_err=err,
-                           fused_err=ferr,
-                           fused_stages=fused.result.stage_s),
-                {k: made[k] for k in ("bias", "dark", "hot")})
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    lights = SCRIPT_LIGHTS
+    t = time.perf_counter()
+    made = synth_session(tmp, seed + 11, SIZE, lights, CALIB_FRAMES,
+                         4000, shifted_dir="fused")
+    log(f"  synthesized {CALIB_FRAMES} biases, flats, darks and 2 × "
+        f"{lights} lights of {SIZE}x{SIZE} (16-bit) in "
+        f"{time.perf_counter() - t:.2f}s")
+    script = os.path.join(tmp, "preprocessing.ssf")
+    with open(script, "w") as f:
+        f.write(PREPROCESSING_SCRIPT.format(stack_flags=""))
+    k1.reset_counts()
+    t = time.perf_counter()
+    session = cli.run(["-d", tmp, "-s", script])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(k1.launches)
+    rows = {}
+    _log_rows(session, rows)
+    proc = os.path.join(tmp, "process")
+    res = session.result
+    out = read_fits(os.path.join(proc, "result.fit")).host()[0]
+    r_pp = sorted(f for f in os.listdir(proc)
+                  if f.startswith("r_pp_light_") and f.endswith(".fit"))
+    bits = read_fits(os.path.join(proc, r_pp[0])).orig_bitdepth
+    pp = read_fits(os.path.join(proc, "pp_light_00001.fit")).host()[0]
+    hy, hx = made["hot"]
+    on_sky = np.abs(made["scene"][hy, hx] - float(np.median(
+        made["scene"]))) < 1e-3
+    pp_hot = float(np.abs(pp[hy, hx] - made["scene"][hy, hx])[
+        on_sky].max())
+    m = 48
+    y, x = np.unravel_index(int(np.argmax(out[m:-m, m:-m])),
+                            (out.shape[0] - 2 * m, out.shape[1] - 2 * m))
+    y, x = y + m, x + m
+    vals = [float(read_fits(os.path.join(proc, f)).host()[0][y, x])
+            for f in r_pp]
+    log(f"  interior maximum {float(out[y, x]):.4f} at (y={y}, x={x}), "
+        f"scene {float(made['scene'][y, x]):.4f}; the registered frames "
+        f"there: {', '.join(f'{v:.3f}' for v in vals)}")
+    stacks = [c for c in rows if c.startswith("stack ")]
+    log(f"  script wall {wall:.2f}s; r_pp_ frames {len(r_pp)} at "
+        f"bitpix {bits}; reference frame's hot pixels on the sky after "
+        f"calibration max |Δ| {pp_hot:.5f}")
+    failed, err = _scene_checks(
+        "script", out, made, made["rays"]["lights"], res, launches, {
+        f"all {lights} frames registered": len(r_pp) == lights,
+        "every stack command launched K1":
+            all(sum(rows[c]["launches"].values()) > 0 for c in stacks),
+        "calibrated reference frame: no hot pixel (|Δ| < 5σ)":
+            pp_hot < 5 * made["sigma_n"],
+        "result file written": os.path.exists(
+            os.path.join(proc, "result.fit"))})
+    # the registered lights again: the best 90 % by FWHM, and a sum
+    k1.reset_counts()
+    t = time.perf_counter()
+    filt = cli.run(["-d", proc, "stack", "r_pp_light", "rej", "3", "3",
+                    "-norm=addscale", "-filter-fwhm=90%",
+                    "-out=filtered"])
+    torch.cuda.synchronize()
+    filt_wall = time.perf_counter() - t
+    filt_launch = dict(k1.launches)
+    kept = filt.result.image.keywords.stackcnt
+    log(f"  stack r_pp_light rej 3 3 -norm=addscale -filter-fwhm=90%: "
+        f"wall {filt_wall:.2f}s, frames kept {kept} of {lights}, K1 "
+        f"launches { {k: v for k, v in filt_launch.items() if v} }")
+    log("    stages: " + ", ".join(
+        f"{k} {v:.3f}s" for k, v in filt.result.stage_s.items()))
+    failed += _scene_checks(
+        "filtered stack", filt.result.image.host()[0], made,
+        made["rays"]["lights"], filt.result, filt_launch, {
+            f"{round(0.9 * lights)} frames kept":
+                kept == round(0.9 * lights)})[0]
+    t = time.perf_counter()
+    summed = cli.run(["-d", proc, "stack", "r_pp_light", "sum",
+                      "-out=summed"])
+    torch.cuda.synchronize()
+    sum_wall = time.perf_counter() - t
+    sout = summed.result.image.host()[0][m:-m, m:-m]
+    scene = made["scene"][m:-m, m:-m]
+    # on the stars (≥ 0.02 above the sky): the sky holds the noise and
+    # the rays the sum keeps
+    on = scene - float(np.median(scene)) >= 0.02
+    corr = float(np.corrcoef(sout[on], scene[on])[0, 1])
+    log(f"  stack r_pp_light sum: wall {sum_wall:.2f}s, max "
+        f"{float(sout.max()):.4f}, correlation with the scene on its "
+        f"{int(on.sum())} star pixels of the interior {corr:.4f}")
+    log("    stages: " + ", ".join(
+        f"{k} {v:.3f}s" for k, v in summed.result.stage_s.items()))
+    for name, good in {
+            "sum finite": bool(np.isfinite(sout).all()),
+            "sum peaks at 1":
+                float(summed.result.image.host().max()) == 1.0,
+            "sum's stars in place (correlation with the scene > 0.95)":
+                corr > 0.95}.items():
+        if not good:
+            log(f"  check sum: {name}: FAILED")
+            failed.append(f"sum: {name}")
+    rows["stack r_pp_light rej 3 3 -norm=addscale -filter-fwhm=90%"] = \
+        dict(seconds=filt_wall, launches=filt_launch,
+             stages=filt.result.stage_s)
+    rows["stack r_pp_light sum"] = dict(seconds=sum_wall, launches={},
+                                        stages=summed.result.stage_s)
+    # the same masters through fusedstack's calibration flags, on the
+    # shift-only lights (fusedstack registers by shifts); the masters
+    # and the registered pp_light stay
+    for f in os.listdir(proc):
+        if not (f.endswith("_stacked.fit") or f.startswith("pp_light_")):
+            os.unlink(os.path.join(proc, f))
+    k1.reset_counts()
+    t = time.perf_counter()
+    fused = cli.run(["-d", os.path.join(tmp, "fused"), "fusedstack",
+                     "light_", "-bias=../process/bias_stacked",
+                     "-dark=../process/pp_dark_stacked",
+                     "-flat=../process/pp_flat_stacked", "-cc=dark"])
+    torch.cuda.synchronize()
+    fwall = time.perf_counter() - t
+    flaunch = dict(k1.launches)
+    for stage, sec in fused.result.stage_s.items():
+        log(f"  fusedstack stage {stage:<10} {sec:8.3f} s")
+    log(f"  calibrated fusedstack wall {fwall:.2f}s, K1 launches "
+        f"{ {k: v for k, v in flaunch.items() if v} }")
+    fout = fused.result.image.host()[0]
+    ffailed, ferr = _scene_checks(
+        "calibrated fusedstack", fout, made, made["rays"]["fused"],
+        fused.result, flaunch, {
+            "all frames registered":
+                int(fused.sequence.reg(0).valid.sum()) == lights,
+            "result max well below the ray value":
+                float(fout.max()) < 0.8 * made["ray"]})
+    if failed or ffailed:
+        raise RuntimeError(f"script checks failed: {failed + ffailed}")
+    for sub in ("biases", "darks"):
+        shutil.move(os.path.join(tmp, sub), os.path.join(osc_root, sub))
+    shutil.rmtree(os.path.join(tmp, "fused"))
+    return ({"script": launches, "fusedstack calibrated": flaunch,
+             "stack -filter-fwhm=90%": filt_launch},
+            rows, dict(script=wall, fused=fwall, script_err=err,
+                       fused_err=ferr,
+                       fused_stages=fused.result.stage_s),
+            {k: made[k] for k in ("bias", "dark", "hot", "scene",
+                                  "sigma_n", "transforms")})
 
 
 #: the osc phase compares every demosaic method (X-Trans with a standard
@@ -1932,16 +2014,7 @@ def phase_osc(seed: int, root: str, night: dict):
     wall = time.perf_counter() - t
     launches = dict(k1.launches)
     rows = {}
-    for e in session.command_log:
-        if e["seconds"] < 1e-3 and not e["launches"]:
-            continue
-        rows[e["command"]] = dict(seconds=e["seconds"],
-                                  launches=e["launches"], stages=e["stages"])
-        log(f"  {e['command']}: {e['seconds']:.3f}s, K1 launches "
-            f"{e['launches'] or 0}")
-        if e["stages"]:
-            log("    stages: " + ", ".join(
-                f"{k} {v:.3f}s" for k, v in e["stages"].items()))
+    _log_rows(session, rows)
     proc = os.path.join(root, "osc")
     out = read_fits(os.path.join(proc, "result.fit")).host()
     pp = read_fits(os.path.join(proc, "pp_light_00001.fit")).host()
@@ -2077,7 +2150,520 @@ def phase_osc(seed: int, root: str, night: dict):
             failed.append(f"debayer {method} cuda vs cpu")
     if failed:
         raise RuntimeError(f"osc checks failed: {failed}")
-    return launches, rows, dict(osc=wall, errs=errs), timings
+    return launches, rows, dict(osc=wall, errs=errs), timings, made
+
+
+#: the drizzle phase's tolerances, stated before its first run on the
+#: card.  Bayer drizzle (scale 1, pixfrac 1) gives each output pixel of a
+#: colour plane the samples of that colour its footprint overlaps: a
+#: quarter of the input pixels for R and B, half for G.  Over N lights a
+#: plane's sky then averages ~N·share samples, and the mean |Δ| of such a
+#: mean is 0.8·σ/√(N·share); the tolerance is that with 25 % margin.
+DRIZZLE_SHARE = (0.25, 0.5, 0.25)
+DRIZZLE_MARGIN = 1.25
+#: star colours after Bayer drizzle against the true ones: drizzle
+#: interpolates nothing, so within 5 % (RCD reads R/G and B/G of σ 2 px
+#: stars 5.2 % low, PERF.md §5)
+DRIZZLE_TRUE_RATIO_TOL = 0.05
+#: ``stack pp_light -drizzle -scale=2 -pixfrac=0.9`` binned 2×2 against
+#: the mono scene: the interior's mean |Δ| below σ/2 (12 lights leave
+#: 0.8σ/√12 = 0.23σ on the sky; the drop, 0.9 px, and the output pixel
+#: blur the stars)
+DRIZZLE2_TOL = 0.5
+#: ``stack … -upscale`` binned 2×2 against the same 4 frames stacked
+#: without it, on average over the interior: the binning undoes the
+#: lanczos4 resample's geometry, but the resample smooths each frame's
+#: noise (0.5σ left in a 4-frame mean) and the stars' peaks, so within
+#: σ/4 (0.175σ measured at 512² on the CPU)
+UPSCALE_TOL = 0.25
+#: the card's drizzle against the CPU's on a DRIZZLE_CROP² crop: another
+#: sin / exp and a division by a scalar through its reciprocal
+DRIZZLE_CROP = 512
+DRIZZLE_CPU_TOL = 2e-6
+
+
+def _affine_errs(out, scene, m=48):
+    """Per layer, the mean |Δ| of ``out`` against the least-squares affine
+    map of ``scene`` on the interior, and on the interior's sky, in scene
+    units; with each layer's (a, b)."""
+    import numpy as np
+
+    inner = np.s_[m:-m, m:-m]
+    errs, sky_errs, fits = [], [], []
+    for c in range(out.shape[0]):
+        s_, o_ = scene[c][inner].ravel(), out[c][inner].ravel()
+        a, b = np.polyfit(s_, o_, 1)
+        fits.append((a, b))
+        d = np.abs(o_ - (a * s_ + b)) / a
+        errs.append(float(d.mean()))
+        sky_errs.append(float(d[np.abs(s_ - np.median(s_)) < 1e-3].mean()))
+    return errs, sky_errs, fits
+
+
+def _timed_cli(rows, d, *words):
+    """One CLI command in ``d``: its wall, K1 launches and stages into
+    ``rows``; returns the session and its row."""
+    import torch
+
+    from siril_tpu_torch import cli
+    from siril_tpu_torch.kernels import reject_stack as k1
+
+    k1.reset_counts()
+    t = time.perf_counter()
+    session = cli.run(["-d", d, *words])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k: v for k, v in k1.launches.items() if v}
+    cmd = " ".join(words)
+    rows[cmd] = dict(seconds=wall, launches=launches,
+                     stages=dict(session.stages))
+    log(f"  {cmd}: wall {wall:.3f}s, K1 launches {launches or 0}")
+    if session.stages:
+        log("    stages: " + ", ".join(
+            f"{k} {v:.3f}s" for k, v in session.stages.items()))
+    return session, rows[cmd]
+
+
+def _remove(d, prefix):
+    for f in os.listdir(d):
+        if f.startswith(prefix):
+            os.unlink(os.path.join(d, f))
+
+
+def phase_drizzle(seed: int, root: str, script_dir: str, night: dict,
+                  osc: dict):
+    """Drizzle at full width.  In the osc phase's directory, on its raw
+    RGGB lights and masters: the Bayer-drizzle script through -s
+    (OSC_DRIZZLE_SCRIPT), its result against the colour scene per layer,
+    the star colours, the rays and H; then ``stack cfa_light -drizzle
+    -scale=1.0`` (the chunked CFA path; its weight map).  On the script
+    phase's calibrated, registered ``pp_light``: ``stack pp_light
+    -drizzle -scale=2 -pixfrac=0.9`` onto a (2·SIZE)² grid, binned 2×2
+    against the mono scene, and ``stack pp_light rej 3 3 -norm=addscale
+    -upscale`` on 4 frames selected in the .seq.  Then drizzle's ms per
+    frame (CUDA events) and peak device memory beyond the frames at scale
+    1 (CFA) and 2 (mono), and each device stage on the card against the
+    CPU on a DRIZZLE_CROP² crop.  Returns ({path: K1 launches},
+    {command: row}, timings)."""
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch import cli
+    from siril_tpu_torch.core.image import SirilImage
+    from siril_tpu_torch.io.fits_io import FitsReader, read_fits
+    from siril_tpu_torch.io.seqfile import read_seqfile
+    from siril_tpu_torch.kernels import reject_stack as k1
+    from siril_tpu_torch.ops import drizzle as drz
+    from siril_tpu_torch.ops.geometry import resample
+
+    proc = os.path.join(root, "osc")
+    # the OSC script's debayered sequences are checked: room on the disk
+    _remove(proc, "r_pp_light_")
+    _remove(proc, "pp_light_")
+    rows, failed, timings = {}, [], {}
+    script = os.path.join(root, "osc_drizzle.ssf")
+    with open(script, "w") as f:
+        f.write(OSC_DRIZZLE_SCRIPT)
+    k1.reset_counts()
+    t = time.perf_counter()
+    session = cli.run(["-d", proc, "-s", script])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {"Bayer-drizzle script": dict(k1.launches)}
+    _log_rows(session, rows)
+    out = read_fits(os.path.join(proc, "result_drizzle.fit")).host()
+    r_cfa = sorted(f for f in os.listdir(proc)
+                   if f.startswith("r_cfa_light_") and f.endswith(".fit"))
+    first = read_fits(os.path.join(proc, r_cfa[0]))
+    reg = read_seqfile(os.path.join(proc, "cfa_light_.seq")).reg(0)
+    corners = np.array([[0, 0, 1], [SIZE, 0, 1], [0, SIZE, 1],
+                        [SIZE, SIZE, 1.0]])
+    reg_err = []
+    for k, (dx, dy) in enumerate(osc["shifts"]):
+        q = corners @ reg.H[k].T
+        reg_err.append(float(np.abs(q[:, :2] / q[:, 2:] - corners[:, :2]
+                                    + np.array([dx, dy])).max()))
+    log(f"  register -drizzle on the raw mosaic: stars a frame "
+        f"{reg.number_of_stars.tolist()}; H against the true shifts at the "
+        f"corners, px: {', '.join(f'{e:.3f}' for e in reg_err)}")
+    scene, sigma_n = osc["scene"], osc["sigma_n"]
+    errs, sky_errs, fits = _affine_errs(out, scene)
+    tols = [DRIZZLE_MARGIN * 0.8 * sigma_n / np.sqrt(OSC_LIGHTS * sh)
+            for sh in DRIZZLE_SHARE]
+    ry, rx = osc["rays"]
+    on = np.abs(scene[1][ry, rx] - float(np.median(scene[1]))) < 1e-3
+    ry, rx = ry[on], rx[on]
+    ray_err = max(float(np.abs((out[c][ry, rx] - fits[c][1]) / fits[c][0]
+                               - scene[c][ry, rx]).max()) for c in range(3))
+    idx = _bright_isolated(osc, SIZE)
+    true = osc["amp"][idx][:, [0, 2]] / osc["amp"][idx][:, 1:2]
+    seq = session.sequence
+    ref = seq.get_reference()
+    sel = seq.selected_indices()
+    gains = tuple(float(np.mean([seq.get_frame_stats(0, ref).scale
+                                 / seq.get_frame_stats(c, int(k)).scale
+                                 for k in sel])) for c in range(3))
+    meds = _ratio_check("Bayer-drizzle result (-rgb_equal gains "
+                        + ", ".join(f"{v:.4f}" for v in gains)
+                        + ") against the true colours",
+                        _star_ratios(out, osc, idx), true, gains)
+    res = session.result
+    log(f"  Bayer-drizzle script wall {wall:.2f}s; r_cfa_ frames "
+        f"{len(r_cfa)} of {first.nchans} float32 layers; per layer (R, G, "
+        f"B) interior mean |Δ| vs the scene after an affine fit "
+        f"{', '.join(f'{e:.5f}' for e in errs)}, on the sky "
+        f"{', '.join(f'{e:.5f}' for e in sky_errs)} (tolerance "
+        f"{', '.join(f'{e:.5f}' for e in tols)}; noise {sigma_n}); the "
+        f"reference frame's {len(ry)} ray pixels on the sky, max |Δ| "
+        f"{ray_err:.5f}; rejected low/high {res.total_rejected[0]}/"
+        f"{res.total_rejected[1]}")
+    checks = {
+        "result: 3 layers of SIZE², finite": out.shape == (3, SIZE, SIZE)
+        and bool(np.isfinite(out).all()),
+        f"all {OSC_LIGHTS} lights drizzled, 3 float32 layers each":
+            len(r_cfa) == OSC_LIGHTS and first.nchans == 3
+            and first.orig_bitdepth == -32,
+        "every H within 0.5 px of the true shift at the corners":
+            max(reg_err) < 0.5,
+        "each layer's sky within 0.8σ/√(N·share) × 1.25 of the scene":
+            all(e < t_ for e, t_ in zip(sky_errs, tols)),
+        f"star colours within {DRIZZLE_TRUE_RATIO_TOL:.0%} of the true "
+        "ones": max(abs(q - 1.0) for q in meds) < DRIZZLE_TRUE_RATIO_TOL,
+        "cosmic rays rejected (rej_high > 0, |Δ| < 0.05 at the reference "
+        "frame's rays)": res.total_rejected[1] > 0 and ray_err < 0.05,
+        "no loop stopped at its bound": res.capped == 0,
+        "K1a launched once a layer": launches["Bayer-drizzle script"] ==
+            {**{k: 0 for k in k1.launches}, "K1a": 3}}
+    _remove(proc, "r_cfa_light_")
+
+    # the chunked CFA path: the weight map of every plane covers the
+    # interior
+    real, seen = drz.drizzle_sequence, []
+
+    def spy(*a, **kw):
+        seen.append(real(*a, **kw))
+        return seen[-1]
+
+    drz.drizzle_sequence = spy
+    try:
+        s, _ = _timed_cli(rows, proc, "stack", "cfa_light", "-drizzle",
+                          "-scale=1.0", "-out=drizzle_cfa")
+    finally:
+        drz.drizzle_sequence = real
+    img, wmap = seen[0]
+    m = 48
+    w_in = wmap.host()[:, m:-m, m:-m]
+    cerrs, csky, _ = _affine_errs(img.host(), scene)
+    log(f"  stack cfa_light -drizzle: weight map on the interior min "
+        f"{', '.join(f'{float(w.min()):.4f}' for w in w_in)} (R, G, B), "
+        f"mean {', '.join(f'{float(w.mean()):.4f}' for w in w_in)}; "
+        f"against the scene after an affine fit, on the sky "
+        f"{', '.join(f'{e:.5f}' for e in csky)}")
+    checks["stack -drizzle (CFA): weight above 0 on every interior pixel "
+           "of each plane"] = bool((w_in > 0).all())
+    checks["stack -drizzle (CFA): 3 finite layers of SIZE²"] = \
+        s.image.data.shape == (3, SIZE, SIZE) and \
+        bool(np.isfinite(img.host()).all())
+    del img, wmap, w_in, seen
+
+    # mono, scale 2, onto a (2·SIZE)² grid
+    sproc = os.path.join(script_dir, "process")
+    s, _ = _timed_cli(rows, sproc, "stack", "pp_light", "-drizzle",
+                      "-scale=2", "-pixfrac=0.9", "-out=drizzle_x2")
+    big = s.image.host()[0]
+    binned = big.reshape(SIZE, 2, SIZE, 2).mean(axis=(1, 3))
+    mscene, msig = night["scene"], night["sigma_n"]
+    inner = np.s_[m:-m, m:-m]
+    d2 = np.abs(binned[inner] - mscene[inner])
+    sky2 = np.abs(mscene[inner] - float(np.median(mscene[inner]))) < 1e-3
+    log(f"  stack pp_light -drizzle -scale=2 -pixfrac=0.9: {big.shape}, "
+        f"binned 2×2 against the scene: interior mean |Δ| "
+        f"{float(d2.mean()):.5f}, on the sky {float(d2[sky2].mean()):.5f} "
+        f"(tolerance {DRIZZLE2_TOL * msig:.5f})")
+    checks["stack -drizzle -scale=2: (2·SIZE)², finite"] = \
+        big.shape == (2 * SIZE, 2 * SIZE) and bool(np.isfinite(big).all())
+    checks["stack -drizzle -scale=2: binned interior within σ/2"] = \
+        float(d2.mean()) < DRIZZLE2_TOL * msig
+    del big, binned, d2, s
+
+    # -upscale on 4 selected frames (the selection in the .seq)
+    seqf = os.path.join(sproc, "pp_light_.seq")
+    sq = read_seqfile(seqf)
+    sq.incl[:] = False
+    sq.incl[:4] = True
+    sq.save()
+    s, row = _timed_cli(rows, sproc, "stack", "pp_light", "rej", "3", "3",
+                        "-norm=addscale", "-upscale", "-out=upscaled")
+    up = s.image.host()[0]
+    up_launch = row["launches"]
+    launches["stack pp_light -upscale (4 frames)"] = up_launch
+    s4, row = _timed_cli(rows, sproc, "stack", "pp_light", "rej", "3", "3",
+                         "-norm=addscale", "-out=plain4")
+    launches["stack pp_light (the same 4 frames)"] = row["launches"]
+    plain4 = s4.image.host()[0]
+    dup = np.abs(up.reshape(SIZE, 2, SIZE, 2).mean(axis=(1, 3))[inner]
+                 - plain4[inner])
+    log(f"  -upscale: {up.shape} from {s4.result.image.keywords.stackcnt} "
+        f"frames, K1a launches {up_launch.get('K1a')}; binned 2×2 against "
+        f"the same frames stacked without it: interior mean |Δ| "
+        f"{float(dup.mean()):.6f} (tolerance {UPSCALE_TOL * msig:.5f}), "
+        f"max {float(dup.max()):.5f}")
+    checks["-upscale: (2·SIZE)², finite, 4 frames, K1a once"] = \
+        up.shape == (2 * SIZE, 2 * SIZE) and \
+        bool(np.isfinite(up).all()) and up_launch.get("K1a") == 1 and \
+        s4.result.image.keywords.stackcnt == 4
+    checks["-upscale: binned within σ/4 of the plain stack"] = \
+        float(dup.mean()) < UPSCALE_TOL * msig
+    del up, plain4, dup, s, s4
+    _remove(sproc, "upscaled_pp_light_")
+
+    # ms per frame (CUDA events) and peak device memory beyond the frames
+    dev = torch.device(CARD)
+    cfa_raw = torch.from_numpy(FitsReader(os.path.join(
+        proc, "light_00002.fit")).raw_topdown("<i2")[None]).to(dev)
+    mono_raw = torch.from_numpy(FitsReader(os.path.join(
+        sproc, "pp_light_00002.fit")).raw_topdown("<i2")[None]).to(dev)
+    Hm = read_seqfile(seqf).reg(0).H[1:2]
+    for name, frames, shape, args, H, pat in (
+            ("scale 1, CFA → 3 planes", cfa_raw, (3, SIZE, SIZE),
+             drz.DrizzleArgs(scale=1.0, pixfrac=1.0, use_bayer=True),
+             reg.H[1:2], "RGGB"),
+            ("scale 2, pixfrac 0.9, mono", mono_raw,
+             (1, 2 * SIZE, 2 * SIZE),
+             drz.DrizzleArgs(scale=2.0, pixfrac=0.9), Hm, None)):
+        acc = drz.DrizzleAccumulator(shape, args, dev)
+        acc.add_frames(frames, H, pattern=pat)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = _events_ms(lambda: acc.add_frames(frames, H, pattern=pat), 3)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        timings[name] = dict(ms=ms, peak_mib=peak)
+        log(f"  drizzle {name}: {ms:.3f} ms a {SIZE}² frame (CUDA events, "
+            f"median of 3), peak device memory beyond the frame and the "
+            f"accumulator {peak:.0f} MiB")
+        del acc
+    # each device stage on the card against the CPU on a crop
+    c = DRIZZLE_CROP
+    for name, frames, args, H, pat in (
+            ("drizzle scale 1 CFA", cfa_raw[..., :c, :c],
+             drz.DrizzleArgs(scale=1.0, pixfrac=1.0, use_bayer=True),
+             reg.H[1:2], "RGGB"),
+            ("drizzle scale 2 mono", mono_raw[..., :c, :c],
+             drz.DrizzleArgs(scale=2.0, pixfrac=0.9), Hm, None)):
+        outs = []
+        for d in (CARD, "cpu"):
+            acc = drz.DrizzleAccumulator(
+                (3 if pat else 1, int(c * args.scale), int(c * args.scale)),
+                args, d)
+            acc.add_frames(frames.to(d).contiguous(), H, pattern=pat)
+            outs.append([x.host() for x in acc.finalize()])
+        err = max(float(np.abs(a - b).max()) for a, b in zip(*outs))
+        timings[name + " cuda vs cpu"] = err
+        log(f"  {name}: cuda vs cpu on a {c}² crop, output and weight map "
+            f"max |Δ| {err:.3g}")
+        checks[f"{name}: cuda vs cpu within {DRIZZLE_CPU_TOL:g}"] = \
+            err <= DRIZZLE_CPU_TOL
+    crop = SirilImage(data=(mono_raw[0, :, :c, :c].float().cpu().numpy()
+                            + 32768.0) / 65535.0)
+    a, b = (resample(crop, 2 * c, 2 * c, device=d).host()
+            for d in (CARD, "cpu"))
+    err = float(np.abs(a - b).max())
+    timings["upscale resample cuda vs cpu"] = err
+    log(f"  -upscale's resample ×2: cuda vs cpu on a {c}² crop max |Δ| "
+        f"{err:.3g}")
+    checks[f"resample ×2: cuda vs cpu within {DRIZZLE_CPU_TOL:g}"] = \
+        err <= DRIZZLE_CPU_TOL
+    del cfa_raw, mono_raw
+    torch.cuda.empty_cache()
+    for k, ok in checks.items():
+        if not ok:
+            log(f"  check drizzle: {k}: FAILED")
+            failed.append(k)
+    if failed:
+        raise RuntimeError(f"drizzle checks failed: {failed}")
+    timings["script"] = wall
+    return launches, rows, timings
+
+
+#: the formats phase: the script phase's first FORMATS_LIGHTS raw lights
+FORMATS_LIGHTS = 8
+#: the SER sequence's stack against the regular one's: the SER frames are
+#: decoded as u16 / 65535 on the host and take the streamed path, the
+#: FITS ones as (x + 32768) · (1/65535) on the card on the resident path
+#: (one float32 ulp apart), so a pixel here and there flips a rejection:
+#: mean |Δ| below 1e-6, and at most one pixel in 1e5 off by more than
+#: 1e-5 (one in 262144 measured at 512² on the CPU)
+SER_MEAN_TOL = 1e-6
+SER_FLIPS = 1e-5
+
+
+def phase_formats(seed: int, script_dir: str):
+    """FITS formats and sequence kinds at full width on the script
+    phase's raw 16-bit lights, linked into a directory of their own:
+    ``link``, ``convert -fitseq``, ``convert -ser`` and ``rej 3 3``
+    stacks of the regular, cube and SER sequences; a light written and
+    read as BITPIX 8, 32 and -64; ``setcompress`` rice and gzip2, save and
+    load; the C++ Rice coder's ms per frame and its bytes against the
+    Python coder's; a 4-frame fz sequence stacked.  Returns ({path: K1
+    launches}, {command: row}, timings)."""
+    import numpy as np
+
+    from siril_tpu_torch import native
+    from siril_tpu_torch.core.image import DOUBLE_IMG
+    from siril_tpu_torch.io import fits_compress as fc
+    from siril_tpu_torch.io.fits_io import read_fits, write_fits
+
+    fmt = os.path.join(script_dir, "formats")
+    os.makedirs(fmt)
+    lights = os.path.join(script_dir, "lights")
+    for k in range(1, FORMATS_LIGHTS + 1):
+        os.symlink(os.path.join(lights, f"light_{k:05d}.fit"),
+                   os.path.join(fmt, f"raw_{k:05d}.fit"))
+    rows, checks, timings, launches = {}, {}, {}, {}
+    # the cube and the video first: convert takes every FITS file of the
+    # directory but its own outputs, and link's would be among them
+    _timed_cli(rows, fmt, "convert", "light", "-fitseq", "-out=cube")
+    _timed_cli(rows, fmt, "convert", "light", "-ser", "-out=ser")
+    _timed_cli(rows, fmt, "link", "light")
+    results = {}
+    for kind, d in (("regular", fmt), ("cube", os.path.join(fmt, "cube")),
+                    ("SER", os.path.join(fmt, "ser"))):
+        s, row = _timed_cli(rows, d, "stack", "light_", "rej", "3", "3",
+                            "-norm=addscale", "-out=result")
+        rows[f"stack light_ rej 3 3 -norm=addscale ({kind})"] = rows.pop(
+            "stack light_ rej 3 3 -norm=addscale -out=result")
+        launches[f"formats: stack of the {kind} sequence"] = row["launches"]
+        results[kind] = (s.image.host(), s.result, s.sequence.seq_type)
+    reg_out, cube_out, ser_out = (results[k][0] for k in
+                                  ("regular", "cube", "SER"))
+    dser = np.abs(ser_out - reg_out)
+    log(f"  sequence types {[results[k][2] for k in results]}; cube "
+        f"result against the regular one: max |Δ| "
+        f"{float(np.abs(cube_out - reg_out).max()):.3g}; SER: mean |Δ| "
+        f"{float(dser.mean()):.3g}, max {float(dser.max()):.3g}, pixels "
+        f"over 1e-5 {int((dser > 1e-5).sum())}")
+    checks["cube stack bit-equal to the regular one"] = \
+        bool((cube_out == reg_out).all())
+    checks[f"SER stack within mean {SER_MEAN_TOL:g}, at most "
+           f"{SER_FLIPS:g} of the pixels off by 1e-5"] = \
+        float(dser.mean()) < SER_MEAN_TOL and \
+        int((dser > 1e-5).sum()) <= SER_FLIPS * dser.size
+    checks["results finite, SIZE²"] = all(
+        r[0].shape == (1, SIZE, SIZE) and bool(np.isfinite(r[0]).all())
+        for r in results.values())
+    for d in ("cube", "ser"):
+        shutil.rmtree(os.path.join(fmt, d))
+    del results, reg_out, cube_out, ser_out, dser
+
+    # BITPIX 8 (the port's writer), 32 and -64 (numpy), -64 saved as -32
+    light = read_fits(os.path.join(fmt, "raw_00001.fit"))
+    x = light.host()
+    p8 = os.path.join(fmt, "b8.fit")
+    write_fits(light, p8, bitdepth=8)
+    u16 = np.rint(x[0] * 65535.0).astype(np.int64)
+    _write_fits_raw(os.path.join(fmt, "b32.fit"),
+                    (u16 * 65537 - 2 ** 31).astype(">i4"), 32,
+                    bzero=2147483648.0)
+    _write_fits_raw(os.path.join(fmt, "b64.fit"), x[0].astype(">f8"), -64)
+    write_fits(light, os.path.join(fmt, "d64.fit"), bitdepth=DOUBLE_IMG)
+    for name, step in (("b8", 1 / 255), ("b32", 2.0 ** -24), ("b64", 0.0),
+                       ("d64", 0.0)):
+        back = read_fits(os.path.join(fmt, name + ".fit"))
+        err = float(np.abs(back.host() - x).max())
+        log(f"  {name}: BITPIX read back {back.orig_bitdepth}, max |Δ| "
+            f"{err:.3g} (half a quantization step {step / 2:.3g})")
+        checks[f"{name} within half its step"] = err <= step / 2 + 1e-7
+
+    # setcompress + save + load of a 16-bit light
+    with open(os.path.join(fmt, "compress.ssf"), "w") as f:
+        f.write("load raw_00001\nsetcompress 1 -type=rice\nsave c_rice\n"
+                "setcompress 1 -type=gzip2\nsave c_gzip2\nsetcompress 0\n"
+                "close\n")
+    from siril_tpu_torch import cli
+
+    s = cli.run(["-d", fmt, "-s", os.path.join(fmt, "compress.ssf")])
+    _log_rows(s, rows)
+    for kind in ("rice", "gzip2"):
+        p = os.path.join(fmt, f"c_{kind}.fit")
+        back = read_fits(p)
+        # the 16-bit values (a compressed tile decodes through float64, a
+        # plain one through float32: one float32 ulp apart)
+        same = bool((np.rint(back.host()[0] * 65535.0) == u16).all()) and \
+            back.orig_bitdepth == 20
+        log(f"  setcompress {kind}: {os.path.getsize(p) / 2 ** 20:.1f} MiB "
+            f"against {os.path.getsize(os.path.join(lights, 'light_00001.fit')) / 2 ** 20:.1f}"
+            f" MiB raw; loaded back bit-equal: {same}")
+        checks[f"setcompress {kind}: save and load bit-equal"] = same
+
+    # the C++ Rice coder: ms a frame, and its bytes against Python's
+    rows_i16 = (u16 - 32768).astype(np.int16)
+    native.lib()
+    enc, dec = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        heap, offs, lens = native.rice_encode_tiles_i16(rows_i16)
+        enc.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        back = native.rice_decode_tiles_i16(heap, offs, lens, SIZE)
+        dec.append((time.perf_counter() - t) * 1e3)
+    same_py = all(heap[offs[k]:offs[k] + lens[k]] ==
+                  fc.rice_encode(rows_i16[k].astype(np.int64), 2)
+                  for k in range(64))
+    timings["rice"] = dict(encode_ms=sorted(enc)[1],
+                           decode_ms=sorted(dec)[1], bytes=len(heap))
+    log(f"  C++ Rice coder, one {SIZE}² 16-bit frame on the host (median "
+        f"of 3): encode {sorted(enc)[1]:.1f} ms, decode {sorted(dec)[1]:.1f}"
+        f" ms, {len(heap) / 2 ** 20:.1f} MiB; the first 64 rows' streams "
+        f"equal to the Python coder's: {same_py}")
+    checks["C++ Rice: decoded equal, streams equal to Python's"] = \
+        same_py and bool((back == rows_i16).all())
+
+    # a 4-frame fz sequence, stacked, against the same frames uncompressed
+    for k in range(1, 5):
+        img = read_fits(os.path.join(fmt, f"raw_{k:05d}.fit"))
+        write_fits(img, os.path.join(fmt, f"fz_{k:05d}.fit.fz"),
+                   compression="rice")
+        os.symlink(os.path.join(lights, f"light_{k:05d}.fit"),
+                   os.path.join(fmt, f"four_{k:05d}.fit"))
+    fz, row = _timed_cli(rows, fmt, "stack", "fz_", "rej", "3", "3",
+                         "-norm=addscale", "-out=fz_result")
+    launches["formats: stack of the fz sequence"] = row["launches"]
+    four, row = _timed_cli(rows, fmt, "stack", "four_", "rej", "3", "3",
+                           "-norm=addscale", "-out=four_result")
+    launches["formats: stack of the same 4 frames"] = row["launches"]
+    dfz = float(np.abs(fz.image.host() - four.image.host()).max())
+    log(f"  fz sequence ({fz.sequence.fz=}) stacked against the same 4 "
+        f"frames uncompressed: max |Δ| {dfz:.3g}")
+    checks["fz stack within 2e-6 of the uncompressed one"] = \
+        fz.sequence.fz and dfz <= 2e-6
+    failed = [k for k, ok in checks.items() if not ok]
+    for k in failed:
+        log(f"  check formats: {k}: FAILED")
+    if failed:
+        raise RuntimeError(f"formats checks failed: {failed}")
+    return launches, rows, timings
+
+
+def _write_fits_raw(path: str, data, bitpix: int, bzero: float = 0.0):
+    """A one-HDU FITS file of the stored values ``data`` (H, W), already
+    in the big-endian dtype of ``bitpix``, rows bottom-up."""
+    import numpy as np
+
+    h, w = data.shape
+    cards = ["SIMPLE  =                    T", f"BITPIX  = {bitpix:>20}",
+             "NAXIS   =                    2", f"NAXIS1  = {w:>20}",
+             f"NAXIS2  = {h:>20}"]
+    if bzero:
+        cards += [f"BZERO   = {bzero:>20}", "BSCALE  =                  1.0"]
+    cards.append("END")
+    hdr = "".join(c.ljust(80) for c in cards).encode("ascii")
+    hdr += b" " * ((-len(hdr)) % 2880)
+    body = np.ascontiguousarray(data[::-1]).tobytes()
+    with open(path, "wb") as f:
+        f.write(hdr)
+        f.write(body)
+        f.write(b"\0" * ((-len(body)) % 2880))
 
 
 #: the mosaic phase: 2 × 2 tiles of SIZE² with MOSAIC_OVERLAP px overlaps
@@ -2352,26 +2938,41 @@ def main(argv=None) -> int:
         stack_launches, _ = phase_stack(args.seed)
         _, stack100 = phase_stack(args.seed + 1, STACK100, SIZE100,
                                   STACK100_RUNS)
+    # the script phase's directory stays for the drizzle and formats
+    # phases, the osc phase's for the drizzle phase
     osc_root = tempfile.mkdtemp(prefix="chip_smoke_osc_")
+    script_root = tempfile.mkdtemp(prefix="chip_smoke_script_")
     try:
         with Phase("script"):
-            script_launches, _, _, night = phase_script(args.seed, osc_root)
+            script_launches, _, _, night = phase_script(args.seed, osc_root,
+                                                        script_root)
         with Phase("osc"):
-            osc_launches, _, _, _ = phase_osc(args.seed, osc_root, night)
-        del night
+            osc_launches, _, _, _, osc_made = phase_osc(args.seed, osc_root,
+                                                        night)
+        with Phase("drizzle"):
+            drizzle_launches, _, _ = phase_drizzle(
+                args.seed, osc_root, script_root, night, osc_made)
+        del night, osc_made
+        shutil.rmtree(osc_root, ignore_errors=True)
+        with Phase("formats"):
+            formats_launches, _, _ = phase_formats(args.seed, script_root)
     finally:
         shutil.rmtree(osc_root, ignore_errors=True)
+        shutil.rmtree(script_root, ignore_errors=True)
     with Phase("mosaic"):
         mosaic_launches, _, _ = phase_mosaic(args.seed)
     src = "siril_tpu_torch/csrc/reject_stack.cu"
     tpu = "siril_tpu/pallas/reject_stack.py"
     # K1a runs on several paths: fusedstack (shifts and homographies), and
     # the script (its winsorized stacks) with the calibrated fusedstack
-    # and the filtered stack; launches sums them
+    # and the filtered stack, the OSC and Bayer-drizzle scripts, -upscale
+    # and the formats phase's stacks; launches sums them
     by_path = {"fusedstack": launches,
                "fusedstack -transf=homography": hom_launches,
                **{p: c["K1a"] for p, c in script_launches.items()},
-               "osc script": osc_launches["K1a"]}
+               "osc script": osc_launches["K1a"],
+               **{p: c.get("K1a", 0) for p, c in {
+                   **drizzle_launches, **formats_launches}.items()}}
     kernels = [dict(name="reject_stack (K1a)",
                     launches=sum(by_path.values()),
                     launches_by_path=by_path, replaces=f"{tpu}:763", **k1a)]

@@ -13,5 +13,9 @@ stack, on ``.seq`` sequences; ``ops/calibration.py``, ``ops/cosmetic.py``,
 shift registration) and the staged ``stack`` command
 (``ops/stacking.stack_sequence``), with the rejection stack — every
 rejection mode and the weighted mean — as a hand-written CUDA kernel
-(``kernels/reject_stack.py``, ``csrc/reject_stack.cu``).
+(``kernels/reject_stack.py``, ``csrc/reject_stack.cu``); one-shot-colour
+sessions (``ops/demosaic.py``); drizzle (``ops/drizzle.py``); FITS of
+BITPIX 8, 16, 32, −32 and −64 with tiled compression (``io/fits_io.py``,
+``io/fits_compress.py``, ``native/``), SER videos and FITS cubes
+(``io/ser.py``, ``core/sequence.py``).
 """

@@ -1,7 +1,7 @@
 """Command-line entry — counterpart of ``siril_tpu/cli/main.py`` (``-d
 dir``, ``-s script.ssf`` or one command) over the ported commands
 (``cli/commands.py``): requires, cd, setext, close, load, save,
-convert, link, calibrate, the CFA commands (split_cfa, extract_Ha,
+setcompress, convert, link, calibrate, the CFA commands (split_cfa, extract_Ha,
 extract_Green, extract_HaOIII, merge_cfa and their seq… forms),
 setfindstar, register, seqapplyreg, stack and fusedstack.
 
@@ -10,7 +10,7 @@ setfindstar, register, seqapplyreg, stack and fusedstack.
     python -m siril_tpu_torch.cli [-d dir] [--device cuda|cpu] command …
 
 Runs on CUDA unless ``--device cpu`` is given.  The other commands of the
-reference's table are not ported yet (ROADMAP §1.9, the surfaces).
+reference's table are not ported yet (ROADMAP §1.7, the surfaces).
 """
 
 from __future__ import annotations

@@ -1,13 +1,15 @@
 """The ported commands — counterpart of ``siril_tpu/cli/commands.py``
 (``load``:98, ``save``:117, ``requires``:321, ``cd``:217, ``setext``:237,
 ``close``:205, ``convert``:473, ``link``:500, ``_load_master``:601,
+``_drizzle_out_sequence``:1011,
 ``_calib_args_from_flags``:617, ``calibrate``:651, ``split_cfa``:763,
 ``extract_Ha``:776, ``extract_Green``:790, ``extract_HaOIII``:802,
 ``merge_cfa``:817, ``setfindstar``:833, ``_sf_params``:874, ``register``
 :910, ``seqapplyreg``:1059, ``stack``:1197, ``_stack_args_from_flags``
 :1121, ``_seq_apply``:2684, ``seqsplit_cfa``:2792, ``seqextract_Ha``
 :2818, ``seqextract_Green``:2836, ``seqextract_HaOIII``:2846) and
-``siril_tpu/cli/commands2.py`` (``seqmerge_cfa``:369, ``fusedstack``:836).
+``siril_tpu/cli/commands2.py`` (``setcompress``:134, ``seqmerge_cfa``:369,
+``fusedstack``:836).
 
 Each command keeps the reference's name, argument order and ``-key=value``
 flags, so the standard preprocessing scripts run unchanged.  Device work
@@ -22,6 +24,7 @@ import glob as globmod
 import logging
 import os
 import re
+import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -158,8 +161,9 @@ def cmd_load(ctx: Session, args: List[str]) -> None:
 
 @command("save", "save filename", min_args=1)
 def cmd_save(ctx: Session, args: List[str]) -> None:
-    """Write the loaded image at its bit depth; ``$KEY:fmt$`` in the name
-    takes the image's keywords."""
+    """Write the loaded image at its bit depth, tile-compressed while
+    ``setcompress`` is on; ``$KEY:fmt$`` in the name takes the image's
+    keywords."""
     from siril_tpu_torch.io.fits_io import write_fits
     from siril_tpu_torch.utils.pathparse import parse_path
 
@@ -169,8 +173,25 @@ def cmd_save(ctx: Session, args: List[str]) -> None:
     os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
     if not os.path.splitext(p)[1]:
         p += ctx.ext
-    write_fits(img, p, bitdepth=img.orig_bitdepth)
-    _log.info("Saving FITS: '%s'", os.path.basename(p))
+    write_fits(img, p, bitdepth=img.orig_bitdepth,
+               compression=ctx.compression)
+    _log.info("Saving FITS: '%s'%s", os.path.basename(p),
+              f" (compressed: {ctx.compression})" if ctx.compression else "")
+
+
+@command("setcompress", "setcompress 0|1 [-type=rice|gzip1|gzip2] [q]",
+         min_args=1)
+def cmd_setcompress(ctx: Session, args: List[str]) -> None:
+    """Turn the tile compression of ``save`` on or off.  Every codec is
+    lossless here: float images are written GZIP_1, and the quantization
+    level ``q`` is read and not used, as in the JAX package."""
+    pos, flags = parse_flags(args)
+    if pos[0] in ("0", "false", "no"):
+        ctx.compression = None
+        _log.info("FITS compression disabled")
+        return
+    ctx.compression = str(flags.get("type", "rice")).lower()
+    _log.info("FITS compression enabled: %s", ctx.compression)
 
 
 # ===========================================================================
@@ -526,18 +547,17 @@ def _sf_params(ctx: Session):
 
 
 _REGISTER_UNPORTED = {
-    "3stars": "1/2/3-star registration (ROADMAP §1.4, the rest of "
+    "3stars": "1/2/3-star registration (ROADMAP §1.2, the rest of "
               "registration: registration/threestars.py)",
-    "drizzle": "drizzle output (ROADMAP §1.1, drizzle and -upscale: "
-               "register -drizzle)",
-    "disto": "SIP distortion correction (ROADMAP §1.4, the rest of "
+    "disto": "SIP distortion correction (ROADMAP §1.2, the rest of "
              "registration: register -disto)",
 }
 
 
 @command("register", "register sequencename [-2pass] [-noout] [-transf=] "
          "[-layer=] [-prefix=] [-minpairs=] [-maxstars=] [-interp=] "
-         "[-noclamp]", min_args=1)
+         "[-noclamp] [-drizzle [-scale=] [-pixfrac=] [-kernel=] [-flat=]]",
+         min_args=1)
 def cmd_register(ctx: Session, args: List[str]) -> None:
     from siril_tpu_torch.ops.interp import INTERP_NAMES
     from siril_tpu_torch.registration.global_reg import (
@@ -581,23 +601,95 @@ def cmd_register(ctx: Session, args: List[str]) -> None:
     if isinstance(flags.get("extref"), str):
         ra.extref = ctx.path(flags["extref"])
     ra.save_starlists = "nostarlist" not in flags
+    if "drizzle" in flags:
+        # the transforms only, then every frame drizzled onto the output
+        # grid (the Bayer-drizzle workflow)
+        ra.output = False
+        res = register_sequence(seq, ra, device=ctx.device)
+        stages = dict(res.stage_s)
+        _drizzle_out_sequence(ctx, seq, ra.reglayer, ra.prefix or "r_",
+                              flags)
+        ctx.stages = {**stages, **ctx.stages}
+        _log.info("Registration complete: %d images", int(seq.incl.sum()))
+        return
     res = register_sequence(seq, ra, device=ctx.device)
     ctx.sequence = res.new_seq or seq
     ctx.stages = res.stage_s
     _log.info("Registration complete: %d images", res.processed)
 
 
+def _drizzle_args(flags: dict):
+    """DrizzleArgs of ``-scale= -pixfrac= -kernel=`` (2, 1, square)."""
+    from siril_tpu_torch.ops.drizzle import KERNEL_NAMES, DrizzleArgs
+
+    da = DrizzleArgs(scale=_f(flags.get("scale"), 2.0) or 2.0,
+                     pixfrac=_f(flags.get("pixfrac"), 1.0) or 1.0)
+    if isinstance(flags.get("kernel"), str):
+        da.kernel = KERNEL_NAMES.get(flags["kernel"].lower(), da.kernel)
+    return da
+
+
+def _drizzle_out_sequence(ctx: Session, seq, reglayer: int, prefix: str,
+                          flags: dict):
+    """Each selected, registered frame drizzled alone → the float32
+    sequence ``<prefix><name>`` (applyreg.c's drizzle path,
+    initialize_drizzle_params:1111), for ``register -drizzle`` and
+    ``seqapplyreg -drizzle``.  A CFA frame drizzles its sites to three
+    planes; ``-flat=`` gives the input weights (the master flat's first
+    layer, as read)."""
+    from siril_tpu_torch.core.engine import SeqArgs, run_sequence
+    from siril_tpu_torch.device import resolve_device, synchronize
+    from siril_tpu_torch.io.conversion import load_any
+    from siril_tpu_torch.ops.drizzle import DrizzleAccumulator
+
+    dev = resolve_device(ctx.device)
+    da = _drizzle_args(flags)
+    wplane = None
+    if isinstance(flags.get("flat"), str):
+        fp = ctx.path(flags["flat"])
+        if not os.path.splitext(fp)[1]:
+            fp += ctx.ext
+        wplane = load_any(fp).host()[0]
+    reg = seq.reg(reglayer)
+    first = seq.read_frame(int(seq.selected_indices()[0]))
+    da.use_bayer = first.is_cfa()
+    out_shape = (3 if da.use_bayer else first.nchans,
+                 int(seq.ry * da.scale), int(seq.rx * da.scale))
+    stages: dict = {}
+
+    def image(c, idx, img):
+        if not reg.valid[idx]:
+            return None
+        t = time.perf_counter()
+        acc = DrizzleAccumulator(out_shape, da, dev)
+        acc.add_frame(img, reg.H[idx], weight_plane=wplane)
+        out, _ = acc.finalize(want_weight=False)
+        synchronize(dev)
+        stages["drizzle"] = stages.get("drizzle", 0.0) + \
+            time.perf_counter() - t
+        return out
+
+    # the outputs go beside the sequence, one float32 FITS file a frame
+    res = run_sequence(SeqArgs(seq=seq, description="drizzle",
+                               prefix=prefix, image=image,
+                               output_bitdepth=FLOAT_IMG, stage_s=stages))
+    if res.new_seq is not None:
+        res.new_seq.save()
+    ctx.sequence = res.new_seq or seq
+    ctx.stages = stages
+    _log.info("drizzle: %d frames at x%g", res.processed, da.scale)
+    return res.new_seq
+
+
 _APPLYREG_UNPORTED = {
-    "drizzle": "drizzle output (ROADMAP §1.1, drizzle and -upscale: "
-               "seqapplyreg -drizzle)",
-    "disto": "SIP distortion correction (ROADMAP §1.4, the rest of "
+    "disto": "SIP distortion correction (ROADMAP §1.2, the rest of "
              "registration: seqapplyreg -disto)",
 }
 
 
 @command("seqapplyreg", "seqapplyreg sequencename [-framing=] [-interp=] "
-         "[-prefix=] [-layer=] [-scale=] [-noclamp] [-filter-*=]",
-         min_args=1)
+         "[-prefix=] [-layer=] [-scale=] [-noclamp] [-filter-*=] "
+         "[-drizzle [-pixfrac=] [-kernel=] [-flat=]]", min_args=1)
 def cmd_seqapplyreg(ctx: Session, args: List[str]) -> None:
     from siril_tpu_torch.core.filtering import apply_filters, filter_specs
     from siril_tpu_torch.ops.interp import INTERP_NAMES
@@ -631,10 +723,14 @@ def cmd_seqapplyreg(ctx: Session, args: List[str]) -> None:
         seq.incl &= keep
         _log.info("seqapplyreg filter: %d of %d frames kept",
                   int(seq.incl.sum()), seq.number)
+    if "drizzle" in flags:
+        _drizzle_out_sequence(ctx, seq, aa.reglayer, aa.prefix or "r_",
+                              flags)
+        return
     if not seq.has_reg(aa.reglayer):
         raise CommandError(
             "no registration data in this sequence (homographies from "
-            "plate-solved frames are not ported: ROADMAP §1.4, the rest of "
+            "plate-solved frames are not ported: ROADMAP §1.2, the rest of "
             "registration: registration/astrometric.py)")
     res = apply_reg_sequence(seq, aa, device=ctx.device)
     ctx.sequence = res.new_seq or seq
@@ -782,35 +878,34 @@ def stack_args_from_flags(pos: List[str], flags: dict):
     return sa
 
 
-#: flags of the stack command whose features are not ported yet
-_STACK_UNPORTED = {
-    "drizzle": "drizzle stacking (ROADMAP §1.1, drizzle and -upscale: "
-               "ops/drizzle.py)",
-    "upscale": "the x2 up-scale before stacking (ROADMAP §1.1, drizzle and "
-               "-upscale: the doubled shifts of cli/commands.py:1228-1245)",
-}
-
-
 @command("stack", "stack seqfilename {sum|min|max|med|rej} [type] "
          "[sigma_low sigma_high] [-norm=] [-weight_from_…] [-feather=] "
-         "[-overlap_norm] [-maximize] [-filter-*=] [-out=]", min_args=1)
+         "[-overlap_norm] [-maximize] [-filter-*=] [-upscale] [-out=] | "
+         "stack seqfilename -drizzle [-scale=] [-pixfrac=] [-kernel=] "
+         "[-out=]", min_args=1)
 def cmd_stack(ctx: Session, args: List[str]) -> None:
     """Stack a registered sequence: normalization, weights and pixel
     rejection on the device; writes ``<seq>stacked.fit`` (or ``-out=``)
-    and, with ``-rejmaps``, ``rejmap_low``/``rejmap_high``."""
+    and, with ``-rejmaps``, ``rejmap_low``/``rejmap_high``.  ``-drizzle``
+    drizzles the registered frames into one float32 image instead;
+    ``-upscale`` stacks a ×2 resampled copy of the selection."""
     from siril_tpu_torch.core.filtering import apply_filters, filter_specs
     from siril_tpu_torch.core.image import USHORT_IMG
     from siril_tpu_torch.io.fits_io import write_fits
     from siril_tpu_torch.ops.stacking import stack_sequence
 
     pos, flags = parse_flags(args)
-    _refuse(flags, _STACK_UNPORTED, "stack")
     seq = ctx.load_sequence(pos[0])
+    if "drizzle" in flags:
+        _stack_drizzle(ctx, seq, flags)
+        return
     sa = stack_args_from_flags(pos, flags)
     from siril_tpu_torch.utils.devmem import MEMORY_RATIO
 
     # setmem → device block budget (commands.py _apply_mem_budget)
     sa.block_mb = max(int(2048 * min(MEMORY_RATIO, 4.0)), 128)
+    if "upscale" in flags:
+        seq = _upscaled(ctx, pos[0], seq, sa.reglayer)
     indices = None
     specs = filter_specs(flags)
     if specs:
@@ -839,3 +934,53 @@ def cmd_stack(ctx: Session, args: List[str]) -> None:
             write_fits(res.rejmap_high, ctx.path("rejmap_high" + ctx.ext))
 
 
+
+
+def _stack_drizzle(ctx: Session, seq, flags: dict) -> None:
+    """``stack -drizzle``: the selected, registered frames drizzled into
+    one float32 image (``drizzle_sequence``), written as ``-out=`` or
+    ``<seq>stacked``; a CFA sequence gives three layers."""
+    from siril_tpu_torch.io.fits_io import write_fits
+    from siril_tpu_torch.ops.drizzle import drizzle_sequence
+
+    da = _drizzle_args(flags)
+    da.use_bayer = seq.read_frame(int(seq.selected_indices()[0])).is_cfa()
+    stages: dict = {}
+    out, _ = drizzle_sequence(seq, da, device=ctx.device, stages=stages)
+    name = flags.get("out") if isinstance(flags.get("out"), str) \
+        else seq.name + "stacked"
+    p = ctx.path(name)
+    if not os.path.splitext(p)[1]:
+        p += ctx.ext
+    write_fits(out, p, bitdepth=FLOAT_IMG)
+    ctx.set_image(out, os.path.basename(p))
+    ctx.stages = stages
+    _log.info("Drizzle-stacked %d frames → %s", seq.selnum,
+              os.path.basename(p))
+
+
+def _upscaled(ctx: Session, seqname: str, seq, layer: int):
+    """``stack -upscale`` (upscaling.c): the selected frames resampled ×2
+    (lanczos4 with the clamp) into ``upscaled_<name>``, whose
+    registration is the source's with its translation doubled, as the
+    JAX package does (siril_tpu/cli/commands.py:1228-1245; not S·H·S⁻¹ of
+    a projective H).  Without registration data the source sequence is
+    stacked as it is, as there."""
+    from siril_tpu_torch.ops.geometry import resample
+
+    res = _seq_apply(ctx, seqname, "upscaled_", "upscale x2",
+                     lambda im: resample(im, im.width * 2, im.height * 2,
+                                         device=ctx.device))
+    up = res.new_seq
+    if up is None or not seq.has_reg(layer):
+        return seq
+    src, dst = seq.reg(layer), up.reg(layer)
+    for k, i in enumerate(seq.selected_indices()[:up.number]):
+        Hm = src.H[i].copy()
+        Hm[0, 2] *= 2.0
+        Hm[1, 2] *= 2.0
+        dst.H[k] = Hm
+        dst.valid[k] = src.valid[i]
+    up.save()
+    ctx.sequence = up
+    return up

@@ -1,9 +1,10 @@
 """CLI session state — counterpart of ``siril_tpu/cli/context.py``
 (``Session``:17, ``require_image``:44, ``set_image``:59,
 ``load_sequence``:86, ``CommandError``:118): the working directory, the
-FITS extension, the star-finder preferences, the loaded image and its
-name, the current sequence and the last result of a headless run.
-(The reference's undo stack is not ported: ROADMAP §1.9, the surfaces.)
+FITS extension, the star-finder preferences, the FITS compression of
+``save`` (``setcompress``), the loaded image and its name, the current
+sequence and the last result of a headless run.
+(The reference's undo stack is not ported: ROADMAP §1.7, the surfaces.)
 """
 
 from __future__ import annotations
@@ -31,6 +32,9 @@ class Session:
     starfinder: StarFinderParams = field(default_factory=StarFinderParams)
     focal_length: float = 0.0                    # setfindstar -focal=
     pixel_size: float = 0.0                      # setfindstar -pixelsize=
+    #: setcompress: the tile codec of ``save`` ("rice", "gzip1", "gzip2"),
+    #: or None for uncompressed files
+    compression: Optional[str] = None
     sequence: Optional[Sequence] = None
     image: Optional[SirilImage] = None
     image_name: str = ""
@@ -55,7 +59,9 @@ class Session:
 
     def load_sequence(self, name: str) -> Sequence:
         """A sequence by name: its ``.seq`` sidecar (also ``name_.seq``,
-        the converted name), else a scan of ``name%05d.fit`` files."""
+        the converted name), a ``.ser`` video, else a scan of
+        ``name%05d.fit`` files."""
+        from siril_tpu_torch.io.conversion import FILM_EXT
         from siril_tpu_torch.io.seqfile import read_seqfile
 
         base = name[:-4] if name.endswith(".seq") else name
@@ -65,9 +71,12 @@ class Session:
         if os.path.exists(self.path(base + ".seq")):
             seq = read_seqfile(self.path(base + ".seq"))
         elif os.path.exists(self.path(base + ".ser")) or name.endswith(".ser"):
+            seq = Sequence.from_ser(self.path(
+                name if name.endswith(".ser") else base + ".ser"))
+        elif any(os.path.exists(self.path(base + e)) for e in FILM_EXT):
             raise NotImplementedError(
-                f"{name}: SER sequences are not ported yet (ROADMAP §1.3, "
-                "SER / FITS-cube / film sequences)")
+                f"{name}: film sequences are not ported yet (ROADMAP §1.1, "
+                "films and AVI)")
         else:
             try:
                 seq = Sequence.scan(base, self.cwd)

@@ -112,6 +112,9 @@ def run_sequence(args: SeqArgs) -> SeqResult:
         stage_s[name] = stage_s.get(name, 0.0) + time.perf_counter() - t
 
     def write_one(pos, idx, img):
+        # one FITS file a frame, whatever the input sequence's kind: a SER
+        # video or a FITS cube gives ``<prefix><name><num>.fit`` files too
+        # (the JAX package declares SeqArgs.output_ser and never reads it)
         from siril_tpu_torch.io.fits_io import write_fits
 
         t = time.perf_counter()

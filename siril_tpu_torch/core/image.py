@@ -16,9 +16,12 @@ import numpy as np
 INV_USHRT_MAX_SINGLE = 1.0 / 65535.0
 
 # Siril bitpix naming (cfitsio values)
+BYTE_IMG = 8
 SHORT_IMG = 16
 USHORT_IMG = 20
+LONG_IMG = 32
 FLOAT_IMG = -32
+DOUBLE_IMG = -64
 
 
 @dataclass

@@ -1,14 +1,17 @@
 """Sequence model — counterpart of ``siril_tpu/core/sequence.py``
-(RegData:46, from_files:110, scan:193, read_frame:233, read_region:300,
+(RegData:46, from_files:110, from_ser:131, from_fitseq:150, scan:193,
+read_frame:233, read_frame_metadata:252, open_reader:282, read_region:300,
 close_readers:307, selection and reference :316-332, reg:337, the
 per-frame stats store :345-364, seqfile_path:369, save:372) and of the raw
 chunk reader ``siril_tpu/pipeline.py:501``.
 
-A trimmed copy: REGULAR sequences (one FITS file per frame), with what a
-``.seq`` sidecar keeps (``io/seqfile.py``): file numbers, the selection,
-the reference, the frame sizes of a variable-size sequence, per-layer
-registration data and per-frame statistics.  SER, FITS cubes and films
-are off the ported paths (ROADMAP §1.3).
+Three kinds of sequence: REGULAR (one FITS file per frame, compressed
+``.fit.fz`` files included), SER (one ``.ser`` video) and FITSEQ (a FITS
+cube, one HDU per frame), with what a ``.seq`` sidecar keeps
+(``io/seqfile.py``): file numbers, the selection, the reference, the
+frame sizes of a variable-size sequence, per-layer registration data and
+per-frame statistics.  Film sequences are not ported yet (ROADMAP §1.1,
+films and AVI).
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ import numpy as np
 
 from siril_tpu_torch.core.image import Keywords, SirilImage
 
-# sequence type of a file-per-frame sequence (siril.h:351-357)
+# sequence types (siril.h:351-357)
 SEQ_REGULAR = 0
+SEQ_SER = 1
+SEQ_FITSEQ = 2
 
 # statistic columns of the (N, 14) per-layer stats store (io/seqfile.c:825)
 STAT_COLS = ("total", "ngoodpix", "mean", "median", "sigma", "avgdev", "mad",
@@ -64,12 +69,15 @@ class RegData:
 
 
 class Sequence:
-    """A REGULAR sequence of FITS frames with registration state."""
+    """A sequence of frames with registration state."""
 
-    def __init__(self, name: str, directory: str = "."):
+    def __init__(self, name: str, directory: str = ".",
+                 seq_type: int = SEQ_REGULAR):
         self.name = name                 # base name without .seq
         self.directory = directory
-        self.seq_type = SEQ_REGULAR
+        self.seq_type = seq_type
+        #: the frames are tile-compressed ``.fit.fz`` files
+        self.fz = False
         self.beg = 0
         self.fixed_len = 5               # zero-padding of file numbers
         self.number = 0
@@ -88,6 +96,8 @@ class Sequence:
         self._readers: Dict[int, object] = {}
         self._reader_lock = threading.Lock()
         self._file_list: List[str] = []
+        self._ser = None                 # SerFile of a SER sequence
+        self._fitseq_path: Optional[str] = None
         #: D/O/E cards of a read .seq, written back unchanged
         self._opaque_cards: List[str] = []
 
@@ -102,30 +112,73 @@ class Sequence:
         seq.number = len(files)
         nums = []
         for i, f in enumerate(files):
-            m = re.search(r"(\d+)(?=\.[^.]+$)", os.path.basename(f))
+            m = re.search(r"(\d+)(?=\.[^.]+(\.fz)?$)", os.path.basename(f))
             nums.append(int(m.group(1)) if m else i)
         seq.filenum = np.asarray(nums, dtype=np.int64)
         seq.incl = np.ones(len(files), dtype=bool)
         seq._probe_geometry()
         return seq
 
-    def _probe_geometry(self) -> None:
+    @staticmethod
+    def from_ser(path: str) -> "Sequence":
+        """The frames of a ``.ser`` video."""
+        from siril_tpu_torch.io.ser import SerFile
+
+        ser = SerFile(path)
+        seq = Sequence(os.path.splitext(os.path.basename(path))[0],
+                       os.path.dirname(path) or ".", SEQ_SER)
+        seq._ser = ser
+        seq.number = ser.frame_count
+        seq.rx, seq.ry = ser.width, ser.height
+        seq.nb_layers = ser.nchans
+        seq.filenum = np.arange(seq.number, dtype=np.int64)
+        seq.incl = np.ones(seq.number, dtype=bool)
+        return seq
+
+    @staticmethod
+    def from_fitseq(path: str) -> "Sequence":
+        """The image HDUs of a FITS cube (io/fits_sequence.c)."""
         from siril_tpu_torch.io.fits_io import image_hdus
 
+        hdus = image_hdus(path)
+        if not hdus:
+            raise ValueError(f"{path}: no image HDUs")
+        seq = Sequence(os.path.splitext(os.path.basename(path))[0],
+                       os.path.dirname(path) or ".", SEQ_FITSEQ)
+        seq._fitseq_path = os.path.abspath(path)
+        seq.number = len(hdus)
+        seq.nb_layers, seq.ry, seq.rx = hdus[0].shape_chw
+        seq.filenum = np.arange(seq.number, dtype=np.int64)
+        seq.incl = np.ones(seq.number, dtype=bool)
+        return seq
+
+    def _probe_geometry(self) -> None:
+        from siril_tpu_torch.io.fits_io import image_hdus, zimage_hdus
+
         first = next((f for f in self._file_list if f), None)
-        hdus = image_hdus(first) if first else []
+        if first is None:
+            return
+        hdus = image_hdus(first)
         if hdus:
             self.nb_layers, self.ry, self.rx = hdus[0].shape_chw
+            return
+        z = zimage_hdus(first)
+        if z:
+            g = z[0].header.get
+            self.nb_layers, self.ry, self.rx = (int(g("ZNAXIS3", 1)),
+                                                int(g("ZNAXIS2")),
+                                                int(g("ZNAXIS1")))
 
     @staticmethod
     def scan(basename: str, directory: str = ".") -> "Sequence":
-        """Discover ``basename%05d.fit`` files (check_seq,
-        io/sequence.c:169)."""
+        """Discover ``basename%05d.fit`` files, or ``.fit.fz`` ones
+        (check_seq, io/sequence.c:169)."""
         files = []
-        for ext in ("fit", "fits", "fts"):
+        for ext in ("fit", "fits", "fts", "fit.fz", "fits.fz"):
             files.extend(glob.glob(os.path.join(directory,
                                                 f"{basename}*.{ext}")))
-        pat = re.compile(re.escape(basename) + r"(\d+)\.(fit|fits|fts)$")
+        pat = re.compile(re.escape(basename)
+                         + r"(\d+)\.(fit|fits|fts)(\.fz)?$")
         matched = [f for f in files if pat.search(os.path.basename(f))]
         if not matched:
             raise FileNotFoundError(
@@ -135,12 +188,20 @@ class Sequence:
         m0 = pat.search(os.path.basename(seq._file_list[0]))
         seq.fixed_len = len(m0.group(1))
         seq.beg = int(seq.filenum.min())
+        # the .seq's fz flag, so that the sidecar finds the files again
+        # (the JAX package leaves it 0 after a scan)
+        seq.fz = all(f.endswith(".fz") for f in seq._file_list)
         return seq
 
     def read_frame(self, index: int) -> SirilImage:
         from siril_tpu_torch.io.fits_io import read_fits
 
-        img = read_fits(self._file_list[index])
+        if self.seq_type == SEQ_SER:
+            img = self._ser.read_frame(index)
+        elif self.seq_type == SEQ_FITSEQ:
+            img = read_fits(self._fitseq_path, hdu_index=index)
+        else:
+            img = read_fits(self._file_list[index])
         if self.nb_layers < 0:
             self.nb_layers = img.nchans
             self.rx, self.ry = img.width, img.height
@@ -148,18 +209,42 @@ class Sequence:
 
     def read_frame_metadata(self, index: int) -> Keywords:
         """Keywords only, no pixel read (io/sequence.c:1052)."""
-        from siril_tpu_torch.io.fits_io import header_to_keywords, image_hdus
+        from siril_tpu_torch.io.fits_io import (
+            header_to_keywords,
+            image_hdus,
+            zimage_hdus,
+        )
 
-        hdus = image_hdus(self._file_list[index])
+        if self.seq_type == SEQ_SER:
+            from siril_tpu_torch.io.ser import ticks_to_iso
+
+            h = self._ser.header
+            kw = Keywords(instrume=h.instrument, telescop=h.telescope)
+            if h.timestamps and index < len(h.timestamps):
+                kw.date_obs = ticks_to_iso(h.timestamps[index])
+            return kw
+        if self.seq_type == SEQ_FITSEQ:
+            hdus = image_hdus(self._fitseq_path)
+            return header_to_keywords(hdus[index].header) \
+                if index < len(hdus) else Keywords()
+        path = self._file_list[index]
+        hdus = image_hdus(path) or zimage_hdus(path)
         return header_to_keywords(hdus[0].header) if hdus else Keywords()
 
     def open_reader(self, index: int):
+        """The cached random-access reader of frame ``index`` (files and
+        FITS cubes)."""
+        if self.seq_type == SEQ_SER:
+            raise ValueError("open_reader: a SER sequence has no FITS "
+                             "reader")
         with self._reader_lock:
             r = self._readers.get(index)
             if r is None:
                 from siril_tpu_torch.io.fits_io import FitsReader
 
-                r = FitsReader(self._file_list[index])
+                r = FitsReader(self._fitseq_path, hdu_index=index) \
+                    if self.seq_type == SEQ_FITSEQ \
+                    else FitsReader(self._file_list[index])
                 self._readers[index] = r
             return r
 
@@ -167,6 +252,8 @@ class Sequence:
                     y1: int) -> np.ndarray:
         """Rows [y0, y1) of channel ``chan`` of frame ``index``, top-down
         [0, 1] float32 (seq_opened_read_region, io/sequence.c:1282)."""
+        if self.seq_type == SEQ_SER:
+            return self._ser.read_region(chan, index, y0, y1)
         return self.open_reader(index).read_region(chan, y0, y1)
 
     def close_readers(self) -> None:
@@ -232,9 +319,11 @@ class Sequence:
 def raw_chunk_reader(seq: Sequence, indices: np.ndarray, L: int, H: int,
                      W: int, workers: int = 8):
     """Chunk reader producing native int16 ([n, L, H, W], the u16 FITS
-    layout the device decodes) or float32 frames, rows top-down
-    (``siril_tpu/pipeline.py:501``).  Returns ``(read_chunk, close)``."""
-    u16 = seq.open_reader(int(indices[0])).is_u16()
+    layout the device decodes; files and FITS cubes) or float32 frames,
+    rows top-down (``siril_tpu/pipeline.py:501``).  Returns
+    ``(read_chunk, close)``."""
+    u16 = seq.seq_type in (SEQ_REGULAR, SEQ_FITSEQ) and \
+        seq.open_reader(int(indices[0])).is_u16()
     pool = cf.ThreadPoolExecutor(max_workers=workers)
 
     def read_chunk(start: int, count: int) -> np.ndarray:
@@ -242,7 +331,7 @@ def raw_chunk_reader(seq: Sequence, indices: np.ndarray, L: int, H: int,
 
         def one(j):
             idx = int(indices[start + j])
-            out[j] = seq.open_reader(idx).raw_i16_topdown() if u16 \
+            out[j] = seq.open_reader(idx).raw_topdown("<i2") if u16 \
                 else seq.read_frame(idx).host()
 
         list(pool.map(one, range(count)))

@@ -2,20 +2,21 @@
 (``load_any``:26, ``convert_to_sequence``:106, ``_read_item``:213;
 reference ``src/io/conversion.c``).
 
-FITS inputs only: ``convert`` rewrites them as ``name_00001.fit`` …
-(with ``-debayer``, a CFA frame demosaiced on ``device`` first: three
-layers, or half size with super-pixel), ``link`` symlinks them
-(FITS_symlink.c), and either writes the ``.seq``.  Other inputs raise
-``NotImplementedError`` naming their ROADMAP item: SER and films, and
-the SER / FITS-cube outputs (§1.3 SER / FITS-cube / film sequences),
-camera raw and PIL images (§1.5 image formats for convert).
+Inputs: FITS files (``.fit.fz`` included) and SER videos, whose frames
+are expanded.  ``convert`` rewrites them as ``name_00001.fit`` … and the
+``.seq`` (with ``-debayer``, a CFA frame demosaiced on ``device`` first:
+three layers, or half size with super-pixel), or as one ``name_.ser``
+video (``-ser``) or one FITS cube ``name_.fit`` (``-fitseq``); ``link``
+symlinks FITS files (FITS_symlink.c).  Films raise
+``NotImplementedError`` (ROADMAP §1.1, films and AVI), and so do camera
+raw and PIL images (§1.3, image formats for convert).
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Sequence as Seq
+from typing import List, Optional, Sequence as Seq, Tuple
 
 from siril_tpu_torch.core.image import SirilImage
 from siril_tpu_torch.core.sequence import Sequence
@@ -24,23 +25,47 @@ from siril_tpu_torch.device import DeviceLike
 _log = logging.getLogger(__name__)
 
 FITS_EXT = (".fit", ".fits", ".fts")
+FILM_EXT = (".avi", ".mp4", ".mov", ".mkv", ".webm", ".mpg", ".mpeg")
 
 
 def load_any(path: str) -> SirilImage:
-    """Read a single FITS image file."""
+    """Read a single image file: FITS (compressed too), or a SER video's
+    first frame."""
     ext = os.path.splitext(path)[1].lower()
-    if ext in FITS_EXT:
+    if ext in FITS_EXT or path.lower().endswith((".fit.fz", ".fits.fz")):
         from siril_tpu_torch.io.fits_io import read_fits
 
         return read_fits(path)
-    if ext in (".ser", ".avi", ".mp4", ".mov", ".mkv", ".webm"):
+    if ext == ".ser":
+        from siril_tpu_torch.io.ser import SerFile
+
+        return SerFile(path).read_frame(0)
+    if ext in FILM_EXT:
         raise NotImplementedError(
-            f"{path}: SER and film inputs are not ported yet (ROADMAP "
-            "§1.3, SER / FITS-cube / film sequences)")
+            f"{path}: film inputs are not ported yet (ROADMAP §1.1, films "
+            "and AVI)")
     raise NotImplementedError(
-        f"{path}: only FITS inputs are ported; camera raw, TIFF/PNG/JPEG "
-        "and the other formats are not yet (ROADMAP §1.5, image formats "
-        "for convert)")
+        f"{path}: only FITS and SER inputs are ported; camera raw, "
+        "TIFF/PNG/JPEG and the other formats are not yet (ROADMAP §1.3, "
+        "image formats for convert)")
+
+
+def _read_item(item: Tuple[str, Optional[int]], debayer: bool,
+               device: DeviceLike) -> SirilImage:
+    """A file, or frame ``sub`` of a SER video, demosaiced on ``device``
+    with ``debayer`` when it is a CFA frame."""
+    src, sub = item
+    if sub is not None:
+        from siril_tpu_torch.io.ser import SerFile
+
+        img = SerFile(src).read_frame(sub)
+    else:
+        img = load_any(src)
+    if debayer and img.is_cfa():
+        from siril_tpu_torch.ops.demosaic import debayer_image
+
+        img = debayer_image(img, device=device)
+    return img
 
 
 def convert_to_sequence(inputs: Seq[str], dest_name: str,
@@ -48,14 +73,17 @@ def convert_to_sequence(inputs: Seq[str], dest_name: str,
                         symlink: bool = False, start: int = 1,
                         debayer: bool = False,
                         device: DeviceLike = None) -> Sequence:
-    """``convert`` / ``link``: FITS files → ``dest_name%05d.fit`` and its
-    ``.seq`` (conversion.c convert worker); ``debayer`` demosaics CFA
-    frames on ``device`` (CUDA unless "cpu") before writing them.  A
-    symlinked FITS file is linked as it is."""
-    if output != "fits":
-        raise NotImplementedError(
-            f"convert to {output}: SER and FITS-cube outputs are not ported "
-            "yet (ROADMAP §1.3, SER / FITS-cube / film sequences)")
+    """``convert`` / ``link`` (conversion.c convert worker): the inputs,
+    each SER video's frames expanded (unless the output is a SER video,
+    which takes each input's first frame, as the JAX package does), →
+    ``dest_name%05d.fit`` files and their ``.seq`` (``output`` "fits"),
+    one ``dest_name.ser`` ("ser", 16-bit) or one FITS cube
+    ``dest_name.fit`` and its ``.seq`` ("fitseq", at the first frame's bit
+    depth).
+    ``debayer`` demosaics CFA frames on ``device`` (CUDA unless "cpu").
+    A symlinked FITS file is linked as it is."""
+    if output not in ("fits", "ser", "fitseq"):
+        raise ValueError(f"unknown conversion output {output!r}")
     inputs = sorted(inputs)
     if not inputs:
         raise ValueError("no input files")
@@ -64,22 +92,57 @@ def convert_to_sequence(inputs: Seq[str], dest_name: str,
     # '_', '-' or a digit → light → light_00001
     if dest_name and dest_name[-1] not in "_-0123456789":
         dest_name = dest_name + "_"
+    expanded: List[Tuple[str, Optional[int]]] = []
+    for p in inputs:
+        if p.lower().endswith(".ser") and output != "ser":
+            from siril_tpu_torch.io.ser import SerFile
+
+            expanded.extend((p, i) for i in range(SerFile(p).frame_count))
+        else:
+            expanded.append((p, None))
+
+    if output == "ser":
+        from siril_tpu_torch.io.ser import SER_MONO, SER_RGB, SerWriter
+
+        first = _read_item(expanded[0], debayer, device)
+        out_path = os.path.join(directory, dest_name + ".ser")
+        w = SerWriter(out_path, first.width, first.height,
+                      SER_RGB if first.nchans == 3 else SER_MONO, 16)
+        for item in expanded:
+            w.write_frame(_read_item(item, debayer, device))
+        w.close()
+        _log.info("Converted %d frames to %s", len(expanded), out_path)
+        return Sequence.from_ser(out_path)
+    if output == "fitseq":
+        from siril_tpu_torch.io.fits_io import FitseqWriter
+
+        out_path = os.path.join(directory, dest_name + ".fit")
+        first = _read_item(expanded[0], debayer, device)
+        w = FitseqWriter(out_path, bitdepth=first.orig_bitdepth)
+        for item in expanded:
+            w.append(_read_item(item, debayer, device))
+        w.close()
+        _log.info("Converted %d frames to the FITS cube %s", len(expanded),
+                  out_path)
+        # the .seq (TF) names the cube, as the reference writes it, so that
+        # the sequence opens by name (the JAX package writes none)
+        seq = Sequence.from_fitseq(out_path)
+        seq.save()
+        return seq
+
     files = []
-    for k, src in enumerate(inputs):
+    for k, item in enumerate(expanded):
         out = os.path.join(directory, f"{dest_name}{start + k:05d}.fit")
-        if symlink and os.path.splitext(src)[1].lower() in FITS_EXT:
+        src, sub = item
+        if symlink and sub is None and \
+                os.path.splitext(src)[1].lower() in FITS_EXT:
             if os.path.lexists(out):
                 os.unlink(out)
             os.symlink(os.path.abspath(src), out)
         else:
             from siril_tpu_torch.io.fits_io import write_fits
 
-            img = load_any(src)
-            if debayer and img.is_cfa():
-                from siril_tpu_torch.ops.demosaic import debayer_image
-
-                img = debayer_image(img, device=device)
-            write_fits(img, out)
+            write_fits(_read_item(item, debayer, device), out)
         files.append(out)
     _log.info("Converted %d files to sequence %s", len(files), dest_name)
     seq = Sequence.from_files(files, name=dest_name, directory=directory)

@@ -1,8 +1,12 @@
 """Pure-numpy FITS reader/writer — counterpart of
-``siril_tpu/io/fits_io.py`` (read_fits:432, write_fits:474).
+``siril_tpu/io/fits_io.py`` (``_raw_to_float01``:274, ``_read_zimage``
+:402, read_fits:432, write_fits:474, ``FitseqWriter``:612).
 
-A trimmed copy for the fused stack path: plain image HDUs with BITPIX 16
-(u16 through BZERO 32768) and -32.  FITS rows are stored bottom-up unless
+Reads image HDUs of BITPIX 8, 16 (u16 through BZERO 32768), 32, -32 and
+-64, the image extensions of a FITS cube (``hdu_index``), and tiled
+compressed (ZIMAGE, ``.fit.fz``) extensions (``io/fits_compress.py``).
+Writes BITPIX 8, 16 and -32 (a -64 image is written as -32), optionally
+tile-compressed (``setcompress``).  FITS rows are stored bottom-up unless
 ROWORDER='TOP-DOWN'; the in-memory convention is top-down (row 0 = top).
 """
 
@@ -15,6 +19,8 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 
 from siril_tpu_torch.core.image import (
+    BYTE_IMG,
+    DOUBLE_IMG,
     FLOAT_IMG,
     INV_USHRT_MAX_SINGLE,
     SHORT_IMG,
@@ -26,7 +32,8 @@ from siril_tpu_torch.core.image import (
 BLOCK = 2880
 CARD = 80
 
-_DTYPES = {16: np.dtype(">i2"), -32: np.dtype(">f4")}
+_DTYPES = {8: np.dtype(">u1"), 16: np.dtype(">i2"), 32: np.dtype(">i4"),
+           -32: np.dtype(">f4"), -64: np.dtype(">f8")}
 
 
 def _parse_value(raw: str):
@@ -72,6 +79,9 @@ class Header:
 
     def history(self) -> List[str]:
         return [str(v) for k, v, _ in self.cards if k == "HISTORY"]
+
+    def row_order(self) -> str:
+        return str(self.get("ROWORDER", "BOTTOM-UP") or "BOTTOM-UP").upper()
 
 
 def _parse_header_block(buf: bytes) -> Tuple[Header, bool]:
@@ -149,6 +159,7 @@ class HDUInfo:
     data_offset: int
     bitpix: int
     naxes: Tuple[int, ...]       # FITS order (naxis1, naxis2, naxis3)
+    data_nbytes: int
     bzero: float
     bscale: float
 
@@ -180,37 +191,55 @@ def scan_hdus(path: Union[str, os.PathLike]) -> List[HDUInfo]:
             off = f.tell()
             hdus.append(HDUInfo(
                 header=hdr, data_offset=off, bitpix=bitpix, naxes=naxes,
-                bzero=float(hdr.get("BZERO", 0.0) or 0.0),
+                data_nbytes=nbytes, bzero=float(hdr.get("BZERO", 0.0) or 0.0),
                 bscale=float(hdr.get("BSCALE", 1.0) or 1.0)))
             f.seek(off + (nbytes + BLOCK - 1) // BLOCK * BLOCK)
     return hdus
 
 
+def _is_zimage(h: HDUInfo) -> bool:
+    return bool(h.header.get("ZIMAGE"))
+
+
 def image_hdus(path: Union[str, os.PathLike]) -> List[HDUInfo]:
+    """The plain image HDUs (a FITS cube's frames), not the compressed
+    ones."""
     hdus = [h for h in scan_hdus(path)
-            if len(h.naxes) >= 2 and all(n > 0 for n in h.naxes)]
+            if len(h.naxes) >= 2 and all(n > 0 for n in h.naxes)
+            and not _is_zimage(h)]
     for h in hdus:
         if h.bitpix not in _DTYPES:
-            raise NotImplementedError(
-                f"{path}: BITPIX {h.bitpix} is not ported yet (the port "
-                "reads BITPIX 16 and -32; ROADMAP §1.2, FITS BITPIX "
-                "8/32/-64)")
+            raise ValueError(f"{path}: unsupported BITPIX {h.bitpix}")
     return hdus
+
+
+def zimage_hdus(path: Union[str, os.PathLike]) -> List[HDUInfo]:
+    """The tile-compressed image extensions (ZIMAGE = T)."""
+    return [h for h in scan_hdus(path) if _is_zimage(h)]
 
 
 def _raw_to_float01(raw: np.ndarray, bitpix: int, bzero: float,
                     bscale: float) -> np.ndarray:
-    """Physical value → Siril [0,1] float32 (readfits rules): u16 /65535,
-    f32 passthrough.  Signed SHORT (BZERO 0) is shifted by 32768."""
+    """Physical value → Siril [0, 1] float32 (readfits rules): u8 /255,
+    u16 /65535, u32 /(2³²−1) through float64, floats as they are.  A
+    signed SHORT (BZERO 0) is shifted by 32768."""
+    if bitpix == 8:
+        phys = raw.astype(np.float32) * np.float32(bscale) + np.float32(bzero)
+        return phys * np.float32(1.0 / 255.0)
     if bitpix == 16:
         if bzero == 0.0 and bscale == 1.0:
             bzero = 32768.0
         phys = raw.astype(np.float32) * np.float32(bscale) + np.float32(bzero)
         return phys * np.float32(INV_USHRT_MAX_SINGLE)
-    phys = raw.astype(np.float32)
-    if bscale != 1.0 or bzero != 0.0:
-        phys = phys * np.float32(bscale) + np.float32(bzero)
-    return phys
+    if bitpix == 32:
+        phys = raw.astype(np.float64) * bscale + bzero
+        return (phys / 4294967295.0).astype(np.float32)
+    if bitpix in (-32, -64):
+        phys = raw.astype(np.float32)
+        if bscale != 1.0 or bzero != 0.0:
+            phys = phys * np.float32(bscale) + np.float32(bzero)
+        return phys
+    raise ValueError(f"unsupported BITPIX {bitpix}")
 
 
 _KEYMAP = {
@@ -280,19 +309,38 @@ def keywords_to_cards(kw: Keywords) -> List[Tuple[str, object, str]]:
     return cards
 
 
+def _read_zimage(path, h: HDUInfo) -> SirilImage:
+    """Decode a tile-compressed image extension."""
+    from siril_tpu_torch.io.fits_compress import read_compressed_hdu
+
+    with open(path, "rb") as f:
+        f.seek(h.data_offset)
+        buf = f.read(h.data_nbytes)
+    data, zbitpix = read_compressed_hdu(buf, h.header)
+    if h.header.row_order() != "TOP-DOWN":
+        data = np.ascontiguousarray(data[:, ::-1, :])
+    return SirilImage(data=data, keywords=header_to_keywords(h.header),
+                      orig_bitdepth=zbitpix if zbitpix != 16 else USHORT_IMG,
+                      history=h.header.history())
+
+
 def read_fits(path: Union[str, os.PathLike], hdu_index: int = 0
               ) -> SirilImage:
-    """Read a FITS image (readfits, image_format_fits.c:1201)."""
+    """Read a FITS image (readfits, image_format_fits.c:1201): the
+    ``hdu_index``-th plain image HDU, else the ``hdu_index``-th
+    compressed one."""
     hdus = image_hdus(path)
     if not hdus:
+        zhdus = zimage_hdus(path)
+        if zhdus:
+            return _read_zimage(path, zhdus[hdu_index])
         raise ValueError(f"{path}: no image HDU found")
     h = hdus[hdu_index]
     c, hgt, wid = h.shape_chw
     raw = np.fromfile(path, dtype=_DTYPES[h.bitpix], count=c * hgt * wid,
                       offset=h.data_offset).reshape(c, hgt, wid)
     data = _raw_to_float01(raw, h.bitpix, h.bzero, h.bscale)
-    row_order = str(h.header.get("ROWORDER", "BOTTOM-UP") or "BOTTOM-UP")
-    if row_order.upper() != "TOP-DOWN":
+    if h.header.row_order() != "TOP-DOWN":
         data = data[:, ::-1, :]
     return SirilImage(
         data=np.ascontiguousarray(data, dtype=np.float32),
@@ -301,11 +349,39 @@ def read_fits(path: Union[str, os.PathLike], hdu_index: int = 0
         history=h.header.history())
 
 
+def _encode(data: np.ndarray, bd: int):
+    """(big-endian raw data, BITPIX, BZERO) of [0, 1] float32 rows at
+    bit depth ``bd``: u16 through BZERO 32768, u8, or float32."""
+    if bd == USHORT_IMG:
+        u16 = np.rint(np.clip(data, 0.0, 1.0) * 65535.0).astype(np.uint16)
+        return (u16.astype(np.int32) - 32768).astype(">i2"), 16, 32768.0
+    if bd == BYTE_IMG:
+        return np.rint(np.clip(data, 0.0, 1.0) * 255.0).astype(">u1"), 8, 0.0
+    if bd in (FLOAT_IMG, DOUBLE_IMG):
+        return data.astype(">f4"), -32, 0.0
+    raise ValueError(f"unsupported save bitdepth {bd}")
+
+
+def _header_bytes(cards) -> bytes:
+    hdr = b"".join(_format_card(k, v, cmt).encode("ascii", "replace")
+                   for k, v, cmt in cards)
+    hdr += _format_card("END", None).encode("ascii")
+    return hdr + b" " * ((-len(hdr)) % BLOCK)
+
+
+def _padded(body: bytes) -> bytes:
+    return body + b"\x00" * ((-len(body)) % BLOCK)
+
+
 def write_fits(img: SirilImage, path: Union[str, os.PathLike],
                bitdepth: Optional[int] = None,
-               row_order: str = "BOTTOM-UP") -> None:
-    """Write a SirilImage as BITPIX 16 (u16 via BZERO) or -32
-    (savefits, image_format_fits.c:1393)."""
+               row_order: str = "BOTTOM-UP",
+               compression: Optional[str] = None) -> None:
+    """Write a SirilImage as BITPIX 16 (u16 via BZERO), 8 or -32 (a -64
+    image as -32; savefits, image_format_fits.c:1393).  ``compression``
+    'rice', 'gzip1' or 'gzip2' writes one tile-compressed extension
+    after an empty primary HDU (``setcompress``): 16-bit for integer
+    depths, float32 (always GZIP_1) for float ones."""
     bd = bitdepth if bitdepth is not None else img.orig_bitdepth
     if bd == SHORT_IMG:
         bd = USHORT_IMG
@@ -313,21 +389,31 @@ def write_fits(img: SirilImage, path: Union[str, os.PathLike],
     c, hgt, wid = data.shape
     if row_order.upper() != "TOP-DOWN":
         data = data[:, ::-1, :]
+    kw = img.keywords.copy()
+    kw.row_order = row_order.upper()
+    kw.program = kw.program or "siril_tpu"
+    meta = keywords_to_cards(kw) + [("HISTORY", h, "") for h in img.history]
+    if compression:
+        from siril_tpu_torch.io.fits_compress import (
+            CMPTYPES,
+            build_compressed_hdu,
+        )
+
+        cmptype = CMPTYPES.get(str(compression).lower(), "RICE_1")
+        zbitpix = -32 if bd in (FLOAT_IMG, DOUBLE_IMG) else 16
+        primary = "".join(_format_card(k, v, "") for k, v in (
+            ("SIMPLE", True), ("BITPIX", 8), ("NAXIS", 0), ("EXTEND", True)))
+        primary += _format_card("END", None)
+        primary += " " * ((-len(primary)) % BLOCK)
+        with open(path, "wb") as f:
+            f.write(primary.encode("ascii"))
+            f.write(build_compressed_hdu(np.ascontiguousarray(data),
+                                         zbitpix, cmptype, meta))
+        return
+    raw, bitpix, bzero = _encode(data, bd)
     cards: List[Tuple[str, object, str]] = [
-        ("SIMPLE", True, "file conforms to FITS standard")]
-    if bd == USHORT_IMG:
-        u16 = np.rint(np.clip(data, 0.0, 1.0) * 65535.0).astype(np.uint16)
-        raw = (u16.astype(np.int32) - 32768).astype(">i2")
-        cards.append(("BITPIX", 16, "number of bits per data pixel"))
-        bzero = 32768.0
-    elif bd == FLOAT_IMG:
-        raw = data.astype(">f4")
-        cards.append(("BITPIX", -32, "number of bits per data pixel"))
-        bzero = 0.0
-    else:
-        raise NotImplementedError(
-            f"saving bitdepth {bd} is not ported yet (BITPIX 16 and -32 "
-            "only; ROADMAP §1.2, FITS BITPIX 8/32/-64)")
+        ("SIMPLE", True, "file conforms to FITS standard"),
+        ("BITPIX", bitpix, "number of bits per data pixel")]
     naxis = 2 if c == 1 else 3
     cards.append(("NAXIS", naxis, "number of data axes"))
     cards.append(("NAXIS1", wid, "length of data axis 1"))
@@ -337,46 +423,90 @@ def write_fits(img: SirilImage, path: Union[str, os.PathLike],
     if bzero != 0.0:
         cards.append(("BZERO", bzero, "offset data range"))
         cards.append(("BSCALE", 1.0, "default scaling factor"))
-    kw = img.keywords.copy()
-    kw.row_order = row_order.upper()
-    kw.program = kw.program or "siril_tpu"
-    cards.extend(keywords_to_cards(kw))
-    for hline in img.history:
-        cards.append(("HISTORY", hline, ""))
-    hdr = b"".join(_format_card(k, v, cmt).encode("ascii", "replace")
-                   for k, v, cmt in cards)
-    hdr += _format_card("END", None).encode("ascii")
-    hdr += b" " * ((-len(hdr)) % BLOCK)
-    body = raw.tobytes()
     with open(path, "wb") as f:
-        f.write(hdr)
-        f.write(body)
-        f.write(b"\x00" * ((-len(body)) % BLOCK))
+        f.write(_header_bytes(cards + meta))
+        f.write(_padded(raw.tobytes()))
+
+
+class FitseqWriter:
+    """A FITS cube sequence (io/fits_sequence.c): the first frame in the
+    primary HDU, each next one in an IMAGE extension; every frame of one
+    shape, at ``bitdepth`` (16-bit for the integer depths, else
+    float32)."""
+
+    def __init__(self, path: Union[str, os.PathLike],
+                 bitdepth: int = USHORT_IMG):
+        self.path = os.fspath(path)
+        self.bitdepth = bitdepth
+        self._f = open(self.path, "wb")
+        self.count = 0
+
+    def append(self, img: SirilImage) -> None:
+        data = img.host()
+        c, hgt, wid = data.shape
+        bd = USHORT_IMG if self.bitdepth in (USHORT_IMG, SHORT_IMG) \
+            else FLOAT_IMG
+        raw, bitpix, bzero = _encode(data[:, ::-1, :], bd)
+        first = self.count == 0
+        cards: List[Tuple[str, object, str]] = [
+            ("SIMPLE", True, "file conforms to FITS standard") if first
+            else ("XTENSION", "IMAGE", "IMAGE extension"),
+            ("BITPIX", bitpix, "")]
+        naxis = 2 if c == 1 else 3
+        cards += [("NAXIS", naxis, ""), ("NAXIS1", wid, ""),
+                  ("NAXIS2", hgt, "")]
+        if naxis == 3:
+            cards.append(("NAXIS3", c, ""))
+        cards += [("EXTEND", True, "")] if first \
+            else [("PCOUNT", 0, ""), ("GCOUNT", 1, "")]
+        if bzero:
+            cards += [("BZERO", bzero, ""), ("BSCALE", 1.0, "")]
+        self._f.write(_header_bytes(cards + keywords_to_cards(img.keywords)))
+        self._f.write(_padded(raw.tobytes()))
+        self.count += 1
+
+    def close(self) -> None:
+        self._f.close()
 
 
 class FitsReader:
-    """Memory-mapped view of one image HDU's raw big-endian data."""
+    """Random access to one image HDU: a memory map of its raw
+    big-endian data, or, for a tile-compressed image, its decoded
+    pixels (decoded once, when the reader opens)."""
 
     def __init__(self, path: Union[str, os.PathLike], hdu_index: int = 0):
         self.path = os.fspath(path)
         hdus = image_hdus(path)
+        self._decoded = None
         if not hdus:
-            raise ValueError(f"{path}: no image HDU")
+            zhdus = zimage_hdus(path)
+            if not zhdus:
+                raise ValueError(f"{path}: no image HDU")
+            self.hdu = zhdus[hdu_index]
+            self._decoded = _read_zimage(path, self.hdu).data
+            self.nchans, self.height, self.width = self._decoded.shape
+            return
         self.hdu = hdus[hdu_index]
         self.nchans, self.height, self.width = self.hdu.shape_chw
-        ro = str(self.hdu.header.get("ROWORDER", "BOTTOM-UP") or "BOTTOM-UP")
-        self.bottom_up = ro.upper() != "TOP-DOWN"
+        self.bottom_up = self.hdu.header.row_order() != "TOP-DOWN"
         self._mm = np.memmap(self.path, dtype=_DTYPES[self.hdu.bitpix],
                              mode="r", offset=self.hdu.data_offset,
                              shape=(self.nchans, self.height, self.width))
 
     def is_u16(self) -> bool:
         """True for the raw u16 layout the device decodes itself."""
-        return (self.hdu.bitpix == 16 and self.hdu.bzero == 32768.0
-                and self.hdu.bscale == 1.0)
+        return (self._decoded is None and self.hdu.bitpix == 16
+                and self.hdu.bzero == 32768.0 and self.hdu.bscale == 1.0)
+
+    def is_f32(self) -> bool:
+        """True for raw float32 data that needs no scaling."""
+        return (self._decoded is None and self.hdu.bitpix == -32
+                and self.hdu.bscale == 1.0 and not self.hdu.bzero)
 
     def read_region(self, chan: int, y0: int, y1: int) -> np.ndarray:
         """Rows [y0, y1) of a channel, top-down, as [0, 1] float32."""
+        if self._decoded is not None:
+            return np.array(self._decoded[chan, y0:y1])
         if self.bottom_up:
             fy0, fy1 = self.height - y1, self.height - y0
         else:
@@ -387,7 +517,8 @@ class FitsReader:
         return _raw_to_float01(np.ascontiguousarray(raw), self.hdu.bitpix,
                                self.hdu.bzero, self.hdu.bscale)
 
-    def raw_i16_topdown(self) -> np.ndarray:
-        """(C, H, W) native-endian int16, rows top-down."""
+    def raw_topdown(self, dtype: str) -> np.ndarray:
+        """(C, H, W) raw values in native ``dtype`` ("<i2" for the u16
+        layout, "<f4"), rows top-down."""
         a = self._mm[:, ::-1, :] if self.bottom_up else self._mm
-        return np.ascontiguousarray(a).astype("<i2")
+        return np.ascontiguousarray(a).astype(dtype)

@@ -11,8 +11,9 @@ writeseqfile:720).  Cards:
   Mx-y total ngoodpix mean median sigma avgdev mad sqrtbwmv loc scale min max norm bgnoise
   D/O/E cards — kept as opaque lines and written back unchanged.
 
-Sequences of uncompressed FITS files (of one size, or of each frame's own
-size): a SER, film or FITS-cube sidecar, or a compressed (fz) one, raises
+Sequences of FITS files (of one size, or of each frame's own size;
+``.fit.fz`` files when the fz flag is set), of a ``.ser`` video (``TS``)
+and of a FITS cube (``TF``).  A film sidecar (``TA``) raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -24,11 +25,16 @@ from typing import Optional
 
 import numpy as np
 
-from siril_tpu_torch.core.sequence import STAT_COLS, Sequence
+from siril_tpu_torch.core.sequence import (
+    SEQ_FITSEQ,
+    SEQ_SER,
+    STAT_COLS,
+    Sequence,
+)
 
 CURRENT_SEQFILE_VERSION = 7
 
-_UNPORTED_TYPES = {"S": "SER", "A": "film", "F": "FITS-cube"}
+_TYPE_CARDS = {"S": SEQ_SER, "F": SEQ_FITSEQ}
 
 
 def read_seqfile(path: str) -> Sequence:
@@ -55,19 +61,19 @@ def read_seqfile(path: str) -> Sequence:
                 seq.reference_image = int(toks[5])
                 if len(toks) > 7:
                     seq.is_variable = bool(int(toks[7]))
-                if len(toks) > 8 and int(toks[8]):
-                    raise NotImplementedError(
-                        f"{path}: compressed (fz) sequences are not ported "
-                        "yet (ROADMAP §1.2, tiled compression)")
+                if len(toks) > 8:
+                    seq.fz = bool(int(toks[8]))
                 seq.filenum = np.zeros(seq.number, dtype=np.int64)
                 seq.incl = np.ones(seq.number, dtype=bool)
                 if seq.is_variable:
                     seq.imgsize = np.zeros((seq.number, 2), dtype=np.int64)
             elif c0 == "T" and seq is not None:
-                kind = _UNPORTED_TYPES.get(line[1] if len(line) > 1 else "F")
-                raise NotImplementedError(
-                    f"{path}: {kind} sequences are not ported yet "
-                    "(ROADMAP §1.3, SER / FITS-cube / film sequences)")
+                t = line[1] if len(line) > 1 else "F"
+                if t not in _TYPE_CARDS:
+                    raise NotImplementedError(
+                        f"{path}: film sequences are not ported yet "
+                        "(ROADMAP §1.1, films and AVI)")
+                seq.seq_type = _TYPE_CARDS[t]
             elif c0 == "L" and seq is not None:
                 seq.nb_layers = int(line[1:].split()[0])
             elif c0 == "I" and seq is not None:
@@ -115,12 +121,33 @@ def read_seqfile(path: str) -> Sequence:
 
 
 def _attach_backing_store(seq: Sequence) -> None:
-    """Resolve each frame's file ``name%0*d.fit[s|ts]`` beside the .seq."""
+    """Open the ``name.ser`` video or find the ``name.fit[s|ts]`` cube
+    beside the .seq, or resolve each frame's file
+    ``name%0*d.fit[s|ts][.fz]``."""
+    if seq.seq_type == SEQ_SER:
+        from siril_tpu_torch.io.ser import SerFile
+
+        seq._ser = SerFile(os.path.join(seq.directory, seq.name + ".ser"))
+        if seq.nb_layers < 0:
+            seq.nb_layers = seq._ser.nchans
+        seq.rx, seq.ry = seq._ser.width, seq._ser.height
+        return
+    if seq.seq_type == SEQ_FITSEQ:
+        for ext in (".fit", ".fits", ".fts"):
+            p = os.path.join(seq.directory, seq.name + ext)
+            if os.path.exists(p):
+                seq._fitseq_path = p
+                from siril_tpu_torch.io.fits_io import image_hdus
+
+                seq.nb_layers, seq.ry, seq.rx = image_hdus(p)[0].shape_chw
+                break
+        return
+    exts = ("fit.fz", "fits.fz") if seq.fz else ("fit", "fits", "fts")
     files = []
     for i in range(seq.number):
         num = int(seq.filenum[i])
         found = None
-        for ext in ("fit", "fits", "fts"):
+        for ext in exts:
             p = os.path.join(seq.directory,
                              f"{seq.name}{num:0{seq.fixed_len}d}.{ext}")
             if os.path.exists(p):
@@ -142,7 +169,11 @@ def write_seqfile(seq: Sequence, path: Optional[str] = None) -> None:
         "S '%s' %d %d %d %d %d %d %d %d %d" % (
             seq.name, seq.beg, seq.number, seq.selnum, seq.fixed_len,
             seq.reference_image, CURRENT_SEQFILE_VERSION,
-            int(seq.is_variable), 0, 0)]
+            int(seq.is_variable), int(seq.fz), 0)]
+    if seq.seq_type == SEQ_SER:
+        lines.append("TS")
+    elif seq.seq_type == SEQ_FITSEQ:
+        lines.append("TF")
     if seq.nb_layers > 0:
         lines.append(f"L {seq.nb_layers}")
     for i in range(seq.number):

@@ -14,7 +14,7 @@ The JAX package evaluates both replacements at every pixel; here they are
 gathered at the deviant pixels only, which gives the same values.
 
 ``auto_detect_and_correct`` and ``apply_cosme_file`` (the ``find_hot`` /
-``cosme`` commands) are not ported yet (ROADMAP §1.7, the image ops).
+``cosme`` commands) are not ported yet (ROADMAP §1.5, the image ops).
 """
 
 from __future__ import annotations

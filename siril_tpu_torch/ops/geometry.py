@@ -2,7 +2,7 @@
 (``resample``:102): the resampling that ``seqextract_Ha -upscale`` takes,
 on the gather warp (``ops/interp.resize``).  The other operations of the
 reference's module (crop, rotate, mirror, binning) are not ported yet
-(ROADMAP §1.7, the image ops).
+(ROADMAP §1.5, the image ops).
 """
 
 from __future__ import annotations

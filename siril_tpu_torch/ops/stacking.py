@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from siril_tpu_torch.core.image import FLOAT_IMG, SirilImage
+from siril_tpu_torch.core.sequence import SEQ_FITSEQ, SEQ_REGULAR
 from siril_tpu_torch.device import DeviceLike, resolve_device, synchronize
 from siril_tpu_torch.ops import rejection as rj
 from siril_tpu_torch.ops.normalization import (
@@ -587,13 +588,15 @@ def _resident_stack(seq, args, indices, dev, clock):
     L, H, W = seq.nb_layers, seq.ry, seq.rx
     if frame_shifts(seq, indices, args.reglayer) is not None:
         return None
+    # files and FITS cubes, not SER (siril_tpu/ops/stacking.py:639-641)
+    if seq.seq_type not in (SEQ_REGULAR, SEQ_FITSEQ):
+        return None
     try:
         readers = [seq.open_reader(int(i)) for i in indices]
     except (ValueError, OSError):
         return None
     is_u16 = all(r.is_u16() for r in readers)
-    is_f32 = all(r.hdu.bitpix == -32 and r.hdu.bscale == 1.0
-                 and not r.hdu.bzero for r in readers)
+    is_f32 = all(r.is_f32() for r in readers)
     if not (is_u16 or is_f32):
         return None
     if any((r.nchans, r.height, r.width) != (L, H, W) for r in readers):
@@ -604,10 +607,8 @@ def _resident_stack(seq, args, indices, dev, clock):
     raw = np.empty((n, L, H * W), np.int16 if is_u16 else np.float32)
 
     def one(k):
-        r = readers[k]
-        a = r._mm[:, ::-1, :] if r.bottom_up else r._mm
-        raw[k] = np.ascontiguousarray(a).astype(
-            "<i2" if is_u16 else "<f4").reshape(L, H * W)
+        raw[k] = readers[k].raw_topdown("<i2" if is_u16 else "<f4").reshape(
+            L, H * W)
 
     with clock("read"), cf.ThreadPoolExecutor(max_workers=8) as pool:
         list(pool.map(one, range(n)))

@@ -11,7 +11,9 @@ against the reference frame (host numpy) → the frame metrics
 with an output, the gather warp into a new ``r_`` sequence.  ``-2pass``
 and ``-noout`` keep only the transforms, detected a chunk of frames at a
 time through the fused path's decode and ``stats_cand_fit``.
-``-3stars``, ``-drizzle`` and ``-disto`` raise in the CLI (ROADMAP §1.4, §1.1).
+``-drizzle`` keeps the transforms the same way and drizzles each frame
+(``cli/commands._drizzle_out_sequence``); ``-3stars`` and ``-disto``
+raise in the CLI (ROADMAP §1.2).
 """
 
 from __future__ import annotations

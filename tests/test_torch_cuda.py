@@ -45,7 +45,16 @@ JAX):
 - every demosaic method (and X-Trans) on the card against the CPU within
   1e-6 (the same eager float32 operations; chip_smoke.py measured 0 on a
   1024² crop), and ``calibrate -cfa -equalize_cfa -debayer`` over a
-  small CFA sequence on the card against the CPU within one 16-bit step.
+  small CFA sequence on the card against the CPU within one 16-bit step;
+- drizzle, every kernel, mono and CFA, per frame and by chunks of 16-bit
+  frames, on the card against the CPU within 2e-6 (another sin / exp and
+  a division by a scalar through its reciprocal on the card), the point
+  kernel's weights equal; ``stack -drizzle``, ``seqapplyreg -drizzle
+  -flat=`` and ``stack -upscale`` through the CLI on the card against the
+  CPU (the upscale within one 16-bit step: its frames are written at 16
+  bits); the stacks of a SER video and of a FITS cube on the card
+  against the CPU within 2e-6 (the resident and streamed paths of the
+  stack tests above).
 """
 
 import numpy as np
@@ -559,3 +568,106 @@ def test_calibrate_debayer_on_card_vs_cpu(tmp_path):
         assert a.nchans == b.nchans == 3
         np.testing.assert_allclose(b.host(), a.host(), rtol=0,
                                    atol=1.0 / 65535 + 1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", range(6))
+def test_drizzle_on_card_vs_cpu(kernel):
+    _need_card()
+    from siril_tpu_torch.ops import drizzle as td
+
+    rng = np.random.default_rng(93 + kernel)
+    h, w = 40, 52
+    t = np.deg2rad(1.1)
+    Hs = np.stack([np.eye(3), np.array([[1, 0, 0.4], [0, 1, -0.6], [0, 0, 1]]),
+                   np.array([[np.cos(t), -np.sin(t), 1.3],
+                             [np.sin(t), np.cos(t), -0.2], [0, 0, 1]])])
+    raw = rng.integers(-30000, 30000, (3, 1, h, w)).astype(np.int16)
+    wp = rng.uniform(0.8, 1.2, (h, w)).astype(np.float32)
+    for cfa in (False, True):
+        outs = []
+        for dev in ("cpu", "cuda"):
+            args = td.DrizzleArgs(scale=2.0, pixfrac=0.8, kernel=kernel,
+                                  use_bayer=cfa)
+            acc = td.DrizzleAccumulator((3 if cfa else 1, 2 * h, 2 * w),
+                                        args, dev)
+            img = SirilImage(data=((raw[0].astype(np.float32) + 32768.0)
+                                   / 65535.0).astype(np.float32))
+            if cfa:
+                img.keywords.bayer_pattern = "GRBG"
+            acc.add_frame(img, Hs[2], weight_plane=wp)
+            acc.add_frames(torch.from_numpy(raw).to(dev), Hs,
+                           weights=[1.0, 0.7, 1.3], weight_plane=wp,
+                           pattern="GRBG" if cfa else None)
+            outs.append([x.host() for x in acc.finalize()])
+        (a, aw), (b, bw) = outs
+        np.testing.assert_allclose(b, a, rtol=0, atol=2e-6)
+        np.testing.assert_allclose(bw, aw, rtol=0, atol=2e-6)
+        if kernel == td.KERNEL_POINT:
+            np.testing.assert_array_equal(bw > 0, aw > 0)
+
+
+@pytest.mark.cuda
+def test_drizzle_commands_on_card_vs_cpu(tmp_path):
+    _need_card()
+    import os
+    import shutil
+
+    from siril_tpu_torch import cli
+    from siril_tpu_torch.io.fits_io import read_fits
+
+    rng = np.random.default_rng(94)
+    src = tmp_path / "src"
+    src.mkdir()
+    for i in range(4):
+        img = SirilImage(data=rng.uniform(0.1, 0.6, (1, 48, 64)).astype(
+            np.float32), orig_bitdepth=20)
+        img.keywords.bayer_pattern = "RGGB"
+        write_fits(img, str(src / f"d_{i + 1:05d}.fit"))
+    write_fits(SirilImage(data=rng.uniform(0.5, 1.0, (1, 48, 64)).astype(
+        np.float32)), str(src / "flat.fit"), bitdepth=-32)
+    seq = Sequence.scan("d_", str(src))
+    for k in range(4):
+        seq.reg(0).H[k][:2, 2] = (0.35 * k, -0.6 * k + 1)
+        seq.reg(0).valid[k] = True
+    seq.save()
+    for dev in ("cpu", "cuda"):
+        shutil.copytree(src, tmp_path / dev)
+        d = str(tmp_path / dev)
+        for words in (["stack", "d_", "-drizzle", "-scale=2",
+                       "-pixfrac=0.9", "-out=drz"],
+                      ["seqapplyreg", "d_", "-drizzle", "-scale=1",
+                       "-flat=flat"],
+                      ["stack", "d_", "rej", "s", "3", "3", "-upscale",
+                       "-out=up"]):
+            cli.run(["-d", d, "--device", dev, *words])
+    for name, tol in (("drz.fit", 2e-6), ("r_d_00003.fit", 2e-6),
+                      ("up.fit", 1.0 / 65535 + 1e-6)):
+        a, b = (read_fits(os.path.join(tmp_path, dev, name)).host()
+                for dev in ("cpu", "cuda"))
+        assert a.shape == b.shape
+        np.testing.assert_allclose(b, a, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("output", ["ser", "fitseq"])
+def test_video_and_cube_stack_on_card_vs_cpu(tmp_path, output):
+    _need_card()
+    from siril_tpu_torch.io.conversion import convert_to_sequence
+    from siril_tpu_torch.ops.stacking import StackArgs, stack_sequence
+
+    rng = np.random.default_rng(95)
+    files = []
+    for i in range(6):
+        p = str(tmp_path / f"IMG{i}.fit")
+        write_fits(SirilImage(data=(0.2 + 0.3 * rng.random((1, 64, 80))
+                                    ).astype(np.float32)), p, bitdepth=20)
+        files.append(p)
+    seq = convert_to_sequence(files, "v", str(tmp_path / "out"),
+                              output=output)
+    res = [stack_sequence(seq, StackArgs(method="rej", rejection=rj.SIGMA,
+                                         normalize=ADDITIVE_SCALING),
+                          device=dev) for dev in ("cpu", "cuda")]
+    np.testing.assert_allclose(res[1].image.host(), res[0].image.host(),
+                               rtol=0, atol=2e-6)
+    assert res[1].total_rejected == res[0].total_rejected

@@ -199,3 +199,38 @@ def test_convert_round_trips():
     for k, v in d.items():
         np.testing.assert_array_equal(back[k], v)
         assert np.asarray(back[k]).dtype == np.asarray(v).dtype
+
+
+def test_drizzle_and_formats_need_a_card(monkeypatch, tmp_path):
+    """The drizzle entry points (the accumulator, ``drizzle_sequence``,
+    ``stack -drizzle`` and ``-upscale``, ``register`` / ``seqapplyreg
+    -drizzle``) raise without a card unless the CPU is asked for; the
+    format modules (SER, FITS cubes, tiled compression) are host code."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from siril_tpu_torch import cli
+    from siril_tpu_torch.core.image import SirilImage
+    from siril_tpu_torch.core.sequence import Sequence
+    from siril_tpu_torch.io.fits_io import write_fits
+    from siril_tpu_torch.ops.drizzle import (
+        DrizzleAccumulator,
+        drizzle_sequence,
+    )
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DrizzleAccumulator((1, 8, 8))
+    for i in range(2):
+        write_fits(SirilImage(data=np.full((1, 8, 8), 0.5, np.float32)),
+                   str(tmp_path / f"d_{i + 1:05d}.fit"))
+    seq = Sequence.scan("d_", str(tmp_path))
+    seq.reg(0).valid[:] = True
+    seq.save()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        drizzle_sequence(seq)
+    for words in (["stack", "d_", "-drizzle"],
+                  ["stack", "d_", "rej", "-upscale"],
+                  ["seqapplyreg", "d_", "-drizzle"],
+                  ["register", "d_", "-drizzle"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.run(["-d", str(tmp_path), *words])
+    assert DrizzleAccumulator((1, 8, 8), device="cpu").acc.device.type == \
+        "cpu"

@@ -270,4 +270,4 @@ def test_register_transform_only_vs_jax(tmp_path, flag):
     assert {"read", "detect", "match"} <= set(ts.stages)
     assert not any(f.startswith("r_") for f in os.listdir(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.commands.cmd_register(ts, ["g_", "-drizzle"])
+        cli.commands.cmd_register(ts, ["g_", "-disto=master"])

@@ -14,6 +14,10 @@
    night's flats and 16-bit RGGB lights, ``calibrate -cfa -equalize_cfa
    -debayer``, ``register`` on the debayered frames' layer 0, ``stack
    -output_norm -rgb_equal``; its tolerances are stated in its tests.
+4. The Bayer-drizzle script (``chip_smoke.OSC_DRIZZLE_SCRIPT``, the
+   card's ``drizzle`` phase at 128²) after it, on the same night:
+   ``calibrate -cfa -equalize_cfa``, ``register -drizzle`` with the
+   master flat as the weight plane, the stack.
 
 Tolerances, each with its reason:
 - the ``pp_`` frames and the masters equal: the same calibration
@@ -464,3 +468,111 @@ def test_osc_script_result(osc):
            for e in ctx.command_log if len(e["command"].split()) > 1}
     assert [tuple(c[0].shape) for c in calls[3:]] == [(6, 128 * 128)] * 3
     assert "debayer" in log["calibrate light"]["stages"]
+
+
+@pytest.fixture(scope="module")
+def osc_drizzle(osc):
+    """The Bayer-drizzle script (``chip_smoke.OSC_DRIZZLE_SCRIPT``, the
+    card's ``drizzle`` phase at 128²) through both packages in the osc
+    night's directories, after the OSC script: ``calibrate -cfa
+    -equalize_cfa`` without demosaicing, ``register -drizzle`` on the raw
+    mosaic with the master flat as the weight plane, the stack.  Returns
+    the osc fixture's values and the port's session, its kernel calls and
+    the H it drizzled each frame with."""
+    from siril_tpu_torch.ops import drizzle as td
+
+    jdir, tdir, made, *_ = osc
+    for d in (jdir, tdir):
+        with open(os.path.join(d, "osc", "drizzle.ssf"), "w") as f:
+            f.write(chip_smoke.OSC_DRIZZLE_SCRIPT)
+    assert jexecute(JSession(cwd=os.path.join(jdir, "osc")),
+                    os.path.join(jdir, "osc", "drizzle.ssf")) == 0
+    ctx = Session(cwd=os.path.join(tdir, "osc"), device="cpu")
+    used = []
+    real = td.DrizzleAccumulator.add_frame
+
+    def spy(self, img, H, **kw):
+        used.append(np.array(H))
+        return real(self, img, H, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        calls = spy_k1(mp)
+        mp.setattr(td.DrizzleAccumulator, "add_frame", spy)
+        assert execute_script(ctx, os.path.join(tdir, "osc",
+                                                "drizzle.ssf")) == 0
+    return jdir, tdir, made, ctx, calls, used
+
+
+def test_osc_drizzle_frames(osc_drizzle):
+    """The calibrated CFA lights equal (16-bit mosaics, the calibration of
+    the OSC script without the demosaic); registration on the raw mosaic
+    within 0.01 px of the JAX package's at the corners and within 1 px of
+    the truth (a star's sites on the mosaic carry its colour, and the
+    homography fitted to the 128² field's stars lands up to 0.82 px off
+    at a corner, measured; the OSC script's debayered frames 0.32); each
+    drizzled light three float32 layers within 2e-6 of
+    the JAX package's accumulator given the H the port used, with the
+    master flat's first layer as the weight plane."""
+    from siril_tpu.core.image import SirilImage as JImage
+    from siril_tpu.ops import drizzle as jd
+
+    jdir, tdir, made, ctx, calls, used = osc_drizzle
+    _frames_equal(jdir, tdir, [f"osc/cfa_light_{k:05d}.fit"
+                               for k in range(1, 7)])
+    ts = _registration_close(jdir, tdir, "osc/cfa_light_.seq", 6, 128)
+    for k, (dx, dy) in enumerate(made["shifts"]):
+        np.testing.assert_allclose(
+            _corners(ts.reg(0).H[k], 128, 128),
+            _corners(_true_H(0.0, 1.0, dx, dy, 64.0), 128, 128), rtol=0,
+            atol=1.0)
+    flat = read_fits(os.path.join(tdir, "osc", "pp_flat_stacked.fit")
+                     ).host()[0]
+    assert len(used) == 6
+    args = jd.DrizzleArgs(scale=1.0, pixfrac=1.0, use_bayer=True)
+    for k in range(6):
+        raw = read_fits(os.path.join(tdir, "osc",
+                                     f"cfa_light_{k + 1:05d}.fit"))
+        img = JImage(data=raw.host())
+        img.keywords.bayer_pattern = raw.keywords.bayer_pattern
+        acc = jd.DrizzleAccumulator((3, 128, 128), args)
+        acc.add_frame(img, used[k], weight_plane=flat)
+        got = read_fits(os.path.join(tdir, "osc",
+                                     f"r_cfa_light_{k + 1:05d}.fit"))
+        assert got.nchans == 3 and got.orig_bitdepth == FLOAT_IMG
+        np.testing.assert_allclose(got.host(), acc.finalize(False)[0].host(),
+                                   rtol=0, atol=2e-6)
+
+
+def test_osc_drizzle_result(osc_drizzle):
+    """Three layers, each package's result against the other after one
+    affine map (-output_norm) within 1e-4 on average on the interior,
+    once the pixels where the JAX package's winsorized σ loop leaves the
+    C iteration are set aside; each layer against the colour scene after
+    one affine fit within the noise on the sky (Bayer drizzle
+    interpolates nothing: with 6 lights a red or blue output pixel holds
+    ~1.5 samples on average, a green one ~3); rays rejected; K1 once a
+    layer."""
+    jdir, tdir, made, ctx, calls, used = osc_drizzle
+    rd = [read_fits(os.path.join(d, "osc/result_drizzle.fit")).host()
+          for d in (jdir, tdir)]
+    assert rd[0].shape == rd[1].shape == (3, 128, 128)
+    keep = np.ones(rd[1].size, bool)
+    for c, call in enumerate(calls):
+        keep[c * 128 * 128 + winsorized_block_vs_jax([call])[0]] = False
+    keep = keep.reshape(rd[1].shape)
+    keep[:, :16] = keep[:, -16:] = keep[:, :, :16] = keep[:, :, -16:] = False
+    a, b = np.polyfit(rd[1][keep], rd[0][keep], 1)
+    assert abs(a - 1.0) < 0.01
+    assert np.abs(a * rd[1][keep] + b - rd[0][keep]).mean() < 1e-4
+    inner = np.s_[:, 16:-16, 16:-16]
+    scene = made["scene"][inner]
+    for ch in range(3):
+        s, o = scene[ch].ravel(), rd[1][inner][ch].ravel()
+        a, b = np.polyfit(s, o, 1)
+        sky = np.abs(s - np.median(s)) < 1e-3
+        err = np.abs(o - (a * s + b))[sky].mean() / a
+        assert err < made["sigma_n"], (ch, err)
+    assert ctx.result.total_rejected[1] > 0
+    assert [tuple(c[0].shape) for c in calls] == [(6, 128 * 128)] * 3
+    log = {e["command"].split()[0]: e for e in ctx.command_log}
+    assert {"detect", "drizzle", "write"} <= set(log["register"]["stages"])

@@ -140,9 +140,26 @@ def test_convert_debayer_vs_jax(tmp_path):
 
 
 def test_unported_sequence_types_raise(tmp_path):
-    (tmp_path / "film.ser").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="SER"):
+    """A film still raises (ROADMAP §1.1); a ``.ser`` video opens as a SER
+    sequence, as the JAX package opens it."""
+    from siril_tpu.cli.context import Session as JSession
+    from siril_tpu_torch.core.sequence import SEQ_SER
+
+    (tmp_path / "film.avi").write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="film"):
         Session(cwd=str(tmp_path), device="cpu").load_sequence("film")
+    _frames(str(tmp_path / "src"))
+    files = sorted(str(tmp_path / "src" / f)
+                   for f in os.listdir(tmp_path / "src"))
+    jconv.convert_to_sequence(files, "video", str(tmp_path), output="ser")
+    for name in ("video_", "video_.ser"):
+        seq = Session(cwd=str(tmp_path), device="cpu").load_sequence(name)
+        jseq = JSession(cwd=str(tmp_path)).load_sequence(name)
+        assert seq.seq_type == jseq.seq_type == SEQ_SER
+        assert (seq.number, seq.ry, seq.rx) == (jseq.number, jseq.ry,
+                                                jseq.rx) == (N, 12, 16)
+        np.testing.assert_array_equal(seq.read_frame(2).host(),
+                                      jseq.read_frame(2).host())
 
 
 @pytest.mark.parametrize("symlink", [False, True])
@@ -165,8 +182,10 @@ def test_convert_and_link_vs_jax(tmp_path, symlink):
         assert a.read_bytes() == b.read_bytes()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         conversion.load_any(str(tmp_path / "x.png"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        conversion.convert_to_sequence(files, "l", str(tmp_path), "ser")
+    jconv.convert_to_sequence(files, "l", str(tmp_path / "jax"), "ser")
+    conversion.convert_to_sequence(files, "l", str(tmp_path / "port"), "ser")
+    assert (tmp_path / "port" / "l_.ser").read_bytes() == \
+        (tmp_path / "jax" / "l_.ser").read_bytes()
 
 
 @pytest.mark.parametrize("bitdepth", [USHORT_IMG, -32])
@@ -238,13 +257,48 @@ def test_stack_takes_registration_from_seq(tmp_path):
 @pytest.mark.parametrize("card,what", [("TF", "FITS-cube"), ("TS", "SER"),
                                        ("TA", "film")])
 def test_unported_seq_cards_raise(tmp_path, card, what):
+    """``TA`` (a film) still raises; a ``TS`` / ``TF`` sidecar the JAX
+    package wrote opens the video or the cube it names, and a sidecar
+    with the fz flag the ``.fit.fz`` files, as in the JAX package."""
     p = tmp_path / "x.seq"
-    p.write_text(f"S 'x' 0 2 2 5 -1 7 0 0 0\n{card}\nL 1\nI 0 1\nI 1 1\n")
-    with pytest.raises(NotImplementedError, match=what):
-        seqfile.read_seqfile(str(p))
-    p.write_text("S 'x' 0 2 2 5 -1 7 0 1 0\nL 1\nI 0 1\nI 1 1\n")
-    with pytest.raises(NotImplementedError, match="fz"):
-        seqfile.read_seqfile(str(p))
+    if card == "TA":
+        p.write_text(f"S 'x' 0 2 2 5 -1 7 0 0 0\n{card}\nL 1\nI 0 1\n"
+                     "I 1 1\n")
+        with pytest.raises(NotImplementedError, match=what):
+            seqfile.read_seqfile(str(p))
+        return
+    from siril_tpu.io.fits_io import write_fits as jw
+
+    _frames(str(tmp_path / "src"))
+    files = sorted(str(tmp_path / "src" / f)
+                   for f in os.listdir(tmp_path / "src"))
+    jseq = jconv.convert_to_sequence(
+        files, "x", str(tmp_path), output="ser" if card == "TS" else
+        "fitseq")
+    jseq.incl[0] = False
+    jseq.save()
+    text = (tmp_path / "x_.seq").read_text()
+    assert f"\n{card}\n" in text
+    seq = seqfile.read_seqfile(str(tmp_path / "x_.seq"))
+    assert seq.seq_type == jseq.seq_type
+    np.testing.assert_array_equal(seq.incl, jseq.incl)
+    for k in range(N):
+        np.testing.assert_array_equal(seq.read_frame(k).host(),
+                                      jseq.read_frame(k).host())
+    # the fz flag: .fit.fz frames beside the sidecar
+    for i in range(2):
+        jw(SirilImage(data=np.full((1, 4, 6), 0.25 * (i + 1), np.float32)),
+           str(tmp_path / f"z{i:05d}.fit.fz"), bitdepth=USHORT_IMG,
+           compression="rice")
+    (tmp_path / "z.seq").write_text(
+        "S 'z' 0 2 2 5 -1 7 0 1 0\nL 1\nI 0 1\nI 1 1\n")
+    z = seqfile.read_seqfile(str(tmp_path / "z.seq"))
+    assert z.fz and jsf.read_seqfile(str(tmp_path / "z.seq")).fz
+    assert [os.path.basename(f) for f in z._file_list] == \
+        ["z00000.fit.fz", "z00001.fit.fz"]
+    assert (z.nb_layers, z.ry, z.rx) == (1, 4, 6)
+    np.testing.assert_allclose(z.read_frame(1).host(), 0.5, rtol=0,
+                               atol=0.5 / 65535)
 
 
 def test_variable_size_seq_round_trip(tmp_path):

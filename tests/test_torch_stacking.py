@@ -324,10 +324,43 @@ def test_stack_args_from_flags_vs_jax():
             == want
 
 
-def test_stack_unported_raise(seqdir):
-    for words in (["u_", "-drizzle"], ["u_", "-upscale"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1.1"):
-            cli.run(["-d", seqdir, "--device", "cpu", "stack", *words])
+def test_stack_unported_raise(seqdir, tmp_path):
+    """``-drizzle`` and ``-upscale``, the last options ``stack`` refused,
+    run as in the JAX package on this file's 16-bit sequence with
+    integer shifts (tests/test_torch_drizzle.py holds them in full):
+    the drizzle within 2e-6, the upscaled stack within one 16-bit step
+    (its frames are written at 16 bits).  Without registration data
+    both packages refuse to drizzle."""
+    import shutil
+
+    from siril_tpu.cli.commands import COMMANDS
+    from siril_tpu.cli.context import Session as JSession
+
+    for words, tol in ((["u_", "-drizzle", "-scale=2", "-pixfrac=0.8",
+                         "-out=drz"], 2e-6),
+                       (["u_", "rej", "s", "3", "3", "-upscale",
+                         "-out=ups"], 1.0 / 65535 + 1e-6)):
+        for d in ("jax", "port"):
+            shutil.rmtree(tmp_path / d, ignore_errors=True)
+            shutil.copytree(seqdir, tmp_path / d, ignore=shutil.
+                            ignore_patterns("f_*", "*.seq", "upscaled_*"))
+        with pytest.raises(ValueError, match="registration"):
+            cli.run(["-d", str(tmp_path / "port"), "--device", "cpu",
+                     "stack", "u_", "-drizzle"])
+        for d in ("jax", "port"):
+            seq = Sequence.scan("u_", str(tmp_path / d))
+            r = seq.reg(0)
+            r.H[:, 0, 2] = [0, 2, -1, 3, 0, 1, -2][:N]
+            r.H[:, 1, 2] = [0, -1, 2, 0, 1, -3, 1][:N]
+            r.valid[:] = True
+            seq.save()
+        COMMANDS["stack"].fn(JSession(cwd=str(tmp_path / "jax")), words)
+        cli.run(["-d", str(tmp_path / "port"), "--device", "cpu", "stack",
+                 *words])
+        name = words[-1][5:] + ".fit"
+        a, b = (read_fits(str(tmp_path / d / name)).host()
+                for d in ("jax", "port"))
+        np.testing.assert_allclose(b, a, rtol=0, atol=tol)
 
 
 @pytest.fixture(scope="module")
