@@ -29,8 +29,8 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               over every normalization and with weights); K1e (weights,
               per frame and per pixel) over winsorized, sigma, sigmedian,
               linearfit and GESDT × {float32, int16}, and winsorized with
-              per-pixel weights at the feathered mosaic's call (N=4,
-              P=SIZE², float32); and each of K1b-K1e
+              per-pixel weights at a tile's size (N=4, P=SIZE²,
+              float32); and each of K1b-K1e
               at the stack command's call size (N=FRAMES, P=SIZE²,
               float32, additive+scaling), with its bound and, for K1b and
               K1c, the rounds its pixels ran; for SIGMEDIAN, the pixels
@@ -111,19 +111,40 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               same 4 stacked without it); drizzle's ms per frame and
               peak device memory, and every device stage on the card
               against the CPU on a DRIZZLE_CROP² crop;
+  astrometry — on the script phase's scene (its stars on the sky
+              through a TAN WCS, as a KStars catalogue) and pp_light:
+              ``platesolve`` of its stack from hints HINT_OFF off (CRVAL,
+              scale and rotation against the truth), ``conesearch``,
+              ``healpix``, ``trixel`` and ``show`` counted against the
+              truth; ``register pp_light -3stars`` against register's H;
+              DISTO_LIGHTS lights rendered through a known SIP
+              (DISTO_SIP), ``platesolve -order=3`` of one saved as the
+              master, ``register -noout`` and ``seqapplyreg -disto=``,
+              bright isolated stars against their undistorted positions;
+              the SIP warp's ms per frame beside the gather warp's and
+              the card against the CPU on a SIP_CROP² crop;
   formats — FORMATS_LIGHTS of the script phase's raw lights: convert
               -fitseq, convert -ser, link, and rej 3 3 stacks of the
               cube (bit-equal to the regular one's), the SER video
               (SER_MEAN_TOL, SER_FLIPS) and the files; a light as BITPIX
               8, 32 and -64; setcompress rice and gzip2, save, load; the
-              C++ Rice coder's ms and bytes; a 4-frame fz sequence;
+              C++ Rice coder's ms and bytes; a 4-frame fz sequence; the
+              lights as an 8-bit uncompressed AVI, converted and stacked
+              (bit-equal to the stack of the same frames as FITS);
   mosaic — 4 SIZE² tiles with MOSAIC_OVERLAP px overlaps of one sky, each
-              with its own level and gain: ``register mosaic_ -transf=shift
-              -noout`` (the known shifts written into the .seq where the
-              triangle match does not span the overlaps), ``stack mosaic_
-              rej 3 3 -norm=addscale -overlap_norm -feather=64`` (K1e with
-              per-pixel weights; the level across each seam) and ``stack
-              mosaic_ max -maximize`` (the union of the footprints).
+              an exposure through its own TAN projection with its own
+              level and gain and a pointing hint in its header, and the
+              sky's catalogue: ``seqplatesolve mosaic_`` and
+              ``seqapplyreg mosaic_ -framing=max`` (the homographies from
+              the WCS solutions, each within MOSAIC_H_TOL px of the true
+              map), then on the warped canvas ``stack r_mosaic_ rej 3 3
+              -norm=addscale -overlap_norm -feather=64`` (K1e with
+              per-pixel weights; the level across each seam; then K1e
+              held against its plain version on each of the call's row
+              blocks, on the inputs the command gave it: the canvas's
+              frames, zero outside each footprint, and the feather
+              masks, zero there too) and ``stack r_mosaic_ max
+              -maximize`` (the union of the footprints).
 Then a JSON line describing every kernel, the card line, and last the
 result line.  Any failure exits non-zero without a result line.  The script
 needs CUDA and the repository beside it; it imports nothing of JAX.
@@ -180,8 +201,9 @@ close
 # the osc phase: Siril's one-shot-colour preprocessing script
 # (OSC_Preprocessing.ssf) up to its stack, on the script phase's biases and
 # darks and a colour night's flats and lights (the reference script then
-# mirrors and saves the result, image-op commands not ported yet)
-OSC_LIGHTS = 16
+# mirrors and saves the result, image-op commands not ported yet); 16
+# lights at first, cut to 12 to make room for the astrometry phase
+OSC_LIGHTS = 12
 OSC_SCRIPT = """requires 1.2.0
 cd biases
 convert bias -out=../osc
@@ -608,17 +630,13 @@ K1A_CALLS = [
 
 
 def k1a_call(label: str, n: int, p: int, dtype: str, seed: int) -> dict:
-    """K1a winsorized/addscale at a stack command's call: the kernel over
-    all P pixels (CUDA events, median of 10), the plain version on 2^20
-    pixels in COLUMN_CHUNKS runs spread over P, bit-equal; the bound from
-    the plain version's work scaled to P.  A float32 stack gets a zero
-    (a drizzle hole) on one value in 8."""
+    """K1a winsorized/addscale at a stack command's call, on data of its
+    own generator (``held_at_call``).  A float32 stack gets a zero (a
+    drizzle hole) on one value in 8."""
     import torch
 
-    from siril_tpu_torch.kernels import reject_stack as k1
     from siril_tpu_torch.ops import rejection as rj
     from siril_tpu_torch.ops.normalization import ADDITIVE_SCALING
-    from siril_tpu_torch.ops.stacking import reject_stack_plain
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -630,33 +648,68 @@ def k1a_call(label: str, n: int, p: int, dtype: str, seed: int) -> dict:
         x = torch.where(torch.rand(n, p, generator=g, device=dev) < 0.125,
                         0.0, x)
     sc = 1.0 + 0.02 * torch.randn(n, generator=g, device=dev)
-    off, one = sc * 0.1 - 0.1, torch.ones_like(sc)
-    kw = dict(rtype=rj.WINSORIZED, mode=ADDITIVE_SCALING, siglow=3.0,
-              sighigh=3.0)
-    got = k1.reject_mean(x, sc, off, one, **kw)
-    ms = _events_ms(lambda: k1.reject_mean(x, sc, off, one, **kw), 10)
-    idx = spread_slice(p, 1 << 20, COLUMN_CHUNKS, dev)
+    r = held_at_call(label, "winsorized/addscale", x, sc, sc * 0.1 - 0.1,
+                     torch.ones_like(sc),
+                     dict(rtype=rj.WINSORIZED, mode=ADDITIVE_SCALING,
+                          siglow=3.0, sighigh=3.0))
+    del x
+    torch.cuda.empty_cache()
+    return r
+
+
+def held_at_call(label: str, what: str, x, sc, off, mul, kw: dict) -> dict:
+    """K1 (``what``: its rejection and normalization) on the (N, P) stack
+    ``x`` with the keywords ``kw`` of a call (``weights`` (N, P) or
+    (N, 1) among them for K1e): the kernel over all P pixels (CUDA
+    events, median of 10), the plain version on 2^20 pixels in
+    COLUMN_CHUNKS runs spread over P (each pixel's result depends on its
+    own column only), bit-equal; the bound from the plain version's work
+    scaled to P."""
+    import torch
+
+    from siril_tpu_torch.kernels import reject_stack as k1
+    from siril_tpu_torch.ops.stacking import reject_stack_plain
+
+    n, p = x.shape
+    dtype = "i16" if x.dtype == torch.int16 else "f32"
+    got = k1.reject_mean(x, sc, off, mul, **kw)
+    ms = _events_ms(lambda: k1.reject_mean(x, sc, off, mul, **kw), 10)
+    idx = spread_slice(p, 1 << 20, COLUMN_CHUNKS, x.device)
+    w = kw.get("weights")
+    pkw = dict(kw)
+    if w is not None and w.shape[1] == p:
+        pkw["weights"] = w[:, idx].contiguous()
     work, refs = {}, []
     plain = _events_ms(lambda: refs.append(reject_stack_plain(
-        x[:, idx].contiguous(), sc, off, one,
-        work=None if refs else work, **kw)), 1)
+        x[:, idx].contiguous(), sc, off, mul,
+        work=None if refs else work, **pkw)), 1)
     ref = refs[0]
     nbad = int(((got[1][idx] != ref[1]) | (got[2][idx] != ref[2])).sum())
     err = float((got[0][idx] - ref[0]).abs().max())
     scaled = {key: work.get(key, 0) * p / idx.numel()
               for key in ("flops", "compares")}
+    # the stack once, 3 coefficient vectors, 12 B per pixel out, and the
+    # weights once
+    nbytes = n * p * x.element_size() + 3 * n * 4 + p * 12 + (
+        0 if w is None else w.numel() * w.element_size())
     r = dict(label=label, n=n, p=p, dtype=dtype, slice=int(idx.numel()),
              ms=ms, plain_ms=plain, max_abs_err=err,
-             **_bound(n * p * (2 if dtype == "i16" else 4) + 3 * n * 4
-                      + p * 12, scaled))
+             **_bound(nbytes, scaled))
+    wtxt = ""
+    if w is not None:
+        # the weights that are 0, over the call and in the compared slice
+        r.update(weights="per pixel" if w.shape[1] == p else "per frame",
+                 zero_weights=int((w == 0).sum()),
+                 zero_weights_compared=int((pkw["weights"] == 0).sum()))
+        wtxt = (f", weights {r['weights']} ({r['zero_weights']} of them 0, "
+                f"{r['zero_weights_compared']} compared)")
     r["ok"] = nbad == 0 and err == 0.0 and bool(torch.isfinite(got[0]).all())
-    log(f"  winsorized/{dtype}/addscale N={n} P={p} ({label}): kernel "
-        f"{ms:.3f} ms; on {idx.numel()} pixels in {COLUMN_CHUNKS} runs over "
-        f"P count mismatches {nbad}, max|Δmean| {err:.3g}, plain "
-        f"{plain:.1f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
-        f"kernel = {ms / r['bound_ms']:.1f}x the bound")
-    del x, got
-    torch.cuda.empty_cache()
+    log(f"  {what} {dtype} N={n} P={p}{wtxt} ({label}): kernel {ms:.3f} "
+        f"ms; on {idx.numel()} pixels in {COLUMN_CHUNKS} runs over P count "
+        f"mismatches {nbad}, max|Δmean| {err:.3g}, plain {plain:.1f} ms; "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); kernel = "
+        f"{ms / r['bound_ms']:.1f}x the bound")
+    del got
     return r
 
 
@@ -775,15 +828,16 @@ def phase_k1(seed: int):
                     tag, data, scale, offset, mul, rtype, ADDITIVE_SCALING,
                     sl, sh, weights=w, **gesdt_kw(rtype, n, sl, sh)))
     del stack, raw, wp
-    # the feathered mosaic stack's call (the mosaic phase): winsorized,
-    # float32 blocks of 4 frames, additive+scaling, per-pixel weights, one
-    # block of SIZE² pixels; on a generator of its own
+    # winsorized, float32, additive+scaling, 4 frames with per-pixel
+    # weights in (0, 1] over a tile's SIZE² pixels (the mosaic phase
+    # holds K1e at the canvas's blocks, on the inputs of the call); on a
+    # generator of its own
     g4 = torch.Generator(device=dev)
     g4.manual_seed(seed + 4)
     st4 = make_stack(g4, 4, SIZE * SIZE, dev)
     w4 = 0.01 + 0.99 * torch.rand(4, SIZE * SIZE, generator=g4, device=dev)
     tag = (f"K1e winsorized/f32/addscale weights per pixel N=4 "
-           f"P={SIZE * SIZE} (the feathered mosaic's call size)")
+           f"P={SIZE * SIZE} (a tile's size)")
     record("K1e", tag, compare_k1(tag, st4, *coeffs(4, g4), rj.WINSORIZED,
                                   ADDITIVE_SCALING, 3.0, 3.0, weights=w4))
     del st4, w4
@@ -1126,8 +1180,7 @@ def synth_session(root: str, seed: int, size: int, lights: int,
 
     def put(sub, name, f):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
-        write_u16_fits(os.path.join(root, sub, name),
-                       np.rint(np.clip(f, 0, 1) * 65535.0).astype(np.uint16))
+        write_later(write_float_u16, os.path.join(root, sub, name), f)
 
     for i in range(calib):
         put("biases", f"bias_{i + 1:05d}.fit", bias + noise(read_n))
@@ -1156,8 +1209,10 @@ def synth_session(root: str, seed: int, size: int, lights: int,
                 rays[sub] = hit
             put(sub, f"light_{k + 1:05d}.fit", f)
     scene = _render(size, sky, sx, sy, amp) * np.float32(vig.mean())
+    writes_done()
     return dict(scene=scene, sigma_n=sigma_n, ray=ray, hot=(hy, hx),
-                transforms=transforms, rays=rays, bias=bias, dark=dark)
+                transforms=transforms, rays=rays, bias=bias, dark=dark,
+                sx=sx, sy=sy, amp=amp)
 
 
 #: the OSC night's per-site response of the flat panel (R, G, B): a
@@ -1236,9 +1291,8 @@ def synth_osc(root: str, seed: int, size: int, lights: int, flats: int,
 
     def put(sub, name, f):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
-        write_u16_fits(os.path.join(root, sub, name),
-                       np.rint(np.clip(f, 0, 1) * 65535.0).astype(np.uint16),
-                       bayer="RGGB")
+        write_later(write_float_u16, os.path.join(root, sub, name), f,
+                    bayer="RGGB")
 
     for i in range(flats):
         put("osc_flats", f"flat_{i + 1:05d}.fit",
@@ -1260,14 +1314,53 @@ def synth_osc(root: str, seed: int, size: int, lights: int, flats: int,
     scene = np.stack([_render(size, OSC_SKY[ch], sx, sy, amp_rgb[:, ch],
                               OSC_PSF) for ch in range(3)]) * \
         np.float32(vig.mean())
+    writes_done()
     return dict(scene=scene, sx=sx, sy=sy, amp=amp_rgb, sigma_n=sigma_n,
                 rays=rays, shifts=shifts,
                 clean=_render_cfa(sky_cfa, sx, sy, amp_rgb))
 
 
-def write_u16_fits(path: str, u16, bayer: str = "") -> None:
+#: the synthesized frames' files are written on WRITERS threads while the
+#: next frame renders (numpy's conversions and the file writes release
+#: the GIL), at most WRITES_IN_FLIGHT frames waiting; the data are the
+#: same as when written in turn
+WRITERS = 4
+WRITES_IN_FLIGHT = 6
+_WRITES: list = []
+_WRITER_POOL: list = []
+
+
+def write_later(fn, *args, **kw) -> None:
+    """``fn(*args, **kw)`` on a writer thread; its arrays must not change
+    after the call.  ``writes_done`` waits for it."""
+    import concurrent.futures as cf
+
+    if not _WRITER_POOL:
+        _WRITER_POOL.append(cf.ThreadPoolExecutor(max_workers=WRITERS))
+    while len(_WRITES) >= WRITES_IN_FLIGHT:
+        _WRITES.pop(0).result()
+    _WRITES.append(_WRITER_POOL[0].submit(fn, *args, **kw))
+
+
+def writes_done() -> None:
+    """Wait for every ``write_later`` (raising the first failure)."""
+    while _WRITES:
+        _WRITES.pop(0).result()
+
+
+def write_float_u16(path: str, f, **kw) -> None:
+    """``write_u16_fits`` of a float frame, clipped to [0, 1] and rounded
+    to 16 bits."""
+    import numpy as np
+
+    write_u16_fits(path, np.rint(np.clip(f, 0, 1) * 65535.0).astype(
+        np.uint16), **kw)
+
+
+def write_u16_fits(path: str, u16, bayer: str = "", extra=()) -> None:
     """Minimal 16-bit FITS (BZERO 32768, bottom-up rows); ``bayer`` adds
-    a BAYERPAT card (a one-shot-colour camera's raw frame)."""
+    a BAYERPAT card (a one-shot-colour camera's raw frame), ``extra`` more
+    header cards (80-column strings)."""
     import numpy as np
 
     h, w = u16.shape
@@ -1278,7 +1371,7 @@ def write_u16_fits(path: str, u16, bayer: str = "") -> None:
              "EXPTIME =                 60.0"]
     if bayer:
         cards.append(f"BAYERPAT= '{bayer}'")
-    cards.append("END")
+    cards += list(extra) + ["END"]
     hdr = "".join(c.ljust(80) for c in cards).encode("ascii")
     hdr += b" " * ((-len(hdr)) % 2880)
     body = (u16[::-1].astype(np.int32) - 32768).astype(">i2").tobytes()
@@ -1476,7 +1569,9 @@ def phase_fusedstack(seed: int):
     try:
         t = time.perf_counter()
         for i, u in enumerate(u16s):
-            write_u16_fits(os.path.join(tmp, f"light_{i + 1:05d}.fit"), u)
+            write_later(write_u16_fits,
+                        os.path.join(tmp, f"light_{i + 1:05d}.fit"), u)
+        writes_done()
         del u16s
         log(f"  wrote FITS in {time.perf_counter() - t:.2f}s")
         k1.reset_counts()
@@ -1557,9 +1652,10 @@ def synth_turned(root: str, seed: int, size: int, n: int, nstars: int = 4000,
         hit = _ray_tracks(rng, f, max(size * size // 400000, 4), ray)
         if k == 0:
             rays = hit
-        write_u16_fits(os.path.join(root, f"light_{k + 1:05d}.fit"),
-                       np.rint(np.clip(f, 0, 1) * 65535.0).astype(np.uint16))
+        write_later(write_float_u16,
+                    os.path.join(root, f"light_{k + 1:05d}.fit"), f)
     scene = _render(size, sky, sx, sy, amp)
+    writes_done()
     return scene, sigma_n, ray, rays, np.stack(maps)
 
 
@@ -1871,10 +1967,11 @@ def phase_script(seed: int, osc_root: str, tmp: str):
     rows["stack r_pp_light sum"] = dict(seconds=sum_wall, launches={},
                                         stages=summed.result.stage_s)
     # the same masters through fusedstack's calibration flags, on the
-    # shift-only lights (fusedstack registers by shifts); the masters
-    # and the registered pp_light stay
+    # shift-only lights (fusedstack registers by shifts); the masters,
+    # the registered pp_light and the result stay
     for f in os.listdir(proc):
-        if not (f.endswith("_stacked.fit") or f.startswith("pp_light_")):
+        if not (f.endswith("_stacked.fit") or f.startswith("pp_light_")
+                or f == "result.fit"):
             os.unlink(os.path.join(proc, f))
     k1.reset_counts()
     t = time.perf_counter()
@@ -1908,7 +2005,8 @@ def phase_script(seed: int, osc_root: str, tmp: str):
                        fused_err=ferr,
                        fused_stages=fused.result.stage_s),
             {k: made[k] for k in ("bias", "dark", "hot", "scene",
-                                  "sigma_n", "transforms")})
+                                  "sigma_n", "transforms", "sx", "sy",
+                                  "amp")})
 
 
 #: the osc phase compares every demosaic method (X-Trans with a standard
@@ -2486,8 +2584,499 @@ def phase_drizzle(seed: int, root: str, script_dir: str, night: dict,
     return launches, rows, timings
 
 
+#: the astrometry phase: the script night's field on the sky, a TAN
+#: projection at 1.0″/px turned 0.3°, centred near M42 (the catalogue is
+#: the rendered stars, their magnitudes from their amplitudes)
+SKY_CENTRE = (83.82, -5.39)
+SKY_SCALE = 1.0
+SKY_TURN = 0.3
+#: the focal length and pixel size that give SKY_SCALE (-focal=,
+#: -pixelsize=, FOCALLEN, XPIXSZ)
+FOCAL_MM = 800.0
+PIXEL_UM = FOCAL_MM * SKY_SCALE / 206.265
+#: the plate-solve hints: this far off the truth in RA and Dec (arcmin),
+#: a mount's pointing error
+HINT_OFF = (7.0, -6.0)
+#: the -disto lights' known SIP distortion, in the FITS frame about the
+#: centre (u, v = ±2048 px at the edges): second-order pairs without a
+#: mean (u² − v², uv) and a third-order pair orthogonal to u over the
+#: frame, so that the solver's linear fit is nearly unbiased; B[2, 0] and
+#: B[0, 2] are not radial (ROADMAP §3).  A few px in the field (3.5 px
+#: at its corners): the solver fits the linear terms first and the SIP
+#: terms to what is left, and what it misses grows with the distortion
+#: (scripts/disto_residual.py reads it at 0.4, 1 and 1.2 × these terms;
+#: DISTO_TOL is set from those readings, PERF.md §6)
+DISTO_SIP = {("A", 2, 0): 4.5e-7, ("A", 0, 2): -4.5e-7,
+             ("A", 3, 0): 1.125e-10, ("A", 1, 2): -2.025e-10,
+             ("B", 2, 0): 5.25e-7, ("B", 0, 2): -5.25e-7,
+             ("B", 1, 1): 3.75e-7}
+DISTO_LIGHTS = 4
+#: register -3stars: the follow box (px); the picked stars at most
+#: THREESTAR_REACH px from the centre (a turn of 0.2°, a 0.1 % scale and a
+#: 12.5 px shift keep them 7 px inside the box), the brightest fit one in
+#: each third of the frame around its centre; each H within THREESTAR_TOL
+#: px of register's at the corners.  The follow's centroid (7×7,
+#: flux-weighted, the noise clipped at zero) is good to 0.03-0.05 px rms
+#: on stars of amplitude 0.3-0.55 over σ 0.01, and three such stars put
+#: the corners 0.10-0.26 px off the true map (CPU, 4096², three fields;
+#: PERF.md §6)
+THREESTAR_BOX = 64
+THREESTAR_REACH = 2700
+THREESTAR_TOL = 0.35
+#: the DISTO_STARS brightest isolated stars of the corrected frames (their
+#: centroids good to ~0.02 px) within DISTO_TOL px of their undistorted
+#: positions and DISTO_MEAN_TOL on average, and the 60 brightest isolated
+#: ones at least DISTO_BEFORE px off somewhere before correction.  Read
+#: by scripts/disto_residual.py on three fields at DISTO_SIP (one H100):
+#: 0.447 / 0.211 / 0.259 px at most after, 0.133 / 0.088 / 0.099 on
+#: average, 2.65 / 2.88 / 3.00 px before (at 0.4 × DISTO_SIP, 1.4 px:
+#: 0.198 / 0.116 / 0.119 px after)
+DISTO_STARS = 20
+DISTO_TOL = 0.5
+DISTO_MEAN_TOL = 0.2
+DISTO_BEFORE = 2.5
+#: the SIP warp's card-against-CPU crop, and its bound (the gather warp's,
+#: tests/test_torch_cuda.py): everywhere without the clamp; with it, but
+#: on at most SIP_CLAMP_FLIPS of the pixels, where a last-bit difference
+#: in the lanczos sum turns the clamp's test out < 0.98·guide and its 3×3
+#: dilation takes the bilinear guide (one such spot on a star field's
+#: 1024² crop: 1.85e-3, measured on one H100); such a pixel must hold,
+#: within the bound, the CPU's other value (its lanczos sum or guide)
+SIP_CROP = 1024
+SIP_CPU_TOL = 2e-6
+SIP_CLAMP_FLIPS = 1e-4
+
+
+def sky_wcs(size: int, centre=SKY_CENTRE):
+    """The scene's TAN WCS (render coordinates: a star at x covers pixel
+    floor(x), as the star finder reports it)."""
+    import numpy as np
+
+    from siril_tpu_torch.ops.wcs import WCS
+
+    th = np.radians(SKY_TURN)
+    s = SKY_SCALE / 3600.0
+    return WCS(crpix=(size / 2.0 + 0.5, size / 2.0 + 0.5), crval=centre,
+               cd=np.array([[-s * np.cos(th), s * np.sin(th)],
+                            [s * np.sin(th), s * np.cos(th)]]),
+               height=size)
+
+
+def star_mags(amp):
+    """Catalogue magnitudes of rendered amplitudes (0.55 → 10)."""
+    import numpy as np
+
+    return 10.0 - 2.5 * np.log10(np.asarray(amp) / 0.55)
+
+
+def hint_cards(w, size: int, rng):
+    """OBJCTRA / OBJCTDEC up to 7′ off the frame's centre under ``w`` in
+    each, and the optics (FOCALLEN, XPIXSZ), as header cards."""
+    import numpy as np
+
+    from siril_tpu_torch.ops.wcs import format_dec, format_ra
+
+    ra, dec = w.pix2world(np.array([size / 2.0]), np.array([size / 2.0]))
+    off = rng.uniform(-7.0, 7.0, 2) / 60.0           # ≤ 9.9′ together
+    return [f"OBJCTRA = '{format_ra(float(ra[0]) + off[0])}'",
+            f"OBJCTDEC= '{format_dec(float(dec[0]) + off[1])}'",
+            f"FOCALLEN= {FOCAL_MM:>20}", f"XPIXSZ  = {PIXEL_UM:>20}"]
+
+
+def _isolated(sx, sy, amp, size: int, n: int = 60, margin: int = 64,
+              near: float = 14.0):
+    """Indices of the ``n`` brightest stars at least ``margin`` px inside
+    the frame with no other star within ``near`` px."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    pts = np.stack([sx, sy], axis=1)
+    d, _ = cKDTree(pts).query(pts, k=2)
+    ok = (d[:, 1] > near) & (sx > margin) & (sx < size - margin) & \
+        (sy > margin) & (sy < size - margin)
+    idx = np.nonzero(ok)[0]
+    return idx[np.argsort(np.asarray(amp)[idx])[::-1][:n]]
+
+
+def _centroids(img, xs, ys, r: int = 5, sigma: float = 1.3):
+    """Windowed centroids (render coordinates) of the stars near (xs, ys)
+    in ``img``: the flux above the (2r+1)² box's border median under a
+    Gaussian window of the stars' σ, iterated x ← x + 2·Σwf·(X − x)/Σwf
+    (unbiased for a round Gaussian star, and nearly as precise as a fit;
+    a plain flux-weighted centroid with the noise clipped at zero is
+    pulled towards its box's centre by ~0.1 px)."""
+    import numpy as np
+
+    out = np.zeros((len(xs), 2))
+    for k, (x, y) in enumerate(zip(xs, ys)):
+        x0, y0 = int(np.floor(x)), int(np.floor(y))
+        box = img[y0 - r:y0 + r + 1, x0 - r:x0 + r + 1].astype(np.float64)
+        edge = np.concatenate([box[0], box[-1], box[1:-1, 0],
+                               box[1:-1, -1]])
+        f = box - np.median(edge)
+        yy, xx = np.mgrid[y0 - r:y0 + r + 1, x0 - r:x0 + r + 1] + 0.5
+        for _ in range(8):
+            w = f * np.exp(-((xx - x) ** 2 + (yy - y) ** 2)
+                           / (2 * sigma ** 2))
+            sw = w.sum()
+            x, y = (x + 2.0 * (w * (xx - x)).sum() / sw,
+                    y + 2.0 * (w * (yy - y)).sum() / sw)
+        out[k] = x, y
+    return out
+
+
+def _run(rows, session, *words):
+    """One command of the port's table on ``session`` (the entry the
+    script runner calls): its wall and stages into ``rows``; returns
+    what the command returns."""
+    import torch
+
+    from siril_tpu_torch.cli.commands import COMMANDS
+
+    session.stages = {}
+    t = time.perf_counter()
+    value = COMMANDS[words[0].lower()].fn(session, list(words[1:]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    cmd = " ".join(words)
+    rows[cmd] = dict(seconds=wall, launches={}, stages=dict(session.stages))
+    log(f"  {cmd}: wall {wall:.3f}s")
+    if session.stages:
+        log("    stages: " + ", ".join(
+            f"{k} {v:.3f}s" for k, v in session.stages.items()))
+    return value
+
+
+def _corner_offsets(Ha, Hb, size: int):
+    """Max distance at the frame's corners between two homographies."""
+    import numpy as np
+
+    box = np.array([[0, 0, 1], [size, 0, 1], [0, size, 1], [size, size, 1]],
+                   float)
+    qa, qb = box @ np.asarray(Ha).T, box @ np.asarray(Hb).T
+    return float(np.abs(qa[:, :2] / qa[:, 2:] - qb[:, :2] / qb[:, 2:]).max())
+
+
+def disto_lights(dist: str, sky, ra, dec, amp, rng, scale: float = 1.0):
+    """DISTO_LIGHTS 16-bit lights of the stars (``ra``, ``dec``, ``amp``)
+    as ``dist/dist_0000k.fit``: each through the TAN WCS ``sky`` moved by
+    a shift of up to ±12 px (none for the first) and the SIP DISTO_SIP ×
+    ``scale`` in its own frame, on a sky of 0.1 with noise σ 0.01, a
+    pointing hint and the optics in its header.  Returns each light's
+    star positions."""
+    import numpy as np
+
+    from siril_tpu_torch.ops.wcs import WCS
+
+    A = np.zeros((4, 4))
+    B = np.zeros((4, 4))
+    for (m, p, q), v in DISTO_SIP.items():
+        (A if m == "A" else B)[p, q] = v * scale
+    shifts = [(0.0, 0.0)] + [tuple(rng.uniform(-12.0, 12.0, 2))
+                             for _ in range(DISTO_LIGHTS - 1)]
+    observed = []
+    for k, (dx, dy) in enumerate(shifts):
+        lin = sky.shifted(dx, dy)
+        c = lin.pix2world(np.array([SIZE / 2.0 - 0.5]),
+                          np.array([SIZE / 2.0 - 0.5]))
+        true_k = WCS(crpix=sky.crpix, crval=(float(c[0][0]),
+                                            float(c[1][0])),
+                     cd=sky.cd, height=SIZE, sip_a=A, sip_b=B)
+        ox, oy = true_k.world2pix(ra, dec)
+        observed.append((ox, oy))
+        f = _render(SIZE, 0.1, ox, oy, amp) + \
+            0.01 * rng.standard_normal((SIZE, SIZE), dtype=np.float32)
+        write_later(write_float_u16,
+                    os.path.join(dist, f"dist_{k + 1:05d}.fit"), f,
+                    extra=hint_cards(true_k, SIZE, rng))
+    writes_done()
+    return observed
+
+
+def disto_correct(rows, dist: str, catalog: str, ra, dec, amp,
+                  observed) -> dict:
+    """The -disto route on ``disto_lights``' output, through the port's
+    commands: ``platesolve -order=3`` of the first light against
+    ``catalog`` (a path from ``dist``), ``save master``, ``disto``,
+    ``register dist_ -noout`` and ``seqapplyreg dist_ -disto=master``.
+    Returns the master's WCS, its distortion (max, mean px), the last
+    command's row, and the distances of stars from their undistorted
+    places under the master's linear part: before (the 60 brightest
+    isolated stars of the first light where the SIP put them) and after
+    (the DISTO_STARS brightest, centroided in each corrected frame)."""
+    import numpy as np
+
+    from siril_tpu_torch import cli
+    from siril_tpu_torch.io.fits_io import read_fits
+    from siril_tpu_torch.ops.wcs import WCS
+
+    ds = cli.run(["-d", dist, "load", "dist_00001"])
+    _run(rows, ds, "platesolve", f"-catalog={catalog}", "-order=3")
+    _run(rows, ds, "save", "master")
+    dmax, dmean = _run(rows, ds, "disto")
+    mw = ds.image.wcs
+    log(f"  master: SIP order {mw.sip_a.shape[0] - 1}, distortion max "
+        f"{dmax:.2f} px, mean {dmean:.2f}")
+    _timed_cli(rows, dist, "register", "dist_", "-noout")
+    _, row = _timed_cli(rows, dist, "seqapplyreg", "dist_", "-disto=master")
+    lin = WCS(crpix=mw.crpix, crval=mw.crval, cd=mw.cd, height=SIZE)
+    wx, wy = lin.world2pix(ra, dec)
+    iso = _isolated(wx, wy, amp, SIZE)
+    top = iso[:DISTO_STARS]
+    after = []
+    for k in range(DISTO_LIGHTS):
+        out = read_fits(os.path.join(dist, f"r_dist_{k + 1:05d}.fit")
+                        ).host()[0]
+        got = _centroids(out, wx[top], wy[top])
+        after.append(np.hypot(got[:, 0] - wx[top], got[:, 1] - wy[top]))
+    before = np.hypot(observed[0][0][iso] - wx[iso],
+                      observed[0][1][iso] - wy[iso])
+    ea = np.concatenate(after)
+    log(f"  -disto: the {len(iso)} brightest isolated stars off their "
+        f"undistorted positions by max {float(before.max()):.2f} px (mean "
+        f"{float(before.mean()):.2f}) before; the {len(top)} brightest × "
+        f"{DISTO_LIGHTS} frames after: max "
+        + ", ".join(f"{float(e.max()):.3f}" for e in after)
+        + f" a frame (mean {float(ea.mean()):.3f})")
+    return dict(master=mw, dmax=dmax, dmean=dmean, row=row, before=before,
+                after=after)
+
+
+def phase_astrometry(seed: int, script_dir: str, night: dict):
+    """Plate solving and the astrometric routes at full width, on the
+    script phase's scene (its stars on the sky through ``sky_wcs``, the
+    catalogue written as a KStars binary) and its calibrated
+    ``pp_light``:
+      a. ``load result`` (the night's stack, in the reference light's
+         geometry) and ``platesolve`` from hints HINT_OFF off; CRVAL,
+         scale and rotation against the truth; then ``conesearch``,
+         ``healpix``, ``trixel`` and ``show`` counted against the
+         catalogue and the truth.  A single calibrated light carries ~420
+         ray tracks at one a 40,000 px, brighter than any star, and the
+         solver fits only its 400 brightest peaks: on ``pp_light_00001``
+         it finds no star (ROADMAP §3);
+      b. ``register pp_light -3stars`` with three bright isolated stars
+         of the reference frame: each H against the one ``register``
+         wrote, at the frame's corners;
+      c. DISTO_LIGHTS lights rendered through DISTO_SIP with shifts;
+         ``platesolve -order=3`` of the first, saved as the master;
+         ``register dist_ -noout`` and ``seqapplyreg dist_ -disto=``;
+         bright isolated stars of the output against their undistorted
+         positions; the SIP warp's ms per frame (CUDA events) beside the
+         gather warp's, and the card against the CPU on a SIP_CROP² crop.
+    Returns ({command: row}, timings)."""
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch import cli
+    from siril_tpu_torch.astrometry.healpix import (
+        image_footprint_pixels,
+        image_footprint_trixels,
+    )
+    from siril_tpu_torch.astrometry.kstars_local import (
+        write_kstars_catalogue,
+    )
+    from siril_tpu_torch.io.fits_io import read_fits
+    from siril_tpu_torch.io.seqfile import read_seqfile
+    from siril_tpu_torch.ops import interp
+    from siril_tpu_torch.ops.wcs import sip_frame
+
+    rng = np.random.default_rng(seed + 61)
+    proc = os.path.join(script_dir, "process")
+    sky = sky_wcs(SIZE)
+    sx, sy, amp = night["sx"], night["sy"], night["amp"]
+    ra, dec = sky.pix2world(sx, sy)
+    mag = star_mags(amp)
+    cat = os.path.join(proc, "field_tycho.dat")
+    t = time.perf_counter()
+    write_kstars_catalogue(cat, ra, dec, mag)
+    log(f"  the scene's {len(sx)} stars as a KStars catalogue in "
+        f"{time.perf_counter() - t:.2f}s")
+    rows, checks, timings = {}, {}, {}
+
+    # a. plate solve of the night's stack, and the field's commands
+    hra = SKY_CENTRE[0] + HINT_OFF[0] / 60.0
+    hdec = SKY_CENTRE[1] + HINT_OFF[1] / 60.0
+    session = cli.run(["-d", proc, "load", "result"])
+    solve = ["platesolve", f"{hra}", f"{hdec}", "-catalog=field_tycho.dat",
+             f"-focal={FOCAL_MM}", f"-pixelsize={PIXEL_UM}"]
+    _run(rows, session, *solve)
+    timings["platesolve"] = rows[" ".join(solve)]
+    w = session.image.wcs
+    tra, tdec = sky.pix2world(np.array([w.crpix[0] - 1.0]),
+                              np.array([SIZE - w.crpix[1]]))
+    d_crval = 3600.0 * float(np.hypot(
+        (w.crval[0] - tra[0]) * np.cos(np.radians(tdec[0])),
+        w.crval[1] - tdec[0]))
+    d_scale = w.pixel_scale_arcsec / sky.pixel_scale_arcsec - 1.0
+    d_rot = (w.rotation_deg - sky.rotation_deg + 180.0) % 360.0 - 180.0
+    log(f"  solved: CRVAL {d_crval:.3f}″ from the truth, scale "
+        f"{w.pixel_scale_arcsec:.6f}″/px ({d_scale:+.2e}), rotation "
+        f"{w.rotation_deg:.4f}° ({d_rot:+.4f}° off)")
+    checks["platesolve: CRVAL within 0.5″"] = d_crval < 0.5
+    checks["platesolve: scale within 0.1 %"] = abs(d_scale) < 1e-3
+    checks["platesolve: rotation within 0.01°"] = abs(d_rot) < 0.01
+    n_in = _run(rows, session, "conesearch", "99",
+                "-catalog=field_tycho.dat")
+    # the command's cone has a radius of ⅔ of the field's width, short of
+    # its corners (the JAX package's rule): count the truth the same way
+    px, py = sky.world2pix(ra, dec)
+    cra, cdec = w.pix2world(np.array([SIZE / 2.0]), np.array([SIZE / 2.0]))
+    sep = np.hypot((np.mod(ra - cra[0] + 180.0, 360.0) - 180.0)
+                   * np.cos(np.radians(cdec[0])), dec - cdec[0])
+    radius = w.pixel_scale_arcsec * SIZE / 3600.0 / 1.5
+    inside = (px >= 0) & (px < SIZE) & (py >= 0) & (py < SIZE)
+    want = inside & (sep <= radius)
+    edge = want & ((px < 1) | (px >= SIZE - 1) | (py < 1) |
+                   (py >= SIZE - 1) | (sep > radius - 1.0 / 3600.0))
+    log(f"  conesearch: {n_in} catalogue stars in the field and the cone, "
+        f"{int(want.sum())} by the truth ({int(edge.sum())} within 1 px of "
+        f"the border or the cone; {int(inside.sum())} in the whole field)")
+    checks["conesearch counts the stars in the field"] = \
+        abs(n_in - int(want.sum())) <= int(edge.sum())
+    pix = _run(rows, session, "healpix")
+    trix = _run(rows, session, "trixel")
+    want_pix = image_footprint_pixels(sky, SIZE, SIZE, 256)
+    want_trix = image_footprint_trixels(sky, SIZE, SIZE, 3)
+    log(f"  healpix: {len(pix)} order-8 pixels ({len(want_pix)} by the "
+        f"truth); trixel: {len(trix)} level-3 trixels ({len(want_trix)})")
+    # a sample within a fraction of a pixel of a cell's border may cross
+    checks["healpix and trixel: the truth's footprint (± one cell)"] = \
+        len(set(pix) ^ set(want_pix)) <= 1 and \
+        len(set(trix) ^ set(want_trix)) <= 1
+    anns = _run(rows, session, "show")
+    mx, my = sky.world2pix(np.array([83.8221]), np.array([-5.3911]))
+    m42 = [a for a in anns if a.name == "M42"]
+    log(f"  show: {[a.name for a in anns]}; M42 at "
+        f"{[(round(a.x, 2), round(a.y, 2)) for a in m42]} (truth "
+        f"{float(mx[0]):.2f}, {float(my[0]):.2f})")
+    checks["show: M42 within 1 px of the truth"] = len(m42) == 1 and \
+        np.hypot(m42[0].x - mx[0], m42[0].y - my[0]) < 1.0
+
+    # b. the 3-star registration of pp_light against register's: three
+    # bright stars with no other star in their follow box, whose box
+    # holds no ray in any selected frame (a ray track outshines every
+    # star; a user picks the stars on the reference frame and drops a
+    # lost one)
+    seqf = os.path.join(proc, "pp_light_.seq")
+    before = read_seqfile(seqf)
+    H_reg, sel = before.reg(0).H.copy(), before.selected_indices()
+    half = THREESTAR_BOX // 2
+    reach = np.hypot(sx - SIZE / 2.0, sy - SIZE / 2.0) < THREESTAR_REACH
+    cand = [i for i in _isolated(sx, sy, amp, SIZE, n=200, near=1.5 * half)
+            if reach[i]]
+    c = SIZE / 2.0
+    for k in sel:
+        th, sc, dx, dy = night["transforms"][k]
+        frame = read_fits(os.path.join(
+            proc, f"pp_light_{k + 1:05d}.fit")).host()[0]
+        keep = []
+        for i in cand:
+            fx = sc * (np.cos(th) * (sx[i] - c) - np.sin(th) * (sy[i] - c)) \
+                + c + dx
+            fy = sc * (np.sin(th) * (sx[i] - c) + np.cos(th) * (sy[i] - c)) \
+                + c + dy
+            # the follow's box: about the star's place on the reference
+            x0 = int(round(sx[i] - 0.5)) - half
+            y0 = int(round(sy[i] - 0.5)) - half
+            box = frame[y0:y0 + 2 * half + 1, x0:x0 + 2 * half + 1]
+            py_, px_ = np.unravel_index(int(box.argmax()), box.shape)
+            if np.hypot(x0 + px_ + 0.5 - fx, y0 + py_ + 0.5 - fy) < 2.0:
+                keep.append(i)
+        cand = keep
+    pts = np.stack([sx[cand], sy[cand]], axis=1)
+    third = np.floor((np.arctan2(pts[:, 1] - c, pts[:, 0] - c) + np.pi)
+                     / (2 * np.pi / 3)).astype(int) % 3
+    if set(third) != {0, 1, 2}:
+        raise RuntimeError("-3stars: no fit star in a third of the frame")
+    pick = [int(np.nonzero(third == k)[0][0]) for k in range(3)]
+    words = ["register", "pp_light", "-3stars",
+             f"-boxsize={THREESTAR_BOX}"] + [
+        f"-star{n + 1}={pts[i][0]:.2f},{pts[i][1]:.2f}"
+        for n, i in enumerate(pick)]
+    _, row = _timed_cli(rows, proc, *words)
+    timings["3stars"] = dict(row, frames=len(sel))
+    after = read_seqfile(seqf).reg(0)
+    offs = [_corner_offsets(after.H[i], H_reg[i], SIZE) for i in sel]
+    log(f"  -3stars on {len(sel)} frames ({row['seconds'] / len(sel):.3f}s "
+        f"a frame): H against register's at the corners "
+        f"{', '.join(f'{v:.3f}' for v in offs)} px")
+    checks[f"-3stars: every frame registered, H within {THREESTAR_TOL} "
+           "px of register's"] = bool(after.valid[sel].all()) and \
+        max(offs) < THREESTAR_TOL
+
+    # c. the distortion master and -disto
+    dist = os.path.join(script_dir, "disto")
+    os.makedirs(dist)
+    t = time.perf_counter()
+    observed = disto_lights(dist, sky, ra, dec, amp, rng)
+    ux, uy = sky.world2pix(ra, dec)
+    shift_all = np.hypot(observed[0][0] - ux, observed[0][1] - uy)
+    log(f"  rendered {DISTO_LIGHTS} lights through the SIP in "
+        f"{time.perf_counter() - t:.2f}s; displacement of the stars in the "
+        f"field max {float(shift_all[inside].max()):.2f} px")
+    dc = disto_correct(rows, dist, "../process/field_tycho.dat", ra, dec,
+                       amp, observed)
+    timings["disto"] = dc["row"]
+    mw = dc["master"]
+    ea, eb = np.concatenate(dc["after"]), dc["before"]
+    checks[f"-disto: within {DISTO_TOL} px after ({DISTO_MEAN_TOL} on "
+           f"average), ≥ {DISTO_BEFORE} px before"] = \
+        float(ea.max()) < DISTO_TOL and float(ea.mean()) < DISTO_MEAN_TOL \
+        and float(eb.max()) >= DISTO_BEFORE
+    # the SIP warp a frame, beside the gather warp; card against CPU
+    dev = torch.device(CARD)
+    frame = torch.from_numpy(read_fits(os.path.join(
+        dist, "dist_00002.fit")).host()).to(dev)
+    H2 = read_seqfile(os.path.join(dist, "dist_.seq")).reg(0).H[1]
+    sf = sip_frame(mw.crpix, mw.height)
+    sip_ms = _events_ms(lambda: interp.warp_homography_sip(
+        frame, H2, mw.sip_a, mw.sip_b, sf, (SIZE, SIZE), invert=True), 3)
+    gather_ms = _events_ms(lambda: interp.warp_homography(
+        frame, H2, (SIZE, SIZE)), 3)
+    crop = frame[:, :SIP_CROP, :SIP_CROP]
+
+    def sip(x, **kw):
+        return interp.warp_homography_sip(
+            x, H2, mw.sip_a, mw.sip_b, sf, (SIP_CROP, SIP_CROP),
+            invert=True, **kw).cpu()
+    # the clamp puts one of two values in a pixel: the lanczos sum or the
+    # bilinear guide; a flip takes the other one
+    cpu_lanczos, cpu_guide = (sip(crop.cpu(), clamp=False, **kw) for kw in (
+        {}, dict(method=interp.INTERP_BILINEAR)))
+    on_card = sip(crop)
+    cpu_err = float((sip(crop, clamp=False) - cpu_lanczos).abs().max())
+    d = (on_card - sip(crop.cpu())).abs()
+    clamp_err, flips = float(d.max()), int((d > SIP_CPU_TOL).sum())
+    flip_err = float(torch.minimum((on_card - cpu_lanczos).abs(),
+                                   (on_card - cpu_guide).abs()).max())
+    timings["sip_warp"] = dict(ms=sip_ms, gather_ms=gather_ms,
+                               cpu_err=cpu_err, clamp_err=clamp_err,
+                               clamp_flips=flips, flip_err=flip_err)
+    log(f"  SIP warp (order 3, inverted): {sip_ms:.2f} ms a {SIZE}² frame "
+        f"(CUDA events, median of 3; the gather warp {gather_ms:.2f} ms); "
+        f"card against CPU on a {SIP_CROP}² crop: max |Δ| {cpu_err:.3g} "
+        f"without the clamp; with it {clamp_err:.3g}, {flips} pixels over "
+        f"{SIP_CPU_TOL:g}, each within {flip_err:.3g} of the CPU's lanczos "
+        f"sum or bilinear guide")
+    checks[f"SIP warp: card within {SIP_CPU_TOL:g} of the CPU (with the "
+           f"clamp but on at most {SIP_CLAMP_FLIPS:g} of the pixels, each "
+           "within it of the CPU's other value)"] = \
+        cpu_err <= SIP_CPU_TOL and flip_err <= SIP_CPU_TOL and \
+        flips <= SIP_CLAMP_FLIPS * SIP_CROP ** 2
+    del frame, crop, on_card, cpu_lanczos, cpu_guide, d
+    shutil.rmtree(dist)
+    failed = [k for k, ok in checks.items() if not ok]
+    for k in failed:
+        log(f"  check astrometry: {k}: FAILED")
+    if failed:
+        raise RuntimeError(f"astrometry checks failed: {failed}")
+    return rows, timings
+
+
 #: the formats phase: the script phase's first FORMATS_LIGHTS raw lights
-FORMATS_LIGHTS = 8
+#: (8 until the astrometry phase came: cut to make room, PERF.md §4)
+FORMATS_LIGHTS = 4
 #: the SER sequence's stack against the regular one's: the SER frames are
 #: decoded as u16 / 65535 on the host and take the streamed path, the
 #: FITS ones as (x + 32768) · (1/65535) on the card on the resident path
@@ -2505,7 +3094,9 @@ def phase_formats(seed: int, script_dir: str):
     stacks of the regular, cube and SER sequences; a light written and
     read as BITPIX 8, 32 and -64; ``setcompress`` rice and gzip2, save and
     load; the C++ Rice coder's ms per frame and its bytes against the
-    Python coder's; a 4-frame fz sequence stacked.  Returns ({path: K1
+    Python coder's; a 4-frame fz sequence stacked; the lights as an 8-bit
+    grey uncompressed AVI (``AviWriter``), ``convert`` and stacked,
+    against the same 8-bit frames written as FITS.  Returns ({path: K1
     launches}, {command: row}, timings)."""
     import numpy as np
 
@@ -2554,7 +3145,7 @@ def phase_formats(seed: int, script_dir: str):
         for r in results.values())
     for d in ("cube", "ser"):
         shutil.rmtree(os.path.join(fmt, d))
-    del results, reg_out, cube_out, ser_out, dser
+    del results, cube_out, ser_out, dser
 
     # BITPIX 8 (the port's writer), 32 and -64 (numpy), -64 saved as -32
     light = read_fits(os.path.join(fmt, "raw_00001.fit"))
@@ -2620,23 +3211,59 @@ def phase_formats(seed: int, script_dir: str):
         same_py and bool((back == rows_i16).all())
 
     # a 4-frame fz sequence, stacked, against the same frames uncompressed
+    # (the regular sequence's stack)
     for k in range(1, 5):
         img = read_fits(os.path.join(fmt, f"raw_{k:05d}.fit"))
         write_fits(img, os.path.join(fmt, f"fz_{k:05d}.fit.fz"),
                    compression="rice")
-        os.symlink(os.path.join(lights, f"light_{k:05d}.fit"),
-                   os.path.join(fmt, f"four_{k:05d}.fit"))
     fz, row = _timed_cli(rows, fmt, "stack", "fz_", "rej", "3", "3",
                          "-norm=addscale", "-out=fz_result")
     launches["formats: stack of the fz sequence"] = row["launches"]
-    four, row = _timed_cli(rows, fmt, "stack", "four_", "rej", "3", "3",
-                           "-norm=addscale", "-out=four_result")
-    launches["formats: stack of the same 4 frames"] = row["launches"]
-    dfz = float(np.abs(fz.image.host() - four.image.host()).max())
+    dfz = float(np.abs(fz.image.host() - reg_out).max())
     log(f"  fz sequence ({fz.sequence.fz=}) stacked against the same 4 "
         f"frames uncompressed: max |Δ| {dfz:.3g}")
     checks["fz stack within 2e-6 of the uncompressed one"] = \
         fz.sequence.fz and dfz <= 2e-6
+    del fz
+
+    # the lights as an 8-bit grey uncompressed AVI, converted and stacked,
+    # against the same frames written as float32 FITS of the AVI decoder's
+    # values (u8 / 255: a BITPIX 8 file reads as u8 · (1/255), which
+    # differs from the division in 126 of the 256 values)
+    from siril_tpu_torch.core.image import FLOAT_IMG, SirilImage
+    from siril_tpu_torch.io.avi import AviWriter, to_u8
+
+    vid = os.path.join(fmt, "video")
+    twin = os.path.join(fmt, "twin")
+    os.makedirs(vid)
+    os.makedirs(twin)
+    t = time.perf_counter()
+    wr = AviWriter(os.path.join(vid, "night.avi"), SIZE, SIZE, color=False)
+    for k in range(1, FORMATS_LIGHTS + 1):
+        img = read_fits(os.path.join(fmt, f"raw_{k:05d}.fit"))
+        wr.add_frame(img)
+        u8 = to_u8(img)
+        write_fits(SirilImage(data=u8.astype(np.float32) / 255.0),
+                   os.path.join(twin, f"twin_{k:05d}.fit"),
+                   bitdepth=FLOAT_IMG)
+    wr.close()
+    timings["avi_write"] = time.perf_counter() - t
+    log(f"  wrote {FORMATS_LIGHTS} lights as an 8-bit AVI "
+        f"({os.path.getsize(os.path.join(vid, 'night.avi')) / 2 ** 20:.1f} "
+        f"MiB) and as FITS in {timings['avi_write']:.2f}s")
+    _timed_cli(rows, vid, "convert", "night")
+    avi_s, row = _timed_cli(rows, vid, "stack", "night_", "rej", "3", "3",
+                            "-norm=addscale", "-out=result")
+    launches["formats: stack of the converted AVI"] = row["launches"]
+    twin_s, row = _timed_cli(rows, twin, "stack", "twin_", "rej", "3", "3",
+                             "-norm=addscale", "-out=result")
+    launches["formats: stack of the AVI's FITS twin"] = row["launches"]
+    same = bool((avi_s.image.host() == twin_s.image.host()).all())
+    log(f"  AVI: {avi_s.sequence.number} frames converted; its stack "
+        f"bit-equal to the FITS twin's: {same}")
+    checks["AVI stack bit-equal to its FITS twin's"] = same and \
+        avi_s.sequence.number == FORMATS_LIGHTS
+    del avi_s, twin_s, reg_out
     failed = [k for k, ok in checks.items() if not ok]
     for k in failed:
         log(f"  check formats: {k}: FAILED")
@@ -2671,29 +3298,56 @@ def _write_fits_raw(path: str, data, bitpix: int, bzero: float = 0.0):
 #: reference, first)
 MOSAIC_OVERLAP = 1024
 MOSAIC_LEVELS = [(0.10, 1.00), (0.13, 0.92), (0.08, 1.07), (0.115, 0.96)]
+#: each plate-solved H within this many px of the true tile-to-reference
+#: map at the tile's corners
+MOSAIC_H_TOL = 0.1
 
 
 def synth_mosaic(root: str, seed: int, size: int, overlap: int,
                  nstars: int = 4000):
     """The mosaic's tiles as 16-bit files ``mosaic_0000k.fit`` under
-    ``root``: the sky's stars (``nstars`` per size² of sky), each tile's
-    level + gain × stars + noise σ 0.01.  Returns (stars of the whole sky,
-    the tiles' corners, noise σ)."""
+    ``root``: stars on the sky (``nstars`` per size² of the canvas, placed
+    through one TAN WCS for the whole canvas, ``sky_wcs``), and each tile
+    an exposure of its own: a TAN projection about its centre (the
+    canvas's sky there, the canvas's scale and turn), its level + gain ×
+    stars + noise σ 0.01, a pointing hint and the optics in its header
+    (``hint_cards``).  Two tangent planes map onto each other by a
+    homography, so each tile's true map onto tile 1 is the one its WCS
+    gives (a few px from a shift by the corner offset).  The stars are
+    the binary Gaia catalogue ``sky.cat``.  Returns (the stars' RA, Dec,
+    amplitudes, the tiles' WCS, the tiles' corners on the canvas, noise
+    σ)."""
     import numpy as np
+
+    from siril_tpu_torch.astrometry.gaia_local import write_gaia_astro
+    from siril_tpu_torch.ops.wcs import WCS
 
     rng = np.random.default_rng(seed)
     step = size - overlap
     full = size + step
     sx, sy, amp = _star_field(rng, full, int(nstars * (full / size) ** 2))
-    stars = _render(full, 0.0, sx, sy, amp)
+    canvas = sky_wcs(full)
+    ra, dec = canvas.pix2world(sx, sy)
+    write_gaia_astro(os.path.join(root, "sky.cat"), ra, dec, star_mags(amp))
     corners = [(0, 0), (step, 0), (0, step), (step, step)]
+    tiles = []
     for k, ((x0, y0), (level, gain)) in enumerate(zip(corners,
                                                       MOSAIC_LEVELS)):
-        f = level + gain * stars[y0:y0 + size, x0:x0 + size] + \
-            0.01 * rng.standard_normal((size, size), dtype=np.float32)
-        write_u16_fits(os.path.join(root, f"mosaic_{k + 1:05d}.fit"),
-                       np.rint(np.clip(f, 0, 1) * 65535.0).astype(np.uint16))
-    return stars, corners, 0.01
+        c = canvas.pix2world(np.array([x0 + size / 2.0 - 0.5]),
+                             np.array([y0 + size / 2.0 - 0.5]))
+        tile = WCS(crpix=(size / 2.0 + 0.5, size / 2.0 + 0.5),
+                   crval=(float(c[0][0]), float(c[1][0])), cd=canvas.cd,
+                   height=size)
+        tiles.append(tile)
+        tx, ty = tile.world2pix(ra, dec)
+        inb = (tx > -8) & (tx < size + 8) & (ty > -8) & (ty < size + 8)
+        f = level + gain * _render(size, 0.0, tx[inb], ty[inb], amp[inb]) \
+            + 0.01 * rng.standard_normal((size, size), dtype=np.float32)
+        write_later(write_float_u16,
+                    os.path.join(root, f"mosaic_{k + 1:05d}.fit"), f,
+                    extra=hint_cards(tile, size, rng))
+    writes_done()
+    return ra, dec, amp, tiles, corners, 0.01
 
 
 def _seam_step(out, want, x=None, y=None, near: int = 32, far: int = 96,
@@ -2713,72 +3367,149 @@ def _seam_step(out, want, x=None, y=None, near: int = 32, far: int = 96,
     return float(np.median(b) - np.median(a))
 
 
+def _footprints(Hs, T, size: int, out_h: int, out_w: int):
+    """Masks of the canvas pixels whose source lies a pixel inside some
+    tile (``inside``) and a pixel outside every tile (``outside``) under
+    the maps T·H, computed on the card a band of rows at a time."""
+    import numpy as np
+    import torch
+
+    dev = torch.device(CARD)
+    inv = [torch.tensor(np.linalg.inv(T @ H), dtype=torch.float64,
+                        device=dev) for H in Hs]
+    inside = np.zeros((out_h, out_w), bool)
+    outside = np.zeros((out_h, out_w), bool)
+    xs = torch.arange(out_w, dtype=torch.float64, device=dev)[None]
+    for y0 in range(0, out_h, 512):
+        ys = torch.arange(y0, min(out_h, y0 + 512), dtype=torch.float64,
+                          device=dev)[:, None]
+        ins = torch.zeros((ys.shape[0], out_w), dtype=torch.bool,
+                          device=dev)
+        near = torch.zeros_like(ins)
+        for m in inv:
+            d = m[2, 0] * xs + m[2, 1] * ys + m[2, 2]
+            u = (m[0, 0] * xs + m[0, 1] * ys + m[0, 2]) / d
+            v = (m[1, 0] * xs + m[1, 1] * ys + m[1, 2]) / d
+            ins |= (u >= 1) & (u <= size - 2) & (v >= 1) & (v <= size - 2)
+            near |= (u > -1) & (u < size) & (v > -1) & (v < size)
+        inside[y0:y0 + ys.shape[0]] = ins.cpu().numpy()
+        outside[y0:y0 + ys.shape[0]] = (~near).cpu().numpy()
+    return inside, outside
+
+
 def phase_mosaic(seed: int, size: int = SIZE,
                  overlap: int = MOSAIC_OVERLAP):
-    """A 2 × 2 mosaic through the CLI: ``register mosaic_ -transf=shift
-    -noout`` (or the known shifts written into the .seq where the
-    triangle match does not span the overlaps), ``stack mosaic_ rej 3 3
-    -norm=addscale -overlap_norm -feather=64`` (K1e with per-pixel
+    """A 2 × 2 mosaic through the CLI by the reference's route:
+    ``seqplatesolve mosaic_ -catalog=sky.cat`` (each tile from its header
+    hint; each solved centre seeds the next), ``seqapplyreg mosaic_
+    -framing=max`` (no registration data: the homographies from the WCS
+    solutions, each tile warped onto the canvas), checked against the
+    known corner offsets; then on the warped canvas ``stack r_mosaic_ rej
+    3 3 -norm=addscale -overlap_norm -feather=64`` (K1e with per-pixel
     weights), checked for a step in level across each seam, and ``stack
-    mosaic_ max -maximize``, checked for the union of the footprints.
-    Returns ({command: {variant: launches}}, {command: seconds}, how the
-    tiles were registered)."""
+    r_mosaic_ max -maximize``, checked for the union of the footprints.
+    Returns ({command: {variant: launches}}, {command: row}, how the tiles
+    were registered, K1e held at the feathered stack's calls)."""
     import numpy as np
     import torch
 
     from siril_tpu_torch import cli
     from siril_tpu_torch.core.sequence import Sequence
+    from siril_tpu_torch.io.fits_io import read_fits
     from siril_tpu_torch.kernels import reject_stack as k1
+    from siril_tpu_torch.ops.stacking import plan_blocks
+    from siril_tpu_torch.registration.astrometric import (
+        fit_homography_from_wcs,
+        register_astrometric,
+    )
+    from siril_tpu_torch.registration.global_reg import (
+        FRAMING_MAX,
+        compute_framing,
+    )
+    from siril_tpu_torch.utils.devmem import MEMORY_RATIO
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mosaic_")
     try:
         t = time.perf_counter()
-        stars, corners, sigma_n = synth_mosaic(tmp, seed + 41, size,
-                                               overlap)
+        ra, dec, amp, tiles, corners, sigma_n = synth_mosaic(
+            tmp, seed + 41, size, overlap)
         step = size - overlap
-        log(f"  synthesized 4 tiles of {size}x{size} (16-bit) from a "
-            f"{stars.shape[0]}² sky, {overlap} px overlaps, in "
+        log(f"  synthesized 4 tiles of {size}x{size} (16-bit), {overlap} px "
+            f"overlaps, each through its own TAN projection, and the "
+            f"catalogue of their {len(ra)} stars, in "
             f"{time.perf_counter() - t:.2f}s")
-        t = time.perf_counter()
-        session = cli.run(["-d", tmp, "register", "mosaic_",
-                           "-transf=shift", "-noout"])
-        reg = session.sequence.reg(0)
-        known = np.array(corners, float)
-        off = np.abs(reg.H[:, :2, 2] - known).max(axis=1)
-        matched = reg.valid & (off < 1.0)
-        log(f"  register mosaic_ -transf=shift -noout: "
-            f"{time.perf_counter() - t:.2f}s, frames registered "
-            f"{int(reg.valid.sum())}, shifts within 1 px of the truth "
-            f"{int(matched.sum())} of 4 (off by "
-            f"{', '.join(f'{v:.2f}' for v in off)} px)")
-        how = "triangle match"
-        if not matched.all():
-            how = "known shifts"
-            seq = Sequence.scan("mosaic_", tmp)
-            seq.reg(0).H[:, :2, 2] = known
-            seq.reg(0).valid[:] = True
-            seq.save()
-            log("  the triangle match does not span the overlaps: the "
-                "known shifts written into mosaic_.seq")
-        runs, walls, failed = {}, {}, []
+        rows, failed = {}, []
+        _timed_cli(rows, tmp, "seqplatesolve", "mosaic_", "-catalog=sky.cat")
+        solved = [read_fits(os.path.join(tmp, f"mosaic_{k + 1:05d}.fit")).wcs
+                  for k in range(4)]
+        _timed_cli(rows, tmp, "seqapplyreg", "mosaic_", "-framing=max")
+        # the homographies the command derived (the .seq keeps 6 digits),
+        # against the true maps of the tiles' own projections
+        seq = Sequence.scan("mosaic_", tmp)
+        register_astrometric(seq)
+        reg = seq.reg(0)
+        true_H = [fit_homography_from_wcs(w, tiles[0], size, size)
+                  for w in tiles]
+        offs = [_corner_offsets(reg.H[k], true_H[k], size) for k in range(4)]
+        shift = [_corner_offsets(true_H[k], np.array(
+            [[1, 0, x0], [0, 1, y0], [0, 0, 1.0]]), size)
+            for k, (x0, y0) in enumerate(corners)]
+        how = "plate solve"
+        log(f"  tiles solved {sum(w is not None for w in solved)} of 4; "
+            f"registered by {how}: each H against the true map at the "
+            f"tile's corners {', '.join(f'{v:.4f}' for v in offs)} px (the "
+            f"true maps {', '.join(f'{v:.2f}' for v in shift)} px from "
+            f"shifts by the corner offsets)")
+        out_w, out_h, T = compute_framing(seq, 0, FRAMING_MAX)
+        for name, good in {
+                "4 of 4 tiles plate-solved": all(w is not None
+                                                 for w in solved),
+                f"each H within {MOSAIC_H_TOL} px of the true map":
+                    bool(reg.valid.all()) and max(offs) < MOSAIC_H_TOL,
+                f"the canvas {out_w}x{out_h}": read_fits(os.path.join(
+                    tmp, "r_mosaic_00004.fit")).host().shape ==
+                    (1, out_h, out_w)}.items():
+            if not good:
+                log(f"    check {name}: FAILED")
+                failed.append(name)
+        # the sky as tile 1 sees it, on the canvas
+        wx, wy = tiles[0].world2pix(ra, dec)
+        n = max(out_w, out_h)
+        stars = _render(n, 0.0, wx + T[0, 2], wy + T[1, 2], amp)[:out_h,
+                                                                 :out_w]
+        del wx, wy
+        runs, held = {}, []
         for cmd in ("rej 3 3 -norm=addscale -overlap_norm -feather=64",
                     "max -maximize"):
+            # the inputs of each K1 call the command makes (the wrapper
+            # it calls counts the launch)
+            calls, reject_mean = [], k1.reject_mean
+
+            def spy(*a, **kw):
+                calls.append((a, kw))
+                return reject_mean(*a, **kw)
             k1.reset_counts()
+            k1.reject_mean = spy
             t = time.perf_counter()
-            s = cli.run(["-d", tmp, "stack", "mosaic_", *cmd.split(),
-                         "-out=mosaic_result"])
-            torch.cuda.synchronize()
-            walls[cmd] = time.perf_counter() - t
+            try:
+                s = cli.run(["-d", tmp, "stack", "r_mosaic_", *cmd.split(),
+                             "-out=mosaic_result"])
+                torch.cuda.synchronize()
+            finally:
+                k1.reject_mean = reject_mean
+            rows[f"stack r_mosaic_ {cmd}"] = dict(
+                seconds=time.perf_counter() - t, stages=s.result.stage_s)
             runs[cmd] = dict(k1.launches)
             out = s.result.image.host()[0]
-            log(f"  stack mosaic_ {cmd}: wall {walls[cmd]:.2f}s, launches "
-                f"{ {k: v for k, v in runs[cmd].items() if v} }, canvas "
-                f"{out.shape}")
+            log(f"  stack r_mosaic_ {cmd}: wall "
+                f"{rows[f'stack r_mosaic_ {cmd}']['seconds']:.2f}s, "
+                f"launches { {k: v for k, v in runs[cmd].items() if v} }, "
+                f"canvas {out.shape}")
             log("    stages: " + ", ".join(
                 f"{k} {v:.3f}s" for k, v in s.result.stage_s.items()))
             if cmd.startswith("rej"):
                 level, gain = MOSAIC_LEVELS[0]
-                want = level + gain * stars[:size, :size]
+                want = level + gain * stars
                 steps = (_seam_step(out, want, x=step),
                          _seam_step(out, want, y=step))
                 m = 48
@@ -2787,18 +3518,44 @@ def phase_mosaic(seed: int, size: int = SIZE,
                     f"{steps[0]:.2e}, at y = {step}: {steps[1]:.2e} (noise "
                     f"{sigma_n}); interior mean |Δ| against tile 1's level "
                     f"and gain {err:.5f}")
+                # the streamed stack's row blocks (the budget the stack
+                # command sets: 2048 MB × MEMORY_RATIO)
+                rows_per = plan_blocks(out_h, out_w, 4, max(int(
+                    2048 * min(MEMORY_RATIO, 4.0)), 128))
+                blocks = -(-out_h // rows_per)
+                log(f"    K1e launches {runs[cmd]['K1e']}: one a block of "
+                    f"{rows_per} rows")
+                # K1e against its plain version at the call's own shapes
+                # and inputs (these launches come after the count)
+                held += [held_at_call(
+                    f"the plate-solved mosaic's feathered stack, row block "
+                    f"{b + 1} of {len(calls)}", "winsorized/addscale", *a,
+                    kw) for b, (a, kw) in enumerate(calls)]
+                calls.clear()
+                torch.cuda.empty_cache()
                 checks = {
-                    "K1e launched once (per-pixel weights)":
-                        runs[cmd]["K1e"] == 1,
+                    "K1e launched once a row block (per-pixel weights)":
+                        runs[cmd]["K1e"] == blocks and
+                        sum(runs[cmd].values()) == blocks,
+                    "K1e bit-equal to its plain version on every block, "
+                    "weights of 0 among the compared pixels":
+                        len(held) == blocks and all(
+                            h["ok"] and h["weights"] == "per pixel" and
+                            h["zero_weights_compared"] > 0 for h in held),
                     "each seam's step below the noise / 5":
                         max(abs(v) for v in steps) < sigma_n / 5,
                     "interior mean |Δ| < noise": err < sigma_n,
                     "no loop stopped at its bound": s.result.capped == 0}
             else:
-                full = stars.shape[0]
+                inside, outside = _footprints(reg.H, T, size, out_h, out_w)
+                log(f"    covered {int(inside.sum())} px, uncovered "
+                    f"{int(outside.sum())} px of the canvas")
                 checks = {
-                    "the canvas is the union of the footprints":
-                        out.shape == (full, full) and bool((out > 0).all()),
+                    "the canvas is the union of the footprints (> 0 a px "
+                    "inside them, 0 a px outside)":
+                        out.shape == (out_h, out_w) and
+                        bool((out[inside] > 0).all()) and
+                        bool((out[outside] == 0).all()),
                     "no kernel launched": sum(runs[cmd].values()) == 0}
             checks["result finite"] = bool(np.isfinite(out).all())
             for name, good in checks.items():
@@ -2807,7 +3564,7 @@ def phase_mosaic(seed: int, size: int = SIZE,
                     failed.append(f"{cmd}: {name}")
         if failed:
             raise RuntimeError(f"mosaic checks failed: {failed}")
-        return runs, walls, how
+        return runs, rows, how, held
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2844,7 +3601,9 @@ def phase_stack(seed: int, frames: int = FRAMES, size: int = SIZE,
     try:
         t = time.perf_counter()
         for i, f in enumerate(f32s):
-            write_f32_fits(os.path.join(tmp, f"r_light_{i + 1:05d}.fit"), f)
+            write_later(write_f32_fits,
+                        os.path.join(tmp, f"r_light_{i + 1:05d}.fit"), f)
+        writes_done()
         del f32s
         log(f"  wrote FITS in {time.perf_counter() - t:.2f}s")
         m = 48
@@ -2952,15 +3711,18 @@ def main(argv=None) -> int:
         with Phase("drizzle"):
             drizzle_launches, _, _ = phase_drizzle(
                 args.seed, osc_root, script_root, night, osc_made)
-        del night, osc_made
+        del osc_made
         shutil.rmtree(osc_root, ignore_errors=True)
+        with Phase("astrometry"):
+            phase_astrometry(args.seed, script_root, night)
+        del night
         with Phase("formats"):
             formats_launches, _, _ = phase_formats(args.seed, script_root)
     finally:
         shutil.rmtree(osc_root, ignore_errors=True)
         shutil.rmtree(script_root, ignore_errors=True)
     with Phase("mosaic"):
-        mosaic_launches, _, _ = phase_mosaic(args.seed)
+        mosaic_launches, _, _, mosaic_k1e = phase_mosaic(args.seed)
     src = "siril_tpu_torch/csrc/reject_stack.cu"
     tpu = "siril_tpu/pallas/reject_stack.py"
     # K1a runs on several paths: fusedstack (shifts and homographies), and
@@ -2977,15 +3739,17 @@ def main(argv=None) -> int:
                     launches=sum(by_path.values()),
                     launches_by_path=by_path, replaces=f"{tpu}:763", **k1a)]
     lines = {"K1b": 478, "K1c": 521, "K1d": 586, "K1e": 719}
-    # K1e: the noise-weighted stack, and the feathered mosaic stack
+    # K1e: the noise-weighted stack, and the feathered stack of the
+    # plate-solved mosaic's canvas
     k1e_paths = {"stack -weight_from_noise": stack_launches["K1e"],
-                 "mosaic -feather": sum(c["K1e"] for c in
-                                        mosaic_launches.values())}
+                 "plate-solved mosaic -feather": sum(
+                     c["K1e"] for c in mosaic_launches.values())}
     for var, *_ in STACK_VARIANTS:
         extra = dict(launches=stack_launches[var])
         if var == "K1e":
             extra = dict(launches=sum(k1e_paths.values()),
-                         launches_by_path=k1e_paths)
+                         launches_by_path=k1e_paths,
+                         other_sizes=mosaic_k1e)
         kernels.append(dict(name=f"reject_stack ({var})",
                             replaces=f"{tpu}:{lines[var]}", **extra,
                             **k1v[var]))

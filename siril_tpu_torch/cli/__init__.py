@@ -3,7 +3,9 @@ dir``, ``-s script.ssf`` or one command) over the ported commands
 (``cli/commands.py``): requires, cd, setext, close, load, save,
 setcompress, convert, link, calibrate, the CFA commands (split_cfa, extract_Ha,
 extract_Green, extract_HaOIII, merge_cfa and their seq… forms),
-setfindstar, register, seqapplyreg, stack and fusedstack.
+setfindstar, register, seqapplyreg, stack, fusedstack, and the astrometry
+commands (platesolve, seqplatesolve, conesearch, catsearch, show, disto,
+healpix, trixel, online, offline).
 
     python -m siril_tpu_torch.cli [-d dir] [--device cuda|cpu] \\
         -s script.ssf

@@ -6,14 +6,17 @@
 ``extract_Ha``:776, ``extract_Green``:790, ``extract_HaOIII``:802,
 ``merge_cfa``:817, ``setfindstar``:833, ``_sf_params``:874, ``register``
 :910, ``seqapplyreg``:1059, ``stack``:1197, ``_stack_args_from_flags``
-:1121, ``_seq_apply``:2684, ``seqsplit_cfa``:2792, ``seqextract_Ha``
-:2818, ``seqextract_Green``:2836, ``seqextract_HaOIII``:2846) and
+:1121, ``_get_catalog``:2288, ``platesolve``:2333, ``conesearch``:2374,
+``_seq_apply``:2684, ``seqsplit_cfa``:2792, ``seqextract_Ha``:2818,
+``seqextract_Green``:2836, ``seqextract_HaOIII``:2846, ``online``:3041,
+``offline``:3048, ``show``:3159, ``catsearch``:3185) and
 ``siril_tpu/cli/commands2.py`` (``setcompress``:134, ``seqmerge_cfa``:369,
+``seqplatesolve``:477, ``disto``:685, ``healpix``:765, ``trixel``:787,
 ``fusedstack``:836).
 
 Each command keeps the reference's name, argument order and ``-key=value``
 flags, so the standard preprocessing scripts run unchanged.  Device work
-runs on ``Session.device`` (CUDA unless "cpu").  Options that are not
+runs on ``Session.device`` (CUDA unless "cpu").  Inputs that are not
 ported raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -91,13 +94,6 @@ def _is_number(s: str) -> bool:
 
 def _f(v, default=None):
     return float(v) if v is not None and v is not True else default
-
-
-def _refuse(flags: dict, what: Dict[str, str], cmd: str) -> None:
-    for key, item in what.items():
-        if key in flags:
-            raise NotImplementedError(f"{cmd} -{key}: {item} is not ported "
-                                      "yet")
 
 
 # ===========================================================================
@@ -546,18 +542,51 @@ def _sf_params(ctx: Session):
                                max_stars=StarFinderParams().max_stars)
 
 
-_REGISTER_UNPORTED = {
-    "3stars": "1/2/3-star registration (ROADMAP §1.2, the rest of "
-              "registration: registration/threestars.py)",
-    "disto": "SIP distortion correction (ROADMAP §1.2, the rest of "
-             "registration: register -disto)",
-}
+def _disto_path(ctx: Session, flags: dict) -> str:
+    """The ``-disto=`` master's path (the session's extension added when
+    it has none), or "" without the flag."""
+    if not isinstance(flags.get("disto"), str):
+        return ""
+    p = ctx.path(flags["disto"])
+    if not os.path.splitext(p)[1]:
+        p += ctx.ext
+    if not os.path.exists(p):
+        raise CommandError(f"-disto master not found: {flags['disto']}")
+    return p
+
+
+def _register_three_stars(ctx: Session, seq, flags: dict) -> None:
+    """``register -3stars -star1=x,y [-star2=x,y] [-star3=x,y]
+    [-boxsize=n]``: the picked stars replace the reference's GUI
+    selection."""
+    from siril_tpu_torch.registration.threestars import register_three_stars
+
+    picked = []
+    for key in ("star1", "star2", "star3"):
+        v = flags.get(key)
+        if isinstance(v, str) and "," in v:
+            x, y = v.split(",", 1)
+            picked.append((float(x), float(y)))
+    if not picked:
+        raise CommandError("register -3stars needs -star1=x,y (and "
+                           "optionally -star2/-star3)")
+    t = time.perf_counter()
+    try:
+        res = register_three_stars(
+            seq, picked, layer=int(float(flags.get("layer", 0) or 0)),
+            box=int(float(flags.get("boxsize", 30) or 30)))
+    except ValueError as e:
+        raise CommandError(str(e))
+    ctx.sequence = seq
+    ctx.stages = {"follow": time.perf_counter() - t}
+    _log.info("Registration complete: %d images (3 stars)", res.registered)
 
 
 @command("register", "register sequencename [-2pass] [-noout] [-transf=] "
          "[-layer=] [-prefix=] [-minpairs=] [-maxstars=] [-interp=] "
-         "[-noclamp] [-drizzle [-scale=] [-pixfrac=] [-kernel=] [-flat=]]",
-         min_args=1)
+         "[-noclamp] [-disto=master] [-drizzle [-scale=] [-pixfrac=] "
+         "[-kernel=] [-flat=]] | register sequencename -3stars -star1=x,y "
+         "[-star2=x,y] [-star3=x,y] [-boxsize=]", min_args=1)
 def cmd_register(ctx: Session, args: List[str]) -> None:
     from siril_tpu_torch.ops.interp import INTERP_NAMES
     from siril_tpu_torch.registration.global_reg import (
@@ -572,8 +601,10 @@ def cmd_register(ctx: Session, args: List[str]) -> None:
     )
 
     pos, flags = parse_flags(args)
-    _refuse(flags, _REGISTER_UNPORTED, "register")
     seq = ctx.load_sequence(pos[0])
+    if "3stars" in flags:
+        _register_three_stars(ctx, seq, flags)
+        return
     ra = RegArgs(starfinder=_sf_params(ctx))
     ra.two_pass = "2pass" in flags
     ra.output = "noout" not in flags and not ra.two_pass
@@ -601,6 +632,7 @@ def cmd_register(ctx: Session, args: List[str]) -> None:
     if isinstance(flags.get("extref"), str):
         ra.extref = ctx.path(flags["extref"])
     ra.save_starlists = "nostarlist" not in flags
+    disto = _disto_path(ctx, flags)
     if "drizzle" in flags:
         # the transforms only, then every frame drizzled onto the output
         # grid (the Bayer-drizzle workflow)
@@ -611,6 +643,24 @@ def cmd_register(ctx: Session, args: List[str]) -> None:
                               flags)
         ctx.stages = {**stages, **ctx.stages}
         _log.info("Registration complete: %d images", int(seq.incl.sum()))
+        return
+    if disto:
+        # the transforms first, then the warp with the master's SIP
+        # distortion composed into its sampling
+        from siril_tpu_torch.registration.global_reg import (
+            ApplyRegArgs,
+            apply_reg_sequence,
+        )
+
+        ra.output = False
+        stages = dict(register_sequence(seq, ra, device=ctx.device).stage_s)
+        res = apply_reg_sequence(seq, ApplyRegArgs(
+            reglayer=ra.reglayer, prefix=ra.prefix,
+            interpolation=ra.interpolation, clamp=ra.clamp, scale=ra.scale,
+            disto_file=disto), device=ctx.device)
+        ctx.sequence = res.new_seq or seq
+        ctx.stages = {**stages, **res.stage_s}
+        _log.info("Registration complete: %d images", res.processed)
         return
     res = register_sequence(seq, ra, device=ctx.device)
     ctx.sequence = res.new_seq or seq
@@ -681,16 +731,15 @@ def _drizzle_out_sequence(ctx: Session, seq, reglayer: int, prefix: str,
     return res.new_seq
 
 
-_APPLYREG_UNPORTED = {
-    "disto": "SIP distortion correction (ROADMAP §1.2, the rest of "
-             "registration: seqapplyreg -disto)",
-}
-
-
 @command("seqapplyreg", "seqapplyreg sequencename [-framing=] [-interp=] "
-         "[-prefix=] [-layer=] [-scale=] [-noclamp] [-filter-*=] "
-         "[-drizzle [-pixfrac=] [-kernel=] [-flat=]]", min_args=1)
+         "[-prefix=] [-layer=] [-scale=] [-noclamp] [-disto=master] "
+         "[-filter-*=] [-drizzle [-pixfrac=] [-kernel=] [-flat=]]",
+         min_args=1)
 def cmd_seqapplyreg(ctx: Session, args: List[str]) -> None:
+    """Warp the selected frames by their registration; a sequence with no
+    registration data whose frames are plate-solved is registered from
+    their WCS solutions first (applyreg.c:1188-1213, the mosaic route),
+    and that registration is kept in its ``.seq``."""
     from siril_tpu_torch.core.filtering import apply_filters, filter_specs
     from siril_tpu_torch.ops.interp import INTERP_NAMES
     from siril_tpu_torch.registration.global_reg import (
@@ -700,9 +749,8 @@ def cmd_seqapplyreg(ctx: Session, args: List[str]) -> None:
     )
 
     pos, flags = parse_flags(args)
-    _refuse(flags, _APPLYREG_UNPORTED, "seqapplyreg")
     seq = ctx.load_sequence(pos[0])
-    aa = ApplyRegArgs()
+    aa = ApplyRegArgs(disto_file=_disto_path(ctx, flags))
     if isinstance(flags.get("framing"), str):
         aa.framing = FRAMING_NAMES.get(flags["framing"].lower(), aa.framing)
     if isinstance(flags.get("interp"), str):
@@ -727,14 +775,21 @@ def cmd_seqapplyreg(ctx: Session, args: List[str]) -> None:
         _drizzle_out_sequence(ctx, seq, aa.reglayer, aa.prefix or "r_",
                               flags)
         return
+    stages = {}
     if not seq.has_reg(aa.reglayer):
-        raise CommandError(
-            "no registration data in this sequence (homographies from "
-            "plate-solved frames are not ported: ROADMAP §1.2, the rest of "
-            "registration: registration/astrometric.py)")
+        from siril_tpu_torch.registration.astrometric import (
+            register_astrometric,
+        )
+
+        t = time.perf_counter()
+        if register_astrometric(seq, aa.reglayer) == 0:
+            raise CommandError("no registration data and no WCS solutions "
+                               "in this sequence")
+        seq.save()
+        stages["astrometric"] = time.perf_counter() - t
     res = apply_reg_sequence(seq, aa, device=ctx.device)
     ctx.sequence = res.new_seq or seq
-    ctx.stages = res.stage_s
+    ctx.stages = {**stages, **res.stage_s}
     _log.info("Applied registration to %d images", res.processed)
 
 
@@ -984,3 +1039,330 @@ def _upscaled(ctx: Session, seqname: str, seq, layer: int):
     up.save()
     ctx.sequence = up
     return up
+
+
+# ===========================================================================
+# astrometry: plate solving, catalogues, annotations
+# ===========================================================================
+
+
+def _get_catalog(ctx: Session, flags: dict):
+    """The catalogue of ``-catalog=``: a remote TAP catalogue by name
+    (tycho2, nomad, gaiadr3, …: recorded fixtures, or the live service
+    once ``online``), a binary Gaia ``.cat`` (HEALPix), a KStars binary
+    (``.dat`` / ``.bin``, or a Tycho / NOMAD file), else an ``.npz`` /
+    CSV catalogue; without the flag the installed local catalogue."""
+    from siril_tpu_torch.astrometry.catalog import (
+        Catalog,
+        default_catalog_path,
+    )
+    from siril_tpu_torch.astrometry.remote import (
+        TAP_CATALOGUES,
+        RemoteCatalogue,
+    )
+
+    path = flags.get("catalog") if isinstance(flags.get("catalog"), str) \
+        else default_catalog_path()
+    if isinstance(path, str) and path.lower() in TAP_CATALOGUES:
+        return RemoteCatalogue(path.lower(), online=ctx.online)
+    if path is None:
+        raise CommandError(
+            "no local catalogue available (set -catalog=file.npz/csv/.cat, "
+            "a remote name like -catalog=gaiadr3 with `online`, or "
+            "SIRIL_TPU_CATALOG)")
+    p = ctx.path(path)
+    if p.lower().endswith(".cat"):
+        from siril_tpu_torch.astrometry.gaia_local import GaiaLocalCatalogue
+
+        return GaiaLocalCatalogue(p)
+    if p.lower().endswith((".dat", ".bin")) or "tycho" in p.lower() \
+            or "nomad" in os.path.basename(p).lower():
+        from siril_tpu_torch.astrometry.kstars_local import KStarsCatalogue
+
+        try:
+            return KStarsCatalogue(p)
+        except ValueError:
+            pass
+    return Catalog.load(p)
+
+
+def _solve_args(flags: dict, radec: List[str]):
+    """SolveArgs of ``[ra dec] -focal= -pixelsize= -limitmag= -order=
+    -radius=``."""
+    from siril_tpu_torch.astrometry.solver import SolveArgs
+    from siril_tpu_torch.ops.wcs import parse_dec, parse_ra
+
+    sa = SolveArgs()
+    if len(radec) >= 2:
+        sa.ra = parse_ra(radec[0])
+        sa.dec = parse_dec(radec[1])
+    for key, attr, conv in (("focal", "focal_mm", float),
+                            ("pixelsize", "pixel_size_um", float),
+                            ("limitmag", "mag_limit", float),
+                            ("order", "sip_order", lambda v: int(float(v))),
+                            ("radius", "radius_deg", float)):
+        if key in flags:
+            setattr(sa, attr, conv(flags[key]))
+    return sa
+
+
+def _centre(img):
+    """(RA, Dec) of the image centre under its WCS."""
+    ra, dec = img.wcs.pix2world(np.array([img.width / 2.0]),
+                                np.array([img.height / 2.0]))
+    return float(ra[0]), float(dec[0])
+
+
+@command("platesolve", "platesolve [ra dec] [-focal=] [-pixelsize=] "
+         "[-catalog=] [-limitmag=] [-order=] [-radius=] [-force]")
+def cmd_platesolve(ctx: Session, args: List[str]) -> None:
+    """Plate-solve the loaded image (stars detected on the session's
+    device); its WCS is kept with the image and written by ``save``."""
+    from siril_tpu_torch.astrometry.solver import solve_image
+    from siril_tpu_torch.ops.wcs import format_dec, format_ra
+
+    pos, flags = parse_flags(args)
+    img = ctx.require_image()
+    if img.wcs is not None and "force" not in flags:
+        _log.info("image is already plate solved (use -force)")
+        return
+    stages: dict = {}
+    try:
+        res = solve_image(img, _get_catalog(ctx, flags),
+                          _solve_args(flags, pos), device=ctx.device,
+                          stages=stages)
+    except ValueError as e:
+        raise CommandError(str(e))
+    ctx.stages = stages
+    if res is None:
+        raise CommandError("plate solve failed")
+    ra_c, dec_c = _centre(img)
+    _log.info("Image center: RA %s, Dec %s", format_ra(ra_c),
+              format_dec(dec_c))
+
+
+@command("seqplatesolve", "seqplatesolve sequencename [ra dec] [-focal=] "
+         "[-pixelsize=] [-catalog=] [-limitmag=] [-order=]", min_args=1)
+def cmd_seqplatesolve(ctx: Session, args: List[str]) -> None:
+    """Plate-solve every selected frame and write its WCS into its file;
+    each solved frame's centre seeds the next (the reference's sequence
+    solve caches the catalogue and the previous solution)."""
+    from siril_tpu_torch.astrometry.solver import solve_image
+    from siril_tpu_torch.io.fits_io import write_fits
+
+    pos, flags = parse_flags(args)
+    seq = ctx.load_sequence(pos[0])
+    sa = _solve_args(flags, pos[1:3])
+    cat = _get_catalog(ctx, flags)
+    stages: dict = {}
+    solved = 0
+    for i in seq.selected_indices():
+        i = int(i)
+        img = seq.read_frame(i)
+        try:
+            res = solve_image(img, cat, sa, device=ctx.device,
+                              stages=stages)
+        except ValueError as e:
+            raise CommandError(str(e))
+        if res is None:
+            _log.warning("frame %d: plate solve failed", i + 1)
+            continue
+        p = seq.frame_path(i)
+        if p is not None:
+            t = time.perf_counter()
+            write_fits(img, p, bitdepth=img.orig_bitdepth)
+            stages["write"] = stages.get("write", 0.0) + \
+                time.perf_counter() - t
+        solved += 1
+        sa.ra, sa.dec = _centre(img)
+    ctx.sequence = seq
+    ctx.stages = stages
+    _log.info("seqplatesolve: %d/%d frames solved", solved, seq.number)
+
+
+@command("conesearch", "conesearch [limit_mag] [-catalog=] [-out=]")
+def cmd_conesearch(ctx: Session, args: List[str]) -> int:
+    """The catalogue stars in the solved image's field (a cone of ⅔ of
+    its diagonal field); ``-out=`` writes them as CSV.  Returns their
+    count."""
+    pos, flags = parse_flags(args)
+    img = ctx.require_image()
+    if img.wcs is None:
+        raise CommandError("image is not plate solved")
+    mag = float(pos[0]) if pos else 13.0
+    w = img.wcs
+    ra_c, dec_c = _centre(img)
+    fov = w.pixel_scale_arcsec * max(img.width, img.height) / 3600.0
+    cone = _get_catalog(ctx, flags).cone_search(ra_c, dec_c, fov / 1.5, mag)
+    xs, ys = w.world2pix(cone.ra, cone.dec)
+    inside = [k for k in range(len(cone))
+              if 0 <= xs[k] < img.width and 0 <= ys[k] < img.height]
+    _log.info("%d catalogue objects in the field (of %d in cone)",
+              len(inside), len(cone))
+    out = flags.get("out")
+    if isinstance(out, str):
+        with open(ctx.path(out), "w") as f:
+            f.write("ra,dec,mag,x,y\n")
+            for k in inside:
+                f.write(f"{cone.ra[k]:.6f},{cone.dec[k]:.6f},"
+                        f"{cone.mag[k]:.3f},{xs[k]:.2f},{ys[k]:.2f}\n")
+        _log.info("catalogue written to %s", out)
+    return len(inside)
+
+
+@command("catsearch", "catsearch name", min_args=1)
+def cmd_catsearch(ctx: Session, args: List[str]):
+    """An object by name: the local annotation catalogues, else SIMBAD
+    (recorded fixtures, or the live service once ``online``).  Returns
+    (RA, Dec, name)."""
+    from siril_tpu_torch.astrometry.annotations import find_object
+    from siril_tpu_torch.astrometry.remote import (
+        TransportError,
+        search_object,
+    )
+    from siril_tpu_torch.ops.wcs import format_dec, format_ra
+
+    name = " ".join(args)
+    a = find_object(name)
+    if a is not None:
+        hit = (a.ra, a.dec, a.name)
+    else:
+        try:
+            hit = search_object(name, online=ctx.online)
+        except TransportError as e:
+            raise CommandError(f"object '{name}' not found locally and "
+                               f"remote lookup unavailable ({e})")
+        if hit is None:
+            raise CommandError(f"object '{name}' not found")
+    _log.info("%s: RA %s, Dec %s", hit[2], format_ra(hit[0]),
+              format_dec(hit[1]))
+    return hit
+
+
+@command("show", "show [name]")
+def cmd_show(ctx: Session, args: List[str]):
+    """The annotation catalogues' objects in the solved image (returned),
+    or one object by name and its pixel."""
+    from siril_tpu_torch.astrometry.annotations import (
+        annotate_image,
+        find_object,
+    )
+
+    img = ctx.require_image()
+    if args:
+        a = find_object(args[0])
+        if a is None:
+            raise CommandError(f"object '{args[0]}' not found in local "
+                               "catalogues")
+        if img.wcs is not None:
+            x, y = img.wcs.world2pix(np.array([a.ra]), np.array([a.dec]))
+            a.x, a.y = float(x[0]), float(y[0])
+            _log.info("%s: RA=%.4f Dec=%.4f → pixel (%.1f, %.1f)", a.name,
+                      a.ra, a.dec, a.x, a.y)
+        else:
+            _log.info("%s: RA=%.4f Dec=%.4f", a.name, a.ra, a.dec)
+        return [a]
+    try:
+        anns = annotate_image(img)
+    except ValueError as e:
+        raise CommandError(str(e))
+    for a in anns:
+        _log.info("%s at (%.1f, %.1f)", a.name, a.x, a.y)
+    _log.info("%d annotation(s) in field", len(anns))
+    return anns
+
+
+@command("disto", "disto [clear]")
+def cmd_disto(ctx: Session, args: List[str]):
+    """The solved image's SIP distortion on a 9 × 9 grid: returns (max,
+    mean) of its amplitude in pixels, or None without SIP terms.  The
+    polynomials are evaluated in ``WCS.pix2world``'s frame (FITS
+    bottom-up v); the JAX command evaluates them at top-down offsets
+    from CRPIX (ROADMAP §3)."""
+    from siril_tpu_torch.ops.wcs import _sip_eval, sip_frame
+
+    img = ctx.require_image()
+    if args and args[0] == "clear":
+        _log.info("distortion display disabled")
+        return None
+    w = img.wcs
+    if w is None:
+        raise CommandError("image is not plate solved")
+    if w.sip_a is None:
+        _log.info("No distortion terms in the WCS solution")
+        return None
+    gx, gy = np.meshgrid(np.linspace(0, img.width - 1, 9),
+                         np.linspace(0, img.height - 1, 9))
+    x0, y0, ysign = sip_frame(w.crpix, w.height)
+    u, v = gx - x0, ysign * (gy - y0)
+    amp = np.hypot(_sip_eval(w.sip_a, u, v), _sip_eval(w.sip_b, u, v))
+    _log.info("Distortion field: max %.2f px, mean %.2f px (SIP order %d)",
+              amp.max(), amp.mean(), w.sip_a.shape[0] - 1)
+    return float(amp.max()), float(amp.mean())
+
+
+@command("healpix", "healpix")
+def cmd_healpix(ctx: Session, args: List[str]):
+    """The NESTED HEALPix pixels (order 8, grouped by order-1 parent) that
+    the solved image covers; returns the order-8 pixels."""
+    from siril_tpu_torch.astrometry.healpix import (
+        image_footprint_pixels,
+        nest_parent,
+    )
+
+    img = ctx.require_image()
+    if img.wcs is None:
+        raise CommandError("image is not plate solved")
+    pix8 = image_footprint_pixels(img.wcs, img.width, img.height, 256)
+    parents = nest_parent(pix8, 8, 1)
+    _log.info("HEALPix NESTED coverage: %d level-1 pixel(s), %d level-8 "
+              "pixel(s)", len(np.unique(parents)), len(pix8))
+    for p1 in np.unique(parents):
+        kids = pix8[parents == p1]
+        _log.info("  level1 %d: level8 %s%s", int(p1),
+                  ", ".join(str(int(k)) for k in kids[:32]),
+                  " …" if len(kids) > 32 else "")
+    return pix8
+
+
+@command("trixel", "trixel [-p]")
+def cmd_trixel(ctx: Session, args: List[str]):
+    """The level-3 HTM trixels the solved image covers (returned); ``-p``
+    writes every star of the catalogue with its trixel to
+    ``trixels.csv``."""
+    from siril_tpu_torch.astrometry.healpix import (
+        image_footprint_trixels,
+        radec_to_htm,
+    )
+
+    _, flags = parse_flags(args)
+    if "p" in flags:
+        cat = _get_catalog(ctx, {})
+        ids = radec_to_htm(cat.ra, cat.dec, 3)
+        with open(ctx.path("trixels.csv"), "w") as f:
+            f.write("trixel,ra,dec,mag\n")
+            for i in np.argsort(ids):
+                f.write(f"{int(ids[i])},{cat.ra[i]:.6f},{cat.dec[i]:.6f},"
+                        f"{cat.mag[i]:.3f}\n")
+        _log.info("trixels.csv written (%d stars)", len(ids))
+        return ids
+    img = ctx.require_image()
+    if img.wcs is None:
+        raise CommandError("image is not plate solved")
+    trix = image_footprint_trixels(img.wcs, img.width, img.height, 3)
+    _log.info("%d level-3 trixels visible: %s", len(trix),
+              " ".join(str(int(t)) for t in trix))
+    return trix
+
+
+@command("online", "online")
+def cmd_online(ctx: Session, args: List[str]) -> None:
+    ctx.online = True
+    _log.info("online mode: remote catalogues enabled (TAP cone search, "
+              "SIMBAD object lookup)")
+
+
+@command("offline", "offline")
+def cmd_offline(ctx: Session, args: List[str]) -> None:
+    ctx.online = False
+    _log.info("offline mode (local catalogues only)")

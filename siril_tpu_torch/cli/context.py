@@ -1,8 +1,9 @@
 """CLI session state — counterpart of ``siril_tpu/cli/context.py``
 (``Session``:17, ``require_image``:44, ``set_image``:59,
-``load_sequence``:86, ``CommandError``:118): the working directory, the
-FITS extension, the star-finder preferences, the FITS compression of
-``save`` (``setcompress``), the loaded image and its name, the current
+``_find_film``:73, ``load_sequence``:86, ``CommandError``:118): the
+working directory, the FITS extension, the star-finder preferences, the
+FITS compression of ``save`` (``setcompress``), whether remote catalogues
+may be queried (``online``), the loaded image and its name, the current
 sequence and the last result of a headless run.
 (The reference's undo stack is not ported: ROADMAP §1.7, the surfaces.)
 """
@@ -35,6 +36,9 @@ class Session:
     #: setcompress: the tile codec of ``save`` ("rice", "gzip1", "gzip2"),
     #: or None for uncompressed files
     compression: Optional[str] = None
+    #: ``online`` / ``offline``: the live TAP / SIMBAD transport may run
+    #: (recorded fixtures serve queries either way)
+    online: bool = False
     sequence: Optional[Sequence] = None
     image: Optional[SirilImage] = None
     image_name: str = ""
@@ -57,11 +61,22 @@ class Session:
     def path(self, name: str) -> str:
         return name if os.path.isabs(name) else os.path.join(self.cwd, name)
 
+    def _find_film(self, base: str) -> Optional[str]:
+        """A film by its name, with or without its extension."""
+        from siril_tpu_torch.io.films import FILM_EXTENSIONS, is_film
+
+        if is_film(base) and os.path.exists(self.path(base)):
+            return self.path(base)
+        for e in FILM_EXTENSIONS:
+            if os.path.exists(self.path(base + e)):
+                return self.path(base + e)
+        return None
+
     def load_sequence(self, name: str) -> Sequence:
         """A sequence by name: its ``.seq`` sidecar (also ``name_.seq``,
-        the converted name), a ``.ser`` video, else a scan of
-        ``name%05d.fit`` files."""
-        from siril_tpu_torch.io.conversion import FILM_EXT
+        the converted name), a ``.ser`` video, a film (an uncompressed AVI
+        read by the port itself, any other film through OpenCV), else a
+        scan of ``name%05d.fit`` files."""
         from siril_tpu_torch.io.seqfile import read_seqfile
 
         base = name[:-4] if name.endswith(".seq") else name
@@ -73,10 +88,8 @@ class Session:
         elif os.path.exists(self.path(base + ".ser")) or name.endswith(".ser"):
             seq = Sequence.from_ser(self.path(
                 name if name.endswith(".ser") else base + ".ser"))
-        elif any(os.path.exists(self.path(base + e)) for e in FILM_EXT):
-            raise NotImplementedError(
-                f"{name}: film sequences are not ported yet (ROADMAP §1.1, "
-                "films and AVI)")
+        elif self._find_film(base) is not None:
+            seq = Sequence.from_film(self._find_film(base))
         else:
             try:
                 seq = Sequence.scan(base, self.cwd)

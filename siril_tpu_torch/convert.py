@@ -4,7 +4,7 @@ port.  There are no learned weights: what crosses is configuration
 ``StarFinderParams``, ``CalibArgs`` and ``RegArgs``;
 ``dataclasses.asdict`` of the port's own dataclasses goes back), the
 calibration masters inside ``CalibArgs`` (``SirilImage`` as a dict: data,
-keywords, bit depth, history) and per-frame data (``NormCoeffs`` arrays,
+keywords, bit depth, history, WCS) and per-frame data (``NormCoeffs`` arrays,
 a sequence's registration data, the GESDT λ table), as plain dicts and
 numpy arrays.  This module imports nothing of the JAX package.
 """
@@ -46,14 +46,19 @@ def starfinder_params(d: Mapping) -> StarFinderParams:
 def siril_image(d: Mapping) -> SirilImage:
     """An image dict (``dataclasses.asdict`` of either package's
     SirilImage) → the port's SirilImage: its data, the keywords the port
-    keeps, the bit depth and the history; the JAX package's other fields
-    (header text, mask, WCS, ICC profile) stay behind."""
+    keeps, the bit depth, the history and the plate solution (``wcs``,
+    as the port's ``ops.wcs.WCS``); the JAX package's other fields
+    (header text, mask, ICC profile) stay behind."""
+    from siril_tpu_torch.ops.wcs import WCS
+
     names = {f.name for f in dataclasses.fields(Keywords)}
     kw = Keywords(**{k: v for k, v in dict(d.get("keywords") or {}).items()
                      if k in names})
+    w = d.get("wcs")
     return SirilImage(data=np.asarray(d["data"], np.float32), keywords=kw,
                       orig_bitdepth=int(d["orig_bitdepth"]),
-                      history=list(d.get("history") or []))
+                      history=list(d.get("history") or []),
+                      wcs=_build(WCS, w) if w is not None else None)
 
 
 def calib_args(d: Mapping) -> CalibArgs:

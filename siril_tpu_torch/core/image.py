@@ -1,7 +1,9 @@
 """Image container — counterpart of ``siril_tpu/core/image.py``.
 
 A trimmed copy: the fields and keywords the ported commands read and
-write (``_finalize_metadata``, calibration, the FITS boundary).  Pixel data is a
+write (``_finalize_metadata``, calibration, the FITS boundary) and the
+plate solution (``wcs``: an ``ops.wcs.WCS`` or None, shared by copies as
+in the JAX package, ``core/image.py:119, 186-198``).  Pixel data is a
 planar (C, H, W) float32 numpy array in Siril's [0, 1] convention.
 """
 
@@ -33,6 +35,7 @@ class Keywords:
     bzero: float = 0.0
     program: str = ""
     filename: str = ""
+    pixel_size_x: float = 0.0
     row_order: str = ""
     date: Optional[str] = None
     date_obs: Optional[str] = None
@@ -45,6 +48,7 @@ class Keywords:
     bayer_pattern: str = ""
     bayer_xoffset: int = 0
     bayer_yoffset: int = 0
+    focal_length: float = 0.0
     exposure: float = 0.0
     livetime: float = 0.0
     stackcnt: int = 0
@@ -67,6 +71,7 @@ class SirilImage:
     keywords: Keywords = field(default_factory=Keywords)
     orig_bitdepth: int = FLOAT_IMG
     history: list = field(default_factory=list)
+    wcs: Optional[Any] = None
 
     @property
     def nchans(self) -> int:
@@ -89,11 +94,11 @@ class SirilImage:
 
     def copy(self, data: Any = None) -> "SirilImage":
         """A copy with ``data`` (default: a copy of this data); keywords
-        and history copied, bit depth kept (``SirilImage.copy``)."""
+        and history copied, bit depth and WCS kept (``SirilImage.copy``)."""
         d = data if data is not None else np.array(self.data)
         return SirilImage(data=d, keywords=self.keywords.copy(),
                           orig_bitdepth=self.orig_bitdepth,
-                          history=list(self.history))
+                          history=list(self.history), wcs=self.wcs)
 
     def log_history(self, msg: str) -> None:
         self.history.append(msg)

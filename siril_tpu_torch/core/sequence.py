@@ -1,17 +1,18 @@
 """Sequence model — counterpart of ``siril_tpu/core/sequence.py``
 (RegData:46, from_files:110, from_ser:131, from_fitseq:150, scan:193,
-read_frame:233, read_frame_metadata:252, open_reader:282, read_region:300,
+from_film:173, read_frame:233, read_frame_metadata:252, open_reader:282,
+read_region:300,
 close_readers:307, selection and reference :316-332, reg:337, the
 per-frame stats store :345-364, seqfile_path:369, save:372) and of the raw
 chunk reader ``siril_tpu/pipeline.py:501``.
 
-Three kinds of sequence: REGULAR (one FITS file per frame, compressed
-``.fit.fz`` files included), SER (one ``.ser`` video) and FITSEQ (a FITS
-cube, one HDU per frame), with what a ``.seq`` sidecar keeps
-(``io/seqfile.py``): file numbers, the selection, the reference, the
-frame sizes of a variable-size sequence, per-layer registration data and
-per-frame statistics.  Film sequences are not ported yet (ROADMAP §1.1,
-films and AVI).
+Four kinds of sequence: REGULAR (one FITS file per frame, compressed
+``.fit.fz`` files included), SER (one ``.ser`` video), FITSEQ (a FITS
+cube, one HDU per frame) and AVI (a film: an uncompressed AVI through
+``io/avi.py``, any other through OpenCV, ``io/films.py``), with what a
+``.seq`` sidecar keeps (``io/seqfile.py``): file numbers, the selection,
+the reference, the frame sizes of a variable-size sequence, per-layer
+registration data and per-frame statistics.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from siril_tpu_torch.core.image import Keywords, SirilImage
 SEQ_REGULAR = 0
 SEQ_SER = 1
 SEQ_FITSEQ = 2
+SEQ_AVI = 3
 
 # statistic columns of the (N, 14) per-layer stats store (io/seqfile.c:825)
 STAT_COLS = ("total", "ngoodpix", "mean", "median", "sigma", "avgdev", "mad",
@@ -98,6 +100,7 @@ class Sequence:
         self._file_list: List[str] = []
         self._ser = None                 # SerFile of a SER sequence
         self._fitseq_path: Optional[str] = None
+        self._film = None                # AviReader / FilmReader of a film
         #: D/O/E cards of a read .seq, written back unchanged
         self._opaque_cards: List[str] = []
 
@@ -152,6 +155,24 @@ class Sequence:
         seq.incl = np.ones(seq.number, dtype=bool)
         return seq
 
+    @staticmethod
+    def from_film(path: str) -> "Sequence":
+        """The frames of a film (SEQ_AVI, io/films.c film_struct):
+        ``io/films.open_film`` reads an uncompressed AVI itself and any
+        other film through OpenCV."""
+        from siril_tpu_torch.io.films import open_film
+
+        film = open_film(path)
+        seq = Sequence(os.path.splitext(os.path.basename(path))[0],
+                       os.path.dirname(path) or ".", SEQ_AVI)
+        seq._film = film
+        seq.number = film.nframes
+        seq.rx, seq.ry = film.w, film.h
+        seq.nb_layers = film.nchans
+        seq.filenum = np.arange(seq.number, dtype=np.int64)
+        seq.incl = np.ones(seq.number, dtype=bool)
+        return seq
+
     def _probe_geometry(self) -> None:
         from siril_tpu_torch.io.fits_io import image_hdus, zimage_hdus
 
@@ -193,6 +214,12 @@ class Sequence:
         seq.fz = all(f.endswith(".fz") for f in seq._file_list)
         return seq
 
+    def frame_path(self, index: int) -> Optional[str]:
+        """The file of frame ``index`` of a sequence of files, else None."""
+        if self.seq_type == SEQ_REGULAR:
+            return self._file_list[index]
+        return None
+
     def read_frame(self, index: int) -> SirilImage:
         from siril_tpu_torch.io.fits_io import read_fits
 
@@ -200,6 +227,8 @@ class Sequence:
             img = self._ser.read_frame(index)
         elif self.seq_type == SEQ_FITSEQ:
             img = read_fits(self._fitseq_path, hdu_index=index)
+        elif self.seq_type == SEQ_AVI:
+            img = self._film.read_frame(index)
         else:
             img = read_fits(self._file_list[index])
         if self.nb_layers < 0:
@@ -223,6 +252,8 @@ class Sequence:
             if h.timestamps and index < len(h.timestamps):
                 kw.date_obs = ticks_to_iso(h.timestamps[index])
             return kw
+        if self.seq_type == SEQ_AVI:
+            return Keywords()
         if self.seq_type == SEQ_FITSEQ:
             hdus = image_hdus(self._fitseq_path)
             return header_to_keywords(hdus[index].header) \
@@ -234,9 +265,9 @@ class Sequence:
     def open_reader(self, index: int):
         """The cached random-access reader of frame ``index`` (files and
         FITS cubes)."""
-        if self.seq_type == SEQ_SER:
-            raise ValueError("open_reader: a SER sequence has no FITS "
-                             "reader")
+        if self.seq_type in (SEQ_SER, SEQ_AVI):
+            raise ValueError("open_reader: a SER or film sequence has no "
+                             "FITS reader")
         with self._reader_lock:
             r = self._readers.get(index)
             if r is None:
@@ -254,6 +285,8 @@ class Sequence:
         [0, 1] float32 (seq_opened_read_region, io/sequence.c:1282)."""
         if self.seq_type == SEQ_SER:
             return self._ser.read_region(chan, index, y0, y1)
+        if self.seq_type == SEQ_AVI:
+            return self.read_frame(index).host()[chan, y0:y1]
         return self.open_reader(index).read_region(chan, y0, y1)
 
     def close_readers(self) -> None:

@@ -2,14 +2,16 @@
 (``load_any``:26, ``convert_to_sequence``:106, ``_read_item``:213;
 reference ``src/io/conversion.c``).
 
-Inputs: FITS files (``.fit.fz`` included) and SER videos, whose frames
-are expanded.  ``convert`` rewrites them as ``name_00001.fit`` … and the
-``.seq`` (with ``-debayer``, a CFA frame demosaiced on ``device`` first:
-three layers, or half size with super-pixel), or as one ``name_.ser``
-video (``-ser``) or one FITS cube ``name_.fit`` (``-fitseq``); ``link``
-symlinks FITS files (FITS_symlink.c).  Films raise
-``NotImplementedError`` (ROADMAP §1.1, films and AVI), and so do camera
-raw and PIL images (§1.3, image formats for convert).
+Inputs: FITS files (``.fit.fz`` included), SER videos and films (an
+uncompressed AVI through ``io/avi.py``; any other film, a compressed AVI
+included, through OpenCV, which raises where it is not installed, as in
+the JAX package), whose frames are expanded.  ``convert`` rewrites them
+as ``name_00001.fit`` … and the ``.seq`` (with ``-debayer``, a CFA frame
+demosaiced on ``device`` first: three layers, or half size with
+super-pixel), or as one ``name_.ser`` video (``-ser``) or one FITS cube
+``name_.fit`` (``-fitseq``); ``link`` symlinks FITS files
+(FITS_symlink.c).  Camera raw and PIL images raise
+``NotImplementedError`` (ROADMAP §1.3, image formats for convert).
 """
 
 from __future__ import annotations
@@ -25,12 +27,12 @@ from siril_tpu_torch.device import DeviceLike
 _log = logging.getLogger(__name__)
 
 FITS_EXT = (".fit", ".fits", ".fts")
-FILM_EXT = (".avi", ".mp4", ".mov", ".mkv", ".webm", ".mpg", ".mpeg")
 
 
 def load_any(path: str) -> SirilImage:
     """Read a single image file: FITS (compressed too), or a SER video's
-    first frame."""
+    first frame.  A film is not an image: the JAX package refuses it too
+    (``siril_tpu/io/conversion.py:103``); ``convert`` expands it."""
     ext = os.path.splitext(path)[1].lower()
     if ext in FITS_EXT or path.lower().endswith((".fit.fz", ".fits.fz")):
         from siril_tpu_torch.io.fits_io import read_fits
@@ -40,10 +42,11 @@ def load_any(path: str) -> SirilImage:
         from siril_tpu_torch.io.ser import SerFile
 
         return SerFile(path).read_frame(0)
-    if ext in FILM_EXT:
-        raise NotImplementedError(
-            f"{path}: film inputs are not ported yet (ROADMAP §1.1, films "
-            "and AVI)")
+    from siril_tpu_torch.io.films import is_film
+
+    if is_film(path):
+        raise ValueError(f"unsupported input format: {path} (a film: "
+                         "convert it, or open it as a sequence)")
     raise NotImplementedError(
         f"{path}: only FITS and SER inputs are ported; camera raw, "
         "TIFF/PNG/JPEG and the other formats are not yet (ROADMAP §1.3, "
@@ -51,11 +54,15 @@ def load_any(path: str) -> SirilImage:
 
 
 def _read_item(item: Tuple[str, Optional[int]], debayer: bool,
-               device: DeviceLike) -> SirilImage:
-    """A file, or frame ``sub`` of a SER video, demosaiced on ``device``
-    with ``debayer`` when it is a CFA frame."""
+               device: DeviceLike, films: Optional[dict] = None
+               ) -> SirilImage:
+    """A file, or frame ``sub`` of a SER video or of a film (its open
+    reader in ``films``), demosaiced on ``device`` with ``debayer`` when
+    it is a CFA frame."""
     src, sub = item
-    if sub is not None:
+    if sub is not None and films and src in films:
+        img = films[src].read_frame(sub)
+    elif sub is not None:
         from siril_tpu_torch.io.ser import SerFile
 
         img = SerFile(src).read_frame(sub)
@@ -74,8 +81,9 @@ def convert_to_sequence(inputs: Seq[str], dest_name: str,
                         debayer: bool = False,
                         device: DeviceLike = None) -> Sequence:
     """``convert`` / ``link`` (conversion.c convert worker): the inputs,
-    each SER video's frames expanded (unless the output is a SER video,
-    which takes each input's first frame, as the JAX package does), →
+    each film's frames and each SER video's expanded (a SER video's
+    unless the output is a SER video, which takes each input's first
+    frame, as the JAX package does), →
     ``dest_name%05d.fit`` files and their ``.seq`` (``output`` "fits"),
     one ``dest_name.ser`` ("ser", 16-bit) or one FITS cube
     ``dest_name.fit`` and its ``.seq`` ("fitseq", at the first frame's bit
@@ -92,24 +100,30 @@ def convert_to_sequence(inputs: Seq[str], dest_name: str,
     # '_', '-' or a digit → light → light_00001
     if dest_name and dest_name[-1] not in "_-0123456789":
         dest_name = dest_name + "_"
+    from siril_tpu_torch.io.films import is_film, open_film
+
     expanded: List[Tuple[str, Optional[int]]] = []
+    films = {}
     for p in inputs:
         if p.lower().endswith(".ser") and output != "ser":
             from siril_tpu_torch.io.ser import SerFile
 
             expanded.extend((p, i) for i in range(SerFile(p).frame_count))
+        elif is_film(p):
+            films[p] = open_film(p)
+            expanded.extend((p, i) for i in range(films[p].nframes))
         else:
             expanded.append((p, None))
 
     if output == "ser":
         from siril_tpu_torch.io.ser import SER_MONO, SER_RGB, SerWriter
 
-        first = _read_item(expanded[0], debayer, device)
+        first = _read_item(expanded[0], debayer, device, films)
         out_path = os.path.join(directory, dest_name + ".ser")
         w = SerWriter(out_path, first.width, first.height,
                       SER_RGB if first.nchans == 3 else SER_MONO, 16)
         for item in expanded:
-            w.write_frame(_read_item(item, debayer, device))
+            w.write_frame(_read_item(item, debayer, device, films))
         w.close()
         _log.info("Converted %d frames to %s", len(expanded), out_path)
         return Sequence.from_ser(out_path)
@@ -117,10 +131,10 @@ def convert_to_sequence(inputs: Seq[str], dest_name: str,
         from siril_tpu_torch.io.fits_io import FitseqWriter
 
         out_path = os.path.join(directory, dest_name + ".fit")
-        first = _read_item(expanded[0], debayer, device)
+        first = _read_item(expanded[0], debayer, device, films)
         w = FitseqWriter(out_path, bitdepth=first.orig_bitdepth)
         for item in expanded:
-            w.append(_read_item(item, debayer, device))
+            w.append(_read_item(item, debayer, device, films))
         w.close()
         _log.info("Converted %d frames to the FITS cube %s", len(expanded),
                   out_path)
@@ -142,7 +156,7 @@ def convert_to_sequence(inputs: Seq[str], dest_name: str,
         else:
             from siril_tpu_torch.io.fits_io import write_fits
 
-            write_fits(_read_item(item, debayer, device), out)
+            write_fits(_read_item(item, debayer, device, films), out)
         files.append(out)
     _log.info("Converted %d files to sequence %s", len(files), dest_name)
     seq = Sequence.from_files(files, name=dest_name, directory=directory)

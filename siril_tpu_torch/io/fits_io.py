@@ -6,7 +6,11 @@ Reads image HDUs of BITPIX 8, 16 (u16 through BZERO 32768), 32, -32 and
 -64, the image extensions of a FITS cube (``hdu_index``), and tiled
 compressed (ZIMAGE, ``.fit.fz``) extensions (``io/fits_compress.py``).
 Writes BITPIX 8, 16 and -32 (a -64 image is written as -32), optionally
-tile-compressed (``setcompress``).  FITS rows are stored bottom-up unless
+tile-compressed (``setcompress``).  A celestial WCS in a header becomes
+the image's ``wcs`` (``ops/wcs.WCS.from_header``) and its cards leave
+``Keywords.extra``; ``write_fits`` writes ``wcs.to_cards()`` after the
+keywords, in plain and compressed files alike (the JAX package keeps
+the read cards in ``extra`` too and writes them twice).  FITS rows are stored bottom-up unless
 ROWORDER='TOP-DOWN'; the in-memory convention is top-down (row 0 = top).
 """
 
@@ -245,6 +249,7 @@ def _raw_to_float01(raw: np.ndarray, bitpix: int, bzero: float,
 _KEYMAP = {
     "PROGRAM": "program",
     "FILENAME": "filename",
+    "XPIXSZ": "pixel_size_x",
     "ROWORDER": "row_order",
     "DATE": "date",
     "DATE-OBS": "date_obs",
@@ -257,6 +262,7 @@ _KEYMAP = {
     "BAYERPAT": "bayer_pattern",
     "XBAYROFF": "bayer_xoffset",
     "YBAYROFF": "bayer_yoffset",
+    "FOCALLEN": "focal_length",
     "EXPTIME": "exposure",
     "LIVETIME": "livetime",
     "STACKCNT": "stackcnt",
@@ -296,6 +302,27 @@ def header_to_keywords(hdr: Header) -> Keywords:
     return kw
 
 
+#: header keys of a WCS (``siril_tpu/io/fits_io.py:356``): dropped from
+#: ``Keywords.extra`` when the header holds a celestial WCS, which
+#: ``write_fits`` writes back from the image's ``wcs``
+_WCS_KEYS_PREFIX = ("CRPIX", "CRVAL", "CDELT", "CD1_", "CD2_", "PC1_",
+                    "PC2_", "CTYPE", "CUNIT", "CROTA", "EQUINOX", "A_",
+                    "B_", "AP_", "BP_", "PLTSOLVD")
+
+
+def _with_wcs(img: SirilImage, hdr: Header) -> SirilImage:
+    """Attach the header's celestial WCS, if any, and take its cards out
+    of the keywords."""
+    from siril_tpu_torch.ops.wcs import WCS
+
+    w = WCS.from_header(hdr)
+    if w is not None:
+        img.wcs = w
+        img.keywords.extra = {k: v for k, v in img.keywords.extra.items()
+                              if not k.startswith(_WCS_KEYS_PREFIX)}
+    return img
+
+
 def keywords_to_cards(kw: Keywords) -> List[Tuple[str, object, str]]:
     cards = []
     defaults = Keywords()
@@ -309,6 +336,13 @@ def keywords_to_cards(kw: Keywords) -> List[Tuple[str, object, str]]:
     return cards
 
 
+#: the table and compression cards of a ZIMAGE extension: not the
+#: image's keywords, so that a decoded image saves as a plain image
+_ZIMAGE_KEYS = ("TFIELDS", "TTYPE", "TFORM", "ZIMAGE", "ZCMPTYPE",
+                "ZBITPIX", "ZNAXIS", "ZTILE", "ZNAME", "ZVAL", "ZZERO",
+                "ZSCALE", "ZQUANTIZ", "ZDITHER", "ZBLANK")
+
+
 def _read_zimage(path, h: HDUInfo) -> SirilImage:
     """Decode a tile-compressed image extension."""
     from siril_tpu_torch.io.fits_compress import read_compressed_hdu
@@ -319,9 +353,13 @@ def _read_zimage(path, h: HDUInfo) -> SirilImage:
     data, zbitpix = read_compressed_hdu(buf, h.header)
     if h.header.row_order() != "TOP-DOWN":
         data = np.ascontiguousarray(data[:, ::-1, :])
-    return SirilImage(data=data, keywords=header_to_keywords(h.header),
-                      orig_bitdepth=zbitpix if zbitpix != 16 else USHORT_IMG,
-                      history=h.header.history())
+    kw = header_to_keywords(h.header)
+    kw.extra = {k: v for k, v in kw.extra.items()
+                if not k.startswith(_ZIMAGE_KEYS)}
+    return _with_wcs(SirilImage(
+        data=data, keywords=kw,
+        orig_bitdepth=zbitpix if zbitpix != 16 else USHORT_IMG,
+        history=h.header.history()), h.header)
 
 
 def read_fits(path: Union[str, os.PathLike], hdu_index: int = 0
@@ -342,11 +380,11 @@ def read_fits(path: Union[str, os.PathLike], hdu_index: int = 0
     data = _raw_to_float01(raw, h.bitpix, h.bzero, h.bscale)
     if h.header.row_order() != "TOP-DOWN":
         data = data[:, ::-1, :]
-    return SirilImage(
+    return _with_wcs(SirilImage(
         data=np.ascontiguousarray(data, dtype=np.float32),
         keywords=header_to_keywords(h.header),
         orig_bitdepth=h.bitpix if h.bitpix != 16 else USHORT_IMG,
-        history=h.header.history())
+        history=h.header.history()), h.header)
 
 
 def _encode(data: np.ndarray, bd: int):
@@ -392,7 +430,10 @@ def write_fits(img: SirilImage, path: Union[str, os.PathLike],
     kw = img.keywords.copy()
     kw.row_order = row_order.upper()
     kw.program = kw.program or "siril_tpu"
-    meta = keywords_to_cards(kw) + [("HISTORY", h, "") for h in img.history]
+    meta = keywords_to_cards(kw)
+    if img.wcs is not None:
+        meta += img.wcs.to_cards()
+    meta += [("HISTORY", h, "") for h in img.history]
     if compression:
         from siril_tpu_torch.io.fits_compress import (
             CMPTYPES,

@@ -12,9 +12,10 @@ writeseqfile:720).  Cards:
   D/O/E cards — kept as opaque lines and written back unchanged.
 
 Sequences of FITS files (of one size, or of each frame's own size;
-``.fit.fz`` files when the fz flag is set), of a ``.ser`` video (``TS``)
-and of a FITS cube (``TF``).  A film sidecar (``TA``) raises
-``NotImplementedError`` naming its ROADMAP item.
+``.fit.fz`` files when the fz flag is set), of a ``.ser`` video (``TS``),
+of a FITS cube (``TF``) and of a film (``TA``: ``name`` + a film
+extension beside the ``.seq``; the JAX package reads ``TA`` as a
+sequence of files).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Optional
 import numpy as np
 
 from siril_tpu_torch.core.sequence import (
+    SEQ_AVI,
     SEQ_FITSEQ,
     SEQ_SER,
     STAT_COLS,
@@ -34,7 +36,7 @@ from siril_tpu_torch.core.sequence import (
 
 CURRENT_SEQFILE_VERSION = 7
 
-_TYPE_CARDS = {"S": SEQ_SER, "F": SEQ_FITSEQ}
+_TYPE_CARDS = {"S": SEQ_SER, "F": SEQ_FITSEQ, "A": SEQ_AVI}
 
 
 def read_seqfile(path: str) -> Sequence:
@@ -70,9 +72,7 @@ def read_seqfile(path: str) -> Sequence:
             elif c0 == "T" and seq is not None:
                 t = line[1] if len(line) > 1 else "F"
                 if t not in _TYPE_CARDS:
-                    raise NotImplementedError(
-                        f"{path}: film sequences are not ported yet "
-                        "(ROADMAP §1.1, films and AVI)")
+                    raise ValueError(f"{path}: unknown sequence type T{t}")
                 seq.seq_type = _TYPE_CARDS[t]
             elif c0 == "L" and seq is not None:
                 seq.nb_layers = int(line[1:].split()[0])
@@ -132,6 +132,19 @@ def _attach_backing_store(seq: Sequence) -> None:
             seq.nb_layers = seq._ser.nchans
         seq.rx, seq.ry = seq._ser.width, seq._ser.height
         return
+    if seq.seq_type == SEQ_AVI:
+        from siril_tpu_torch.io.films import FILM_EXTENSIONS, open_film
+
+        for ext in FILM_EXTENSIONS:
+            p = os.path.join(seq.directory, seq.name + ext)
+            if os.path.exists(p):
+                seq._film = open_film(p)
+                seq.nb_layers, seq.rx, seq.ry = (seq._film.nchans,
+                                                 seq._film.w, seq._film.h)
+                return
+        raise FileNotFoundError(
+            f"no film {seq.name}{{{','.join(FILM_EXTENSIONS)}}} in "
+            f"{seq.directory}")
     if seq.seq_type == SEQ_FITSEQ:
         for ext in (".fit", ".fits", ".fts"):
             p = os.path.join(seq.directory, seq.name + ext)
@@ -174,6 +187,8 @@ def write_seqfile(seq: Sequence, path: Optional[str] = None) -> None:
         lines.append("TS")
     elif seq.seq_type == SEQ_FITSEQ:
         lines.append("TF")
+    elif seq.seq_type == SEQ_AVI:
+        lines.append("TA")
     if seq.nb_layers > 0:
         lines.append(f"L {seq.nb_layers}")
     for i in range(seq.number):

@@ -2,7 +2,7 @@
 gather warp (``_cubic_weights``:45, ``_lanczos_weights``:61,
 ``_gather_plane``:74, ``sample_plane``:86, ``_warp_body``:135,
 ``warp_homography_batch``:218, ``warp_homography``:238, ``_dilate3``:258,
-``resize``:267),
+``resize``:267, ``_warp_sip_fn``:287, ``warp_homography_sip``:345),
 the pure-translation warp (constants :26, ``_shift_batch_fn``:365,
 ``warp_translation_batch``:460, ``translations_from_Hs``:482) and the FFT
 warp ladder of the fused path: the rotation three-shear
@@ -21,7 +21,10 @@ output pixel the source coordinate H⁻¹·x, then nearest, bilinear
 float32, out-of-frame taps reading 0; rows are warped in blocks so that
 a 4096² lanczos4 warp keeps each tap's index tensor to one block.  The
 clamp substitutes the bilinear guide where the result undershoots
-0.98·guide, dilated 3×3 with wrap-around (opencv.cpp:264-276).
+0.98·guide, dilated 3×3 with wrap-around (opencv.cpp:264-276).  The
+SIP warp (``-disto``) is the same pass with the source coordinates moved
+by a master's distortion polynomials, eager float32 torch ops on the
+device (about 20 a term-pair and order; three times that to invert).
 
 The integer part of a shift is a padded slice, the fractional part a
 separable 8-tap lanczos4 (4-tap cubic, 2-tap for the other methods)
@@ -233,8 +236,11 @@ def sample_plane(plane: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
 
 
 def _warp_body(planes: torch.Tensor, Hinv: np.ndarray, out_h: int,
-               out_w: int, method: int, clamp: bool) -> torch.Tensor:
-    """(C, H, W) planes and one float32 H⁻¹ → (C, out_h, out_w)."""
+               out_w: int, method: int, clamp: bool,
+               displace=None) -> torch.Tensor:
+    """(C, H, W) planes and one float32 H⁻¹ → (C, out_h, out_w);
+    ``displace(sx, sy)`` (the SIP warp's) moves the source coordinates
+    before they are sampled."""
     dev = planes.device
     h = [float(v) for v in np.asarray(Hinv, np.float32).ravel()]
     want_clamp = clamp and method in (INTERP_BICUBIC, INTERP_LANCZOS4)
@@ -249,6 +255,8 @@ def _warp_body(planes: torch.Tensor, Hinv: np.ndarray, out_h: int,
         d = h[6] * xf + h[7] * yf + h[8]
         sx = (h[0] * xf + h[1] * yf + h[2]) / d
         sy = (h[3] * xf + h[4] * yf + h[5]) / d
+        if displace is not None:
+            sx, sy = displace(sx, sy)
         for c in range(planes.shape[0]):
             out[c, y0:y1] = sample_plane(planes[c], sy, sx, method)
             if want_clamp:
@@ -269,6 +277,72 @@ def warp_homography(data: torch.Tensor, H, out_shape,
     Hinv = np.linalg.inv(np.asarray(H, np.float64))
     return _warp_body(data.float(), Hinv, int(out_shape[0]),
                       int(out_shape[1]), int(method), bool(clamp))
+
+
+def _sip_displacer(sip_a, sip_b, frame, invert: bool):
+    """``displace(sx, sy)`` of a SIP distortion in float32: the
+    polynomials are evaluated at u = x − x0, v = ysign·(y − y0) (``frame``,
+    ``ops/wcs.sip_frame``), A moves x and ysign·B the top-down row.
+    ``invert`` solves s + P(s) = x by three fixed-point (Newton) steps."""
+    order = int(sip_a.shape[0]) - 1
+    terms = [(p, q, float(np.float32(sip_a[p, q])),
+              float(np.float32(sip_b[p, q])))
+             for p in range(order + 1) for q in range(order + 1 - p)
+             if sip_a[p, q] != 0.0 or sip_b[p, q] != 0.0]
+    x0, y0, ysign = (float(np.float32(v)) for v in frame)
+
+    def poly(px, py):
+        u = px - x0
+        v = (py - y0) * ysign
+        up, vp = [None, u], [None, v]
+        for k in range(2, order + 1):
+            up.append(up[-1] * u)
+            vp.append(vp[-1] * v)
+        du = torch.zeros_like(u)
+        dv = torch.zeros_like(v)
+        for p, q, a, b in terms:
+            t = up[p] if q == 0 else vp[q] if p == 0 else up[p] * vp[q]
+            if a != 0.0:
+                du = du + a * t
+            if b != 0.0:
+                dv = dv + b * t
+        return du, dv * ysign
+
+    def displace(sx, sy):
+        if not terms:
+            return sx, sy
+        if invert:
+            cx, cy = sx, sy
+            for _ in range(3):
+                du, dv = poly(cx, cy)
+                cx = sx - du
+                cy = sy - dv
+            return cx, cy
+        du, dv = poly(sx, sy)
+        return sx + du, sy + dv
+
+    return displace
+
+
+def warp_homography_sip(data: torch.Tensor, H, sip_a, sip_b, frame,
+                        out_shape, method: int = INTERP_LANCZOS4,
+                        clamp: bool = True,
+                        invert: bool = False) -> torch.Tensor:
+    """The gather warp with a SIP distortion in the same sampling pass
+    (``register`` / ``seqapplyreg -disto=``, registration/distorsion.c's
+    pixmap): each output pixel's source coordinate H⁻¹·x is moved by the
+    polynomials (``invert=False``: A/B are the displacement to apply, the
+    master's AP/BP) or by their inverse (``invert=True``: A/B are the
+    forward distortion), then sampled as ``warp_homography`` samples, in
+    the same float32 order, so that with no SIP term both are equal bit
+    for bit.  ``frame`` = (x0, y0, ysign) places the polynomials
+    (``ops/wcs.sip_frame``: FITS bottom-up v, as ``WCS.pix2world``)."""
+    Hinv = np.linalg.inv(np.asarray(H, np.float64))
+    return _warp_body(data.float(), Hinv, int(out_shape[0]),
+                      int(out_shape[1]), int(method), bool(clamp),
+                      _sip_displacer(np.asarray(sip_a, np.float64),
+                                     np.asarray(sip_b, np.float64), frame,
+                                     bool(invert)))
 
 
 def warp_homography_batch(frames: torch.Tensor, Hs, out_shape,

@@ -287,21 +287,38 @@ def compute_feather_masks(seq, indices: np.ndarray, feather_dist: int,
     """(N, H, W) float16 seam-feathering masks in selection order
     (blending.c): the smoothstep r³(6r² − 15r + 10) of r = the distance to
     the nearest uncovered pixel over ``feather_dist``, each frame's
-    coverage (any layer > 0) moved by its integer shift."""
-    from scipy.ndimage import distance_transform_edt
-
+    coverage (any layer > 0) moved by its integer shift.  The distance
+    transform runs on the coverage's bounding box and the uncovered ring
+    around it, which holds every pixel's nearest uncovered pixel (a
+    warped tile of a mosaic canvas covers a fraction of it), and so does
+    the smoothstep: outside the box r = 0 and the mask 0."""
     shifts = frame_shifts(seq, indices, reglayer)
-    masks = []
+    masks = None
     for k, idx in enumerate(indices):
         cov = np.any(seq.read_frame(int(idx)).host() > 0.0, axis=0)
         if shifts is not None:
             cov = shift_into(cov.astype(np.float32)[None],
                              int(shifts[0][k]), int(shifts[1][k]))[0] > 0.5
-        r = np.clip(distance_transform_edt(cov) / float(feather_dist),
-                    0.0, 1.0)
-        masks.append((r * r * r * (6.0 * r * r - 15.0 * r + 10.0)).astype(
-            np.float16))
-    return np.stack(masks)
+        if masks is None:
+            masks = np.zeros((len(indices),) + cov.shape, np.float16)
+        rows, cols = np.nonzero(cov.any(axis=1))[0], \
+            np.nonzero(cov.any(axis=0))[0]
+        if len(rows):
+            box = np.s_[max(rows[0] - 1, 0):rows[-1] + 2,
+                        max(cols[0] - 1, 0):cols[-1] + 2]
+            r = _feather_ramp(cov[box], feather_dist)
+            masks[k][box] = (r * r * r * (6.0 * r * r - 15.0 * r + 10.0)
+                             ).astype(np.float16)
+    return masks
+
+
+def _feather_ramp(cov: np.ndarray, feather_dist: int) -> np.ndarray:
+    """The distance to the nearest uncovered pixel over ``feather_dist``,
+    clipped to [0, 1]."""
+    from scipy.ndimage import distance_transform_edt
+
+    return np.clip(distance_transform_edt(cov) / float(feather_dist), 0.0,
+                   1.0)
 
 
 def shift_into(img, dx: int, dy: int, out_h: Optional[int] = None,

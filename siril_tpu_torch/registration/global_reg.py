@@ -12,8 +12,12 @@ with an output, the gather warp into a new ``r_`` sequence.  ``-2pass``
 and ``-noout`` keep only the transforms, detected a chunk of frames at a
 time through the fused path's decode and ``stats_cand_fit``.
 ``-drizzle`` keeps the transforms the same way and drizzles each frame
-(``cli/commands._drizzle_out_sequence``); ``-3stars`` and ``-disto``
-raise in the CLI (ROADMAP §1.2).
+(``cli/commands._drizzle_out_sequence``).  ``seqapplyreg`` (and
+``register -disto=``) warps with a master's SIP distortion in the same
+sampling pass when ``ApplyRegArgs.disto_file`` names one
+(``ops/interp.warp_homography_sip``, JAX ``global_reg.py:277-310``).
+The transforms of ``-3stars`` come from ``registration/threestars.py``,
+those of a plate-solved mosaic from ``registration/astrometric.py``.
 """
 
 from __future__ import annotations
@@ -28,7 +32,11 @@ import torch
 
 from siril_tpu_torch.core.sequence import Sequence, raw_chunk_reader
 from siril_tpu_torch.device import DeviceLike, resolve_device
-from siril_tpu_torch.ops.interp import INTERP_LANCZOS4, warp_homography
+from siril_tpu_torch.ops.interp import (
+    INTERP_LANCZOS4,
+    warp_homography,
+    warp_homography_sip,
+)
 from siril_tpu_torch.ops.stacking import StageClock
 from siril_tpu_torch.registration.matching import (
     HOMOGRAPHY_TRANSFORMATION,
@@ -225,6 +233,25 @@ class ApplyRegArgs:
     clamp: bool = True
     framing: int = FRAMING_CURRENT
     scale: float = 1.0
+    disto_file: str = ""                # master with a SIP solution
+
+
+def _disto_master(path: str):
+    """(A, B, frame, invert) of a ``-disto=`` master: its inverse
+    polynomials AP/BP when it has them, else the forward A/B, inverted
+    in the warp (registration/distorsion.c)."""
+    from siril_tpu_torch.io.conversion import load_any
+    from siril_tpu_torch.ops.wcs import sip_frame
+
+    w = load_any(path).wcs
+    if w is None or w.sip_a is None:
+        raise RuntimeError(f"-disto master has no SIP solution: {path}")
+    frame = sip_frame(w.crpix, w.height)
+    _log.info("Applying SIP distortion (order %d) from the master",
+              w.sip_a.shape[0] - 1)
+    if w.sip_ap is not None and w.sip_bp is not None:
+        return w.sip_ap, w.sip_bp, frame, False
+    return w.sip_a, w.sip_b, frame, True
 
 
 def compute_framing(seq: Sequence, layer: int, framing: int,
@@ -279,15 +306,22 @@ def apply_reg_sequence(seq: Sequence, args: Optional[ApplyRegArgs] = None,
     reg = seq.reg(layer)
     out_w, out_h, T = compute_framing(seq, layer, args.framing, args.scale)
     _log.info("Applying registration: output %dx%d", out_w, out_h)
+    sip = _disto_master(args.disto_file) if args.disto_file else None
 
     def image(ctx, idx, img):
         if not reg.valid[idx]:
             return None
         with clock("warp"):
             x = torch.from_numpy(img.host()).to(dev)
-            out = img.copy(data=warp_homography(
-                x, T @ reg.H[idx], (out_h, out_w), args.interpolation,
-                args.clamp).cpu().numpy())
+            Hm = T @ reg.H[idx]
+            if sip is None:
+                w = warp_homography(x, Hm, (out_h, out_w),
+                                    args.interpolation, args.clamp)
+            else:
+                w = warp_homography_sip(x, Hm, sip[0], sip[1], sip[2],
+                                        (out_h, out_w), args.interpolation,
+                                        args.clamp, invert=sip[3])
+            out = img.copy(data=w.cpu().numpy())
         out.log_history("Applied existing registration")
         return out
 

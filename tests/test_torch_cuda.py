@@ -54,7 +54,12 @@ JAX):
   CPU (the upscale within one 16-bit step: its frames are written at 16
   bits); the stacks of a SER video and of a FITS cube on the card
   against the CPU within 2e-6 (the resident and streamed paths of the
-  stack tests above).
+  stack tests above);
+- the SIP warp of ``-disto`` (forward and inverted) on the card against
+  the CPU within the gather warp's 2e-6, equal to the gather warp with no
+  SIP term; a plate solve with its stars detected on the card against
+  the CPU: the same matched count, CRVAL within 1e-6°, CD within 1e-6
+  relative.
 """
 
 import numpy as np
@@ -671,3 +676,79 @@ def test_video_and_cube_stack_on_card_vs_cpu(tmp_path, output):
     np.testing.assert_allclose(res[1].image.host(), res[0].image.host(),
                                rtol=0, atol=2e-6)
     assert res[1].total_rejected == res[0].total_rejected
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", [1, 3])
+def test_sip_warp_on_card_vs_cpu(method):
+    """The SIP warp of ``-disto`` (forward and inverted) on the card
+    against the CPU, within the gather warp's 2e-6; with no SIP term equal
+    to the gather warp on the card."""
+    _need_card()
+    from siril_tpu_torch.ops.interp import (
+        warp_homography,
+        warp_homography_sip,
+    )
+    from siril_tpu_torch.ops.wcs import sip_frame
+
+    rng = np.random.default_rng(86)
+    img = torch.from_numpy((0.1 + rng.random((1, 300, 260)) ** 4).astype(
+        np.float32))
+    H = np.array([[1.002, 0.003, 5.3], [-0.002, 0.998, -3.1],
+                  [0, 0, 1.0]])
+    A = np.zeros((4, 4))
+    B = np.zeros((4, 4))
+    A[2, 0], A[0, 2], A[3, 0], A[1, 2] = 6e-5, -6e-5, 1e-7, -1.8e-7
+    B[2, 0], B[0, 2], B[1, 1] = 8e-5, -8e-5, 5e-5
+    frame = sip_frame((130.5, 150.5), 300)
+    for invert in (True, False):
+        a = warp_homography_sip(img, H, A, B, frame, (300, 260), method,
+                                True, invert=invert).numpy()
+        b = warp_homography_sip(img.cuda(), H, A, B, frame, (300, 260),
+                                method, True, invert=invert).cpu().numpy()
+        np.testing.assert_array_equal(a == 0, b == 0)
+        np.testing.assert_allclose(b, a, rtol=0, atol=2e-6)
+    z = np.zeros((4, 4))
+    assert torch.equal(
+        warp_homography_sip(img.cuda(), H, z, z, frame, (300, 260), method),
+        warp_homography(img.cuda(), H, (300, 260), method))
+
+
+@pytest.mark.cuda
+def test_platesolve_on_card_vs_cpu():
+    """solve_image with its stars detected on the card against the CPU:
+    the same matched count, CRVAL within 1e-6° and CD within 1e-6
+    relative (LM fits on the two devices differ in float32)."""
+    _need_card()
+    from siril_tpu_torch.astrometry.catalog import Catalog
+    from siril_tpu_torch.astrometry.solver import SolveArgs, solve_image
+    from siril_tpu_torch.ops.wcs import WCS
+
+    rng = np.random.default_rng(87)
+    h = w = 512
+    s = 2.0 / 3600.0
+    th = np.radians(12.0)
+    true = WCS(crpix=(w / 2 + 0.5, h / 2 + 0.5), crval=(150.0, 40.0),
+               cd=np.array([[-s * np.cos(th), s * np.sin(th)],
+                            [s * np.sin(th), s * np.cos(th)]]), height=h)
+    ox = rng.uniform(-0.3 * w, 1.3 * w, 700)
+    oy = rng.uniform(-0.3 * h, 1.3 * h, 700)
+    ra, dec = true.pix2world(ox, oy)
+    mag = rng.uniform(7, 12, 700)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = 0.05 + rng.normal(0, 0.002, (h, w))
+    for x0, y0, m in zip(ox, oy, mag):
+        if -5 < x0 < w + 5 and -5 < y0 < h + 5:
+            img += min(0.6 * 10 ** (-0.4 * (m - 7.0)), 0.8) * np.exp(
+                -((xx + 0.5 - x0) ** 2 + (yy + 0.5 - y0) ** 2)
+                / (2 * 1.5 ** 2))
+    img = np.clip(img, 0, 1).astype(np.float32)[None]
+    cat = Catalog(ra=np.asarray(ra), dec=np.asarray(dec), mag=mag)
+    res = {dev: solve_image(SirilImage(data=img), cat, SolveArgs(
+        ra=150.2, dec=39.85, pixel_scale=2.05, mag_limit=13.0), device=dev)
+        for dev in ("cpu", "cuda")}
+    assert res["cuda"].n_matched == res["cpu"].n_matched >= 20
+    np.testing.assert_allclose(res["cuda"].wcs.crval, res["cpu"].wcs.crval,
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(res["cuda"].wcs.cd, res["cpu"].wcs.cd,
+                               rtol=0, atol=1e-6 * s)

@@ -234,3 +234,37 @@ def test_drizzle_and_formats_need_a_card(monkeypatch, tmp_path):
             cli.run(["-d", str(tmp_path), *words])
     assert DrizzleAccumulator((1, 8, 8), device="cpu").acc.device.type == \
         "cpu"
+
+
+def test_astrometry_entry_points_need_a_card(monkeypatch, tmp_path):
+    """The plate solver (its star detection) and the platesolve commands
+    raise without a card unless the CPU is asked for; the WCS, the
+    catalogues, the astrometric registration, the 3-star follow and the
+    AVI reader are host code and run without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from siril_tpu_torch import cli
+    from siril_tpu_torch.astrometry.catalog import Catalog
+    from siril_tpu_torch.astrometry.solver import SolveArgs, solve_image
+    from siril_tpu_torch.core.image import SirilImage
+    from siril_tpu_torch.io.avi import AviReader, AviWriter
+    from siril_tpu_torch.io.fits_io import write_fits
+    from siril_tpu_torch.ops.wcs import WCS
+
+    img = SirilImage(data=np.full((1, 16, 16), 0.1, np.float32))
+    cat = Catalog(ra=np.zeros(1), dec=np.zeros(1), mag=np.zeros(1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_image(img, cat, SolveArgs(ra=0.0, dec=0.0, pixel_scale=1.0))
+    assert solve_image(img, cat, SolveArgs(ra=0.0, dec=0.0,
+                                           pixel_scale=1.0),
+                       device="cpu") is None
+    cat.save(str(tmp_path / "c.npz"))
+    write_fits(img, str(tmp_path / "f_00001.fit"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.run(["-d", str(tmp_path), "seqplatesolve", "f_", "0", "0",
+                 "-catalog=c.npz", "-focal=1000", "-pixelsize=5"])
+    w = WCS(crpix=(8.5, 8.5), crval=(10.0, 20.0), height=16)
+    assert np.isfinite(w.pix2world(np.ones(2), np.ones(2))).all()
+    av = AviWriter(str(tmp_path / "a.avi"), 16, 16, color=False)
+    av.add_frame(img)
+    av.close()
+    assert AviReader(str(tmp_path / "a.avi")).read_frame(0).nchans == 1

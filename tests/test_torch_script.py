@@ -329,7 +329,7 @@ def test_parse_line():
 
 def test_script_entry_and_errors(tmp_path):
     """``python -m siril_tpu_torch.cli -s script`` runs a script; a
-    failing command stops it (a command error returns 1, an option not
+    failing command stops it (a command error returns 1, an input not
     ported raises)."""
     from siril_tpu_torch import cli
 
@@ -343,7 +343,8 @@ def test_script_entry_and_errors(tmp_path):
     (tmp_path / "new.ssf").write_text("requires 9.0.0\n")
     assert execute_script(Session(cwd=str(tmp_path), device="cpu"),
                           str(tmp_path / "new.ssf")) == 1
-    (tmp_path / "x.ssf").write_text("register seq -3stars\n")
+    (tmp_path / "a.png").write_bytes(b"\x89PNG")
+    (tmp_path / "x.ssf").write_text("convert img\n")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         execute_script(Session(cwd=str(tmp_path), device="cpu"),
                        str(tmp_path / "x.ssf"))

@@ -10,6 +10,7 @@ writes a frame at its own bit depth unless told otherwise.
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -140,14 +141,18 @@ def test_convert_debayer_vs_jax(tmp_path):
 
 
 def test_unported_sequence_types_raise(tmp_path):
-    """A film still raises (ROADMAP §1.1); a ``.ser`` video opens as a SER
+    """A film that no reader can open raises as in the JAX package (films
+    are ported: tests/test_torch_avi.py); a ``.ser`` video opens as a SER
     sequence, as the JAX package opens it."""
     from siril_tpu.cli.context import Session as JSession
     from siril_tpu_torch.core.sequence import SEQ_SER
 
     (tmp_path / "film.avi").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="film"):
+    with pytest.raises((ValueError, RuntimeError)) as want:
+        JSession(cwd=str(tmp_path)).load_sequence("film")
+    with pytest.raises(type(want.value), match=re.escape(str(want.value))):
         Session(cwd=str(tmp_path), device="cpu").load_sequence("film")
+    os.unlink(tmp_path / "film.avi")
     _frames(str(tmp_path / "src"))
     files = sorted(str(tmp_path / "src" / f)
                    for f in os.listdir(tmp_path / "src"))
@@ -257,14 +262,16 @@ def test_stack_takes_registration_from_seq(tmp_path):
 @pytest.mark.parametrize("card,what", [("TF", "FITS-cube"), ("TS", "SER"),
                                        ("TA", "film")])
 def test_unported_seq_cards_raise(tmp_path, card, what):
-    """``TA`` (a film) still raises; a ``TS`` / ``TF`` sidecar the JAX
-    package wrote opens the video or the cube it names, and a sidecar
-    with the fz flag the ``.fit.fz`` files, as in the JAX package."""
+    """``TA`` (a film) names a film beside the ``.seq`` and raises when
+    there is none (films open: tests/test_torch_avi.py); a ``TS`` / ``TF``
+    sidecar the JAX package wrote opens the video or the cube it names,
+    and a sidecar with the fz flag the ``.fit.fz`` files, as in the JAX
+    package."""
     p = tmp_path / "x.seq"
     if card == "TA":
         p.write_text(f"S 'x' 0 2 2 5 -1 7 0 0 0\n{card}\nL 1\nI 0 1\n"
                      "I 1 1\n")
-        with pytest.raises(NotImplementedError, match=what):
+        with pytest.raises(FileNotFoundError, match=what):
             seqfile.read_seqfile(str(p))
         return
     from siril_tpu.io.fits_io import write_fits as jw

@@ -251,7 +251,8 @@ def test_seq_type_cards_round_trip(tmp_path, rng, kind):
 def test_film_card_raises(tmp_path, card):
     p = tmp_path / "x.seq"
     p.write_text(f"S 'x' 0 2 2 5 -1 7 0 0 0\n{card}\nL 1\nI 0 1\nI 1 1\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1.1"):
+    # a film sequence opens its film (tests/test_torch_avi.py); none here
+    with pytest.raises(FileNotFoundError, match="no film x"):
         seqfile.read_seqfile(str(p))
 
 

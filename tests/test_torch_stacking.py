@@ -541,6 +541,44 @@ def test_mosaic_max_maximize(tmp_path):
     assert (out > 0).all()
 
 
+def _footprints(d, seed=33):
+    """5 frames of 40 × 48 as a warped mosaic canvas leaves them: a
+    turned quadrilateral footprint, one touching the frame's border, one
+    covering all of it, one empty, one of two patches; zero outside."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W] + 0.5
+    covs = [(0.97 * xx + 0.26 * yy > 6) & (0.97 * xx + 0.26 * yy < 34) &
+            (-0.26 * xx + 0.97 * yy > -4) & (-0.26 * xx + 0.97 * yy < 22),
+            (xx > 20) & (yy < 30), np.ones((H, W), bool),
+            np.zeros((H, W), bool),
+            ((xx - 10) ** 2 + (yy - 10) ** 2 < 40) | ((xx > 30) & (yy > 25))]
+    for i, cov in enumerate(covs):
+        f = np.where(cov, 0.05 + 0.5 * rng.random((H, W)), 0.0)
+        write_fits(SirilImage(data=f[None].astype(np.float32)),
+                   os.path.join(d, f"fp_{i + 1:05d}.fit"), bitdepth=-32)
+    return _both(d, "fp_")
+
+
+@pytest.mark.parametrize("case", ["shifted_tiles", "canvas_footprints"])
+def test_feather_masks_vs_jax(tmp_path, case):
+    """The seam-feathering masks equal the JAX package's bit for bit: the
+    port runs the distance transform and the smoothstep on each
+    coverage's bounding box and its ring only, the JAX package on the
+    whole frame."""
+    if case == "shifted_tiles":
+        _, (jseq, tseq) = _mosaic(str(tmp_path))
+        dist = 8
+    else:
+        jseq, tseq = _footprints(str(tmp_path))
+        dist = 6
+    idx = np.arange(tseq.number)
+    ref = np.stack(jst.compute_feather_masks(jseq, idx, dist, 0))
+    got = tst.compute_feather_masks(tseq, idx, dist, 0)
+    assert got.dtype == ref.dtype == np.float16
+    np.testing.assert_array_equal(got, ref)
+    assert 0 < int((ref > 0).sum()) < ref.size
+
+
 # ---------------------------------------------------------------------------
 # frame filters
 # ---------------------------------------------------------------------------
