@@ -144,7 +144,22 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               blocks, on the inputs the command gave it: the canvas's
               frames, zero outside each footprint, and the feather
               masks, zero there too) and ``stack r_mosaic_ max
-              -maximize`` (the union of the footprints).
+              -maximize`` (the union of the footprints);
+  post   — the post-stack colour session through -s on two stacked SIZE²
+              RGB fields of one sky (synth_post: a quadratic gradient,
+              stars imbalanced by POST_IMBALANCE, coloured by their
+              spectra in an xp_sampled .cat or by B−V in a CSV):
+              POST_SCRIPT (subsky 2, spcc, autostretch, ght, asinh,
+              rmgreen, satu, eqcrop, crop, rotate, binxy, save) and
+              PCC_SCRIPT (subsky 2, pcc, bgneutralize, save), with each
+              command's seconds and host / device stages; the gradient
+              left below POST_NOISE / 3, the gains of spcc and pcc
+              within POST_GAIN_TOL of the imbalance, bgneutralize's
+              medians equal; then every image op on the card against
+              the CPU (POST_CROP², the rotation and the background
+              models POST_WARP_CROP²) within the CPU tests' bounds, its
+              ms per SIZE² RGB image and the RBF's peak memory, on a
+              JSON line of its own.  No K1.
 Then a JSON line describing every kernel, the card line, and last the
 result line.  Any failure exits non-zero without a result line.  The script
 needs CUDA and the repository beside it; it imports nothing of JAX.
@@ -3570,6 +3585,386 @@ def phase_mosaic(seed: int, size: int = SIZE,
 
 
 #: the stack commands of the stack phase and the variant each must launch
+#: the post-stack colour session (phase post): a stacked RGB field at
+#: POST_SKY with a quadratic gradient of POST_GRADIENT of the sky across
+#: the field, noise POST_NOISE (a stack's), POST_STARS stars of PSF σ
+#: POST_PSF px, and a channel imbalance POST_IMBALANCE that spcc and pcc
+#: must undo within POST_GAIN_TOL (tests/test_xp_spectra.py:229); after
+#: ``subsky 2`` the gradient left (the range of 16 × 16 tile medians) is
+#: below POST_NOISE / 3
+POST_SKY = 0.1
+POST_GRADIENT = 0.2
+POST_NOISE = 0.003
+POST_STARS = 800
+POST_PSF = 1.5
+POST_IMBALANCE = (1.5, 1.0, 0.7)
+POST_GAIN_TOL = 0.08
+POST_TILES = 16
+#: the card-against-CPU crop of every elementwise op, the smaller one of
+#: the rotation and the background models (their CPU side is the phase's
+#: longest part), and the timing reps
+POST_CROP = 1024
+POST_WARP_CROP = 512
+POST_REPS = 5
+#: the SPCC field's session: the catalogue is an xp_sampled .cat (the
+#: stars' spectra); eqcrop keeps the sky rectangle of pixels EQCROP_BOX
+#: (x0, y0, x1, y1 as fractions of the side)
+POST_SCRIPT = """requires 1.2.0
+load post_spcc
+subsky 2
+save post_sky
+spcc -catalog=post_xp.cat -limitmag=20
+save post_cal
+autostretch -linked
+ght -D=2 -B=1 -SP=0.25 -HP=0.95 -human
+asinh 5
+rmgreen
+satu 0.4 1
+eqcrop {ra1} {dec1} {ra2} {dec2}
+crop 8 8 {cw} {ch}
+rotate 7.5
+binxy 2
+save post_final
+"""
+EQCROP_BOX = (0.0625, 0.0625, 0.9375, 0.9375)
+#: the PCC field's session (the same stars coloured by their B−V, the
+#: catalogue a CSV with a bv column)
+PCC_SCRIPT = """requires 1.2.0
+load post_pcc
+subsky 2
+save pcc_sky
+pcc -catalog={catalog} -limitmag=20
+save pcc_cal
+bgneutralize
+save pcc_final
+"""
+#: the GHT stretch types held on the card against the CPU and timed
+#: (post_ops): (label, stretch type, B)
+POST_GHT = [("linear", 0, 0.0), ("normal", 1, 2.0), ("normal B=-1", 1, -1.0),
+            ("inverse", 2, 2.0), ("asinh", 3, 0.0), ("invasinh", 4, 0.0)]
+
+
+def post_ops():
+    """[(label, fn(x), bound)] of the elementwise device ops that the post
+    phase holds against the CPU and times per SIZE² RGB image: the
+    stretches, the GHT family in every colour model, the colour ops, the
+    binning and the pcc / spcc apply, each with the bound of the CPU tests
+    against the JAX package."""
+    import torch
+
+    from siril_tpu_torch.astrometry.pcc import gains_tensor
+    from siril_tpu_torch.ops import colors as col
+    from siril_tpu_torch.ops import geometry as geo
+    from siril_tpu_torch.ops import stretch as st
+
+    ops = [("mtf", lambda x: st.mtf(x, 0.1, 0.08, 1.0), 2e-6),
+           ("invmtf", lambda x: torch.clamp(st.mtf_pseudoinverse(
+               x, st.MTFParams(0.08, 0.1, 1.0)), 0.0, 1.0), 2e-6)]
+    for label, stype, B in POST_GHT:
+        p = st.GHTParams(B=B, D=3.0, LP=0.02, SP=0.12, HP=0.9, BP=0.05,
+                         stretchtype=stype)
+        ops.append((f"ght {label}", lambda x, p=p: st.ght_colour(x, p),
+                    1e-5))
+    for label, model in (("human", st.COL_HUMANLUM),
+                         ("even", st.COL_EVENLUM), ("sat", st.COL_SAT)):
+        p = st.GHTParams(B=2.0, D=3.0, SP=0.12, payne_colourstretchmodel=model)
+        ops.append((f"ght normal -{label}",
+                    lambda x, p=p: st.ght_colour(x, p), 1e-5))
+    m = [1.1, -0.05, -0.05, -0.1, 1.2, -0.1, 0.0, -0.1, 1.1]
+    ops += [("asinh", lambda x: st.asinh_tensor(x, 20.0, 0.01), 2e-6),
+            ("scnr", lambda x: col.scnr_tensor(x), 2e-6),
+            ("satu", lambda x: col.saturation_tensor(x, 0.5, 0.11), 1e-5),
+            ("ccm", lambda x: col.ccm_tensor(x, m, 2.2), 2e-6),
+            ("neg", lambda x: 1.0 - x, 0.0),
+            ("binxy 2", lambda x: geo.bin_tensor(x, 2), 1.2e-7),
+            ("pcc/spcc apply", lambda x: gains_tensor(
+                x, [0.66, 1.0, 1.42], [0.01, 0.0, -0.02]), 0.0)]
+    return ops
+
+
+def synth_post(root: str, seed: int, size: int, nstars: int = POST_STARS):
+    """The post phase's two stacked RGB fields (float32 FITS with the
+    scene's TAN WCS, ``sky_wcs``) and their catalogues: ``post_spcc`` (each
+    star's colour its spectrum through the built-in R, G, B curves, the
+    spectra in the xp_sampled ``post_xp.cat``) and ``post_pcc`` (the same
+    stars, sky and noise, each star's colour ``bv_to_rgb`` of its B−V, in
+    ``post_bv.csv`` and ``post_bv.npz``), both × POST_IMBALANCE.  Written
+    on the writer threads.  Returns the truth."""
+    import numpy as np
+
+    from siril_tpu_torch.astrometry.catalog import Catalog
+    from siril_tpu_torch.astrometry.gaia_local import write_gaia_xpsamp
+    from siril_tpu_torch.astrometry.pcc import bv_to_rgb
+    from siril_tpu_torch.astrometry.spcc import WL, ResponseLibrary
+    from siril_tpu_torch.core.image import SirilImage
+    from siril_tpu_torch.io.fits_io import write_fits
+
+    rng = np.random.default_rng(seed)
+    m = 48
+    sx = rng.uniform(m, size - m, nstars)
+    sy = rng.uniform(m, size - m, nstars)
+    amp = np.minimum(0.05 + 0.02 * rng.pareto(1.5, nstars), 0.5)
+    w = sky_wcs(size)
+    ra, dec = w.pix2world(sx, sy)
+    # spectra: flat SEDs with red / blue slopes, and their G-relative
+    # colours through the generic camera
+    slope = rng.uniform(-0.5, 0.5, nstars)
+    flux = np.clip(1e-16 * (1.0 + slope[:, None] * ((WL - 650.0) / 350.0)),
+                   1e-18, None)
+    lib = ResponseLibrary()
+    qe = lib.get("generic_qe").resampled()
+    photon = flux * WL[None, :]
+    true = np.stack([np.trapezoid(photon * lib.get(f).resampled() * qe, WL,
+                                  axis=1) for f in ("R", "G", "B")])
+    spcc_col = true / true[1]
+    bv = rng.uniform(0.0, 1.2, nstars)
+    pcc_col = np.stack([bv_to_rgb(b) for b in bv], axis=1)
+    imb = np.asarray(POST_IMBALANCE)
+    yy = (np.arange(size, dtype=np.float32) / size - 0.45)[:, None]
+    xx = (np.arange(size, dtype=np.float32) / size - 0.6)[None, :]
+    # quadratic, POST_GRADIENT of the sky from its lowest to its highest
+    q = xx * xx + 0.6 * yy * yy + 0.4 * xx * yy
+    q = (q - q.min()) / (q.max() - q.min())
+    made = dict(sx=sx, sy=sy, amp=amp, ra=ra, dec=dec, size=size)
+    for name, col in (("post_spcc", spcc_col), ("post_pcc", pcc_col)):
+        crng = np.random.default_rng(seed + 1)      # the same noise
+        data = np.empty((3, size, size), np.float32)
+        for c in range(3):
+            sky = POST_SKY * (1.0 + POST_GRADIENT * q) * (0.9 + 0.1 * c)
+            data[c] = _render(size, 0.0, sx, sy, amp * col[c] * imb[c],
+                              POST_PSF) + sky
+            data[c] += crng.standard_normal((size, size), np.float32) \
+                * np.float32(POST_NOISE)
+        img = SirilImage(data=np.clip(data, 0.0, 1.0), wcs=w)
+        write_later(write_fits, img, os.path.join(root, name + ".fit"),
+                    bitdepth=-32)
+        made[name] = img.data
+    mag = star_mags(amp)
+    write_gaia_xpsamp(os.path.join(root, "post_xp.cat"), ra, dec, mag, flux)
+    with open(os.path.join(root, "post_bv.csv"), "w") as f:
+        f.write("ra,dec,mag,bv\n")
+        for row in zip(ra, dec, mag, bv):
+            f.write("%r,%r,%r,%r\n" % tuple(float(v) for v in row))
+    Catalog(ra=ra, dec=dec, mag=mag, bv=bv).save(
+        os.path.join(root, "post_bv.npz"))
+    b = EQCROP_BOX
+    (ra1, ra2), (dec1, dec2) = w.pix2world(np.array([b[0], b[2]]) * size,
+                                           np.array([b[1], b[3]]) * size)
+    cw = int(round((b[2] - b[0]) * size)) - 16
+    made["crop_side"] = cw
+    made["script"] = POST_SCRIPT.format(ra1=repr(float(ra1)),
+                                        dec1=repr(float(dec1)),
+                                        ra2=repr(float(ra2)),
+                                        dec2=repr(float(dec2)), cw=cw, ch=cw)
+    return made
+
+
+def tile_medians(layer, tiles: int = 0):
+    """The medians of a tiles × tiles grid (POST_TILES) over every 2nd
+    pixel of the layer in each direction (at 4096², 16384 a tile: the
+    noise's share of a median ≈ 3e-5, a thirtieth of σ/3)."""
+    import numpy as np
+
+    tiles = tiles or POST_TILES
+    layer = layer[::2, ::2]
+    h, w = layer.shape
+    th, tw = h // tiles, w // tiles
+    t = layer[:th * tiles, :tw * tiles].reshape(tiles, th, tiles, tw)
+    return np.median(t.transpose(0, 2, 1, 3).reshape(tiles, tiles, -1),
+                     axis=-1)
+
+
+def post_gains(before, after, made, n: int = 200):
+    """The G-relative gains that took ``before`` to ``after``: on the n
+    brightest stars at least 64 px inside, each channel's peak above the
+    layer's median after over before, the median over the stars."""
+    import numpy as np
+
+    size = made["size"]
+    sx, sy, amp = made["sx"], made["sy"], made["amp"]
+    ok = (sx > 64) & (sx < size - 64) & (sy > 64) & (sy < size - 64)
+    idx = np.nonzero(ok)[0]
+    idx = idx[np.argsort(amp[idx])[::-1][:n]]
+    xi, yi = np.floor(sx[idx]).astype(int), np.floor(sy[idx]).astype(int)
+    k = []
+    for c in range(3):
+        # the sky level from every 4th pixel in each direction
+        pin = before[c, yi, xi] - np.median(before[c, ::4, ::4])
+        pout = after[c, yi, xi] - np.median(after[c, ::4, ::4])
+        k.append(float(np.median(pout / pin)))
+    return np.array(k) / k[1]
+
+
+def post_vs_cpu(image, crop_size: int, warp_crop: int, reps: int):
+    """Every device op of post_ops on the card against the CPU on the
+    centre crop_size² of ``image`` (3, S, S) (the rotation and the
+    background models on the centre warp_crop²), and its ms on the whole
+    image (CUDA events, median of ``reps``); the RBF's peak device memory.
+    Returns rows."""
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch.ops import background as bg
+    from siril_tpu_torch.ops import geometry as geo
+    from siril_tpu_torch.ops.interp import INTERP_LANCZOS4
+
+    def centre(c):
+        c0 = (S - c) // 2
+        return np.ascontiguousarray(image[:, c0:c0 + c, c0:c0 + c])
+
+    rows = []
+    S = image.shape[-1]
+    full = torch.from_numpy(image).cuda()
+    crop = centre(crop_size)
+    xc, xh = torch.from_numpy(crop).cuda(), torch.from_numpy(crop)
+    for label, fn, bound in post_ops():
+        got = fn(xc).cpu().numpy()
+        want = fn(xh).numpy()
+        err = float(np.max(np.abs(got.astype(np.float64) - want)))
+        ms = _events_ms(lambda: fn(full), reps)
+        rows.append(dict(op=label, max_abs_err=err, bound=bound, ms=ms))
+        log(f"    {label}: card vs cpu max|Δ| {err:.3g} (bound {bound:g}), "
+            f"{ms:.3f} ms per {S}² RGB image")
+        if not err <= bound:
+            raise SystemExit(f"post: {label} on the card is {err} from the "
+                             f"CPU (bound {bound})")
+    # the rotate command's warp (lanczos4 with its clamp): a last-bit
+    # difference may flip the clamp's test on a few pixels (the SIP warp's
+    # SIP_CLAMP_FLIPS); the warp without the clamp is within 2e-6
+    small = centre(warp_crop)
+    for clamp in (False, True):
+        got = geo.rotate_tensor(torch.from_numpy(small).cuda(), 7.5,
+                                INTERP_LANCZOS4, True, clamp).cpu()
+        want = geo.rotate_tensor(torch.from_numpy(small), 7.5,
+                                 INTERP_LANCZOS4, True, clamp)
+        off = (got - want).abs() > 2e-6
+        flips = float(off.float().mean())
+        ms = _events_ms(lambda: geo.rotate_tensor(
+            full, 7.5, INTERP_LANCZOS4, True, clamp), max(reps - 2, 1))
+        label = f"rotate 7.5° (lanczos4, {'clamp' if clamp else 'no clamp'})"
+        rows.append(dict(op=label, max_abs_err=float(
+            (got - want).abs().max()), flips=flips, bound=2e-6, ms=ms))
+        log(f"    {label}: card vs cpu max|Δ| "
+            f"{float((got - want).abs().max()):.3g}, {int(off.sum())} px "
+            f"past 2e-6 ({flips:.2g} of the crop, allowed "
+            f"{SIP_CLAMP_FLIPS if clamp else 0:g}), {ms:.3f} ms per {S}² "
+            "RGB image")
+        if flips > (SIP_CLAMP_FLIPS if clamp else 0.0):
+            raise SystemExit(f"post: {label} is off the CPU on {flips} of "
+                             "the crop")
+    # the background models: fit on the host, evaluated on each device
+    samples = bg.generate_samples(small[1], 20, 1.0)
+    fsamples = bg.generate_samples(image[1], 20, 1.0)
+    for label, fn in (("subsky poly 2 model", lambda s, shp, d:
+                       bg.compute_background_poly(s, shp, 2, d)),
+                      ("subsky RBF model", lambda s, shp, d:
+                       bg.compute_background_rbf(s, shp, 0.5, d))):
+        shape = (warp_crop, warp_crop)
+        got = fn(samples, shape, "cuda").cpu().numpy()
+        want = fn(samples, shape, "cpu").numpy()
+        err = float(np.max(np.abs(got - want)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = _events_ms(lambda: fn(fsamples, (S, S), "cuda"), reps)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        rows.append(dict(op=label, max_abs_err=err, bound=1e-5, ms=ms,
+                         peak_mib=peak))
+        log(f"    {label}: card vs cpu max|Δ| {err:.3g} (bound 1e-5), "
+            f"{ms:.3f} ms a {S}² layer, peak {peak:.0f} MiB beyond "
+            f"the image ({sum(s.valid for s in fsamples)} samples)")
+        if not err <= 1e-5:
+            raise SystemExit(f"post: {label} on the card is {err} from the "
+                             "CPU")
+    del full
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_post(seed: int, size: int = SIZE):
+    """The post-stack colour session through the CLI's -s entry on two
+    stacked SIZE² RGB fields (synth_post): POST_SCRIPT (subsky 2, spcc on
+    an xp_sampled catalogue, autostretch, ght, asinh, rmgreen, satu,
+    eqcrop, crop, rotate, binxy, save) and PCC_SCRIPT (subsky 2, pcc on a
+    CSV with B−V, bgneutralize, save); the gradient left after subsky, the
+    gains of spcc and pcc against the imbalance, bgneutralize's medians,
+    the final image's shape; then every device op on the card against
+    the CPU on a POST_CROP² crop (the rotation and the background models
+    on a POST_WARP_CROP² one), and its ms per SIZE² RGB image.
+    Returns (rows of the commands, rows of the ops)."""
+    import numpy as np
+
+    from siril_tpu_torch import cli
+    from siril_tpu_torch.astrometry.pcc import layer_median
+    from siril_tpu_torch.io.fits_io import read_fits
+    from siril_tpu_torch.ops.statistics import per_layer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_post_")
+    try:
+        t = time.perf_counter()
+        made = synth_post(tmp, seed + 53, size, POST_STARS)
+        writes_done()
+        log(f"  rendered two {size}² RGB fields of {POST_STARS} stars and "
+            f"their catalogues in {time.perf_counter() - t:.2f}s")
+        with open(os.path.join(tmp, "post.ssf"), "w") as f:
+            f.write(made["script"])
+        with open(os.path.join(tmp, "pcc.ssf"), "w") as f:
+            f.write(PCC_SCRIPT.format(catalog="post_bv.csv"))
+        rows = {}
+        for script in ("post.ssf", "pcc.ssf"):
+            t = time.perf_counter()
+            session = cli.run(["-d", tmp, "-s", os.path.join(tmp, script)])
+            log(f"  {script}: {time.perf_counter() - t:.2f}s")
+            for row in session.command_log:
+                rows[f"{script}: {row['command']}"] = row
+                log(f"    {row['command']}: {row['seconds']:.3f}s" + (
+                    " (" + ", ".join(f"{k} {v:.3f}s" for k, v in
+                                     row["stages"].items()) + ")"
+                    if row["stages"] else ""))
+        files = {n: read_fits(os.path.join(tmp, n + ".fit")).data
+                 for n in ("post_sky", "post_cal", "pcc_sky", "pcc_cal",
+                           "pcc_final", "post_final")}
+        sd = POST_NOISE
+        for name, src in (("post_sky", "post_spcc"), ("pcc_sky", "post_pcc")):
+            for c in range(3):
+                before = np.ptp(tile_medians(made[src][c]))
+                after = np.ptp(tile_medians(files[name][c]))
+                log(f"  {name} layer {c}: gradient {before:.5f} → "
+                    f"{after:.6f} (bound {sd / 3:.5f})")
+                if not after < sd / 3:
+                    raise SystemExit(f"post: subsky left {after} in {name}")
+        for label, a, b in (("spcc", "post_sky", "post_cal"),
+                            ("pcc", "pcc_sky", "pcc_cal")):
+            g = post_gains(files[a], files[b], made)
+            want = 1.0 / np.asarray(POST_IMBALANCE)
+            err = np.abs(g / want - 1.0)
+            log(f"  {label}: gains R/G {g[0]:.4f} B/G {g[2]:.4f} against "
+                f"{want[0]:.4f} / {want[2]:.4f} (off {err[0]:.4f}, "
+                f"{err[2]:.4f}; bound {POST_GAIN_TOL})")
+            if not err.max() <= POST_GAIN_TOL:
+                raise SystemExit(f"post: {label} gains {g} off {want}")
+        meds = per_layer(layer_median, files["pcc_final"])
+        log(f"  bgneutralize: medians {meds}")
+        if np.ptp(meds) > 1e-5:
+            raise SystemExit(f"post: bgneutralize left medians {meds}")
+        # eqcrop's box, 8 px off each side, turned in place, binned by 2
+        # (the lanczos warp may ring a little past 1, as in the reference)
+        fin = files["post_final"]
+        side = made["crop_side"] // 2
+        if fin.shape != (3, side, side) or not np.isfinite(fin).all():
+            raise SystemExit(f"post: the final image is {fin.shape}, "
+                             f"[{fin.min()}, {fin.max()}]")
+        log(f"  final image {fin.shape}, median {np.median(fin):.4f}")
+        ops = post_vs_cpu(files["post_sky"], min(POST_CROP, size),
+                          min(POST_WARP_CROP, size), POST_REPS)
+        log("post: " + json.dumps(dict(commands={
+            k: dict(seconds=v["seconds"], stages=v["stages"])
+            for k, v in rows.items()}, ops=ops)))
+        return rows, ops
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 STACK_RUNS = [("K1b", "rej a 3 3 -norm=addscale"),
               ("K1c", "rej l 3 3 -norm=addscale"),
               ("K1d", "rej g 0.3 0.05 -norm=addscale"),
@@ -3723,6 +4118,8 @@ def main(argv=None) -> int:
         shutil.rmtree(script_root, ignore_errors=True)
     with Phase("mosaic"):
         mosaic_launches, _, _, mosaic_k1e = phase_mosaic(args.seed)
+    with Phase("post"):
+        phase_post(args.seed)
     src = "siril_tpu_torch/csrc/reject_stack.cu"
     tpu = "siril_tpu/pallas/reject_stack.py"
     # K1a runs on several paths: fusedstack (shifts and homographies), and

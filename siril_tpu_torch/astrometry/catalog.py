@@ -6,7 +6,7 @@ the cone search of its local catalogues.  Host numpy.
 
 A plain local catalogue is an ``.npz`` / ``.sscat`` file with the arrays
 ra (deg), dec (deg), mag and optionally bv, sorted by dec, or a CSV with
-the columns ra,dec,mag.  The reference's binary catalogues are
+the columns ra,dec,mag and optionally bv.  The reference's binary catalogues are
 ``gaia_local.py`` (HEALPix) and ``kstars_local.py`` (HTM).
 """
 
@@ -45,11 +45,14 @@ class Catalog:
             return Catalog(ra=z["ra"], dec=z["dec"], mag=z["mag"],
                            bv=z["bv"] if "bv" in z else None,
                            cat_name=os.path.basename(path))
-        # CSV
+        # CSV; a bv column is kept (the JAX package drops it, so that its
+        # pcc refuses a CSV catalogue: ROADMAP §3)
         rows = np.genfromtxt(path, delimiter=",", names=True)
         return Catalog(ra=np.atleast_1d(rows["ra"]),
                        dec=np.atleast_1d(rows["dec"]),
                        mag=np.atleast_1d(rows["mag"]),
+                       bv=np.atleast_1d(rows["bv"])
+                       if "bv" in rows.dtype.names else None,
                        cat_name=os.path.basename(path))
 
     def save(self, path: str) -> None:

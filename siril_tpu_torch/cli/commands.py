@@ -12,7 +12,17 @@
 ``offline``:3048, ``show``:3159, ``catsearch``:3185) and
 ``siril_tpu/cli/commands2.py`` (``setcompress``:134, ``seqmerge_cfa``:369,
 ``seqplatesolve``:477, ``disto``:685, ``healpix``:765, ``trixel``:787,
-``fusedstack``:836).
+``fusedstack``:836), and the image ops of the post-stack session: geometry
+(``crop``:1294, ``resample``:1308, ``rotate``:1331, ``rotatepi``:1345,
+``mirrorx``:1352, ``mirrory``:1376, ``binxy``:1383), the stretches
+(``autostretch``:1397, ``mtf``:1409, ``invmtf``:1418, ``asinh``:1431,
+``ght``:1481, ``invght``:1489, ``modasinh``:1496, ``invmodasinh``:1503,
+``linstretch``:1510, ``autoghs``:1521), colour (``neg``:1556,
+``rmgreen``:1664, ``satu``:1674, ``ccm``:1804, ``split``:2219,
+``rgbcomp``:2236), ``subsky`` (:2197), photometry and colour calibration
+(``pcc``:2402, ``bgneutralize``:2416, ``setphot``:2423, ``spcc``:3072,
+``spcc_list``:3116, ``findcompstars``:3125) and, from commands2.py,
+``catmag`` (:605) and ``eqcrop`` (:712).
 
 Each command keeps the reference's name, argument order and ``-key=value``
 flags, so the standard preprocessing scripts run unchanged.  Device work
@@ -1072,8 +1082,19 @@ def _get_catalog(ctx: Session, flags: dict):
             "SIRIL_TPU_CATALOG)")
     p = ctx.path(path)
     if p.lower().endswith(".cat"):
-        from siril_tpu_torch.astrometry.gaia_local import GaiaLocalCatalogue
+        # the cat_type byte at offset 50 picks the astrometric or the
+        # photometric (XP) reader (healpix_cat.h:11-21)
+        from siril_tpu_torch.astrometry.gaia_local import (
+            CAT_XPCTS,
+            CAT_XPSAMP,
+            GaiaLocalCatalogue,
+            GaiaXPLocalCatalogue,
+        )
 
+        with open(p, "rb") as f:
+            hdr = f.read(51)
+        if len(hdr) > 50 and hdr[50] in (CAT_XPSAMP, CAT_XPCTS):
+            return GaiaXPLocalCatalogue(p)
         return GaiaLocalCatalogue(p)
     if p.lower().endswith((".dat", ".bin")) or "tycho" in p.lower() \
             or "nomad" in os.path.basename(p).lower():
@@ -1366,3 +1387,577 @@ def cmd_online(ctx: Session, args: List[str]) -> None:
 def cmd_offline(ctx: Session, args: List[str]) -> None:
     ctx.online = False
     _log.info("offline mode (local catalogues only)")
+
+
+# ===========================================================================
+# the image ops: geometry, stretches, colour, background
+# ===========================================================================
+
+
+def _need_rgb(ctx: Session, name: str):
+    img = ctx.require_image()
+    if img.nchans != 3:
+        raise CommandError(f"Command {name} requires an RGB image")
+    return img
+
+
+def _keep(ctx: Session, img) -> None:
+    """The loaded image becomes ``img``; its name stays."""
+    ctx.set_image(img, ctx.image_name)
+
+
+def _interp_flag(flags: dict) -> int:
+    from siril_tpu_torch.ops.interp import INTERP_NAMES
+
+    return INTERP_NAMES.get(str(flags.get("interp", "la")).lower(), 3)
+
+
+@command("crop", "crop [x y width height]")
+def cmd_crop(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.geometry import crop
+
+    img = ctx.require_image()
+    if len(args) >= 4:
+        x, y, w, h = (int(float(a)) for a in args[:4])
+    elif ctx.selection:
+        x, y, w, h = ctx.selection
+    else:
+        raise CommandError("crop needs coordinates or a selection")
+    _keep(ctx, crop(img, x, y, w, h, device=ctx.device))
+
+
+@command("resample", "resample factor | -width= | -height= [-interp=] "
+         "[-noclamp]", min_args=1)
+def cmd_resample(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.geometry import resample
+
+    pos, flags = parse_flags(args)
+    img = ctx.require_image()
+    if pos:
+        f = float(pos[0])
+        w, h = int(img.width * f), int(img.height * f)
+    elif "width" in flags:
+        w = int(float(flags["width"]))
+        h = int(round(img.height * w / img.width))
+    elif "height" in flags:
+        h = int(float(flags["height"]))
+        w = int(round(img.width * h / img.height))
+    else:
+        raise CommandError("resample needs a factor or -width=/-height=")
+    _keep(ctx, resample(img, w, h, _interp_flag(flags),
+                        clamp="noclamp" not in flags, device=ctx.device))
+
+
+@command("rotate", "rotate degree [-nocrop] [-interp=] [-noclamp]",
+         min_args=1)
+def cmd_rotate(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.geometry import rotate
+
+    pos, flags = parse_flags(args)
+    _keep(ctx, rotate(ctx.require_image(), float(pos[0]), _interp_flag(flags),
+                      crop_to_fit="nocrop" not in flags,
+                      clamp="noclamp" not in flags, device=ctx.device))
+
+
+@command("rotatepi", "rotatePi")
+def cmd_rotatepi(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.geometry import rotate
+
+    _keep(ctx, rotate(ctx.require_image(), 180.0, device=ctx.device))
+
+
+@command("mirrorx", "mirrorx [-bottomup]")
+def cmd_mirrorx(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.geometry import mirrorx
+
+    _keep(ctx, mirrorx(ctx.require_image(), device=ctx.device))
+
+
+@command("mirrory", "mirrory")
+def cmd_mirrory(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.geometry import mirrory
+
+    _keep(ctx, mirrory(ctx.require_image(), device=ctx.device))
+
+
+@command("binxy", "binxy coefficient [-sum]", min_args=1)
+def cmd_binxy(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.geometry import binxy
+
+    pos, flags = parse_flags(args)
+    _keep(ctx, binxy(ctx.require_image(), int(float(pos[0])),
+                     mean="sum" not in flags, device=ctx.device))
+
+
+@command("autostretch", "autostretch [-linked] [shadowsclip [targetbg]]")
+def cmd_autostretch(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.stretch import autostretch
+
+    pos, flags = parse_flags(args)
+    shadows = float(pos[0]) if pos else -2.80
+    target = float(pos[1]) if len(pos) > 1 else 0.25
+    _keep(ctx, autostretch(ctx.require_image(), shadows, target,
+                           linked="linked" in flags, device=ctx.device))
+
+
+def _mtf_params(args: List[str]):
+    from siril_tpu_torch.ops.stretch import MTFParams
+
+    return MTFParams(shadows=float(args[0]), midtones=float(args[1]),
+                     highlights=float(args[2]))
+
+
+@command("mtf", "mtf low mid high [channels]", min_args=3)
+def cmd_mtf(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.stretch import apply_mtf
+
+    _keep(ctx, apply_mtf(ctx.require_image(), _mtf_params(args),
+                         device=ctx.device))
+
+
+@command("invmtf", "invmtf low mid high", min_args=3)
+def cmd_invmtf(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.stretch import invmtf
+
+    _keep(ctx, invmtf(ctx.require_image(), _mtf_params(args),
+                      device=ctx.device))
+
+
+@command("asinh", "asinh [-human] stretch [offset]", min_args=1)
+def cmd_asinh(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.stretch import asinh_stretch
+
+    pos, flags = parse_flags(args)
+    beta = float(pos[0])
+    offset = float(pos[1]) if len(pos) > 1 else 0.0
+    _keep(ctx, asinh_stretch(ctx.require_image(), beta, offset,
+                             human_luminance="human" in flags,
+                             device=ctx.device))
+
+
+def _ght_cmd(ctx: Session, args: List[str], stretchtype: int) -> None:
+    """-D= -B= -LP= -SP= -HP= -BP= (or D B LP SP HP as words) and the
+    colour model (-human, -even, -sat, -independent)."""
+    from siril_tpu_torch.ops.stretch import (
+        COL_EVENLUM,
+        COL_HUMANLUM,
+        COL_INDEP,
+        COL_SAT,
+        GHTParams,
+        apply_ght,
+    )
+
+    pos, flags = parse_flags(args)
+    p = GHTParams(stretchtype=stretchtype)
+    p.D = _f(flags.get("d"), None)
+    p.B = _f(flags.get("b"), 0.0) or 0.0
+    p.LP = _f(flags.get("lp"), 0.0) or 0.0
+    p.SP = _f(flags.get("sp"), 0.0) or 0.0
+    p.HP = _f(flags.get("hp"), 1.0) or 1.0
+    p.BP = _f(flags.get("bp"), 0.0) or 0.0
+    if p.D is None:
+        if not pos:
+            raise CommandError("ght needs -D= or positional D")
+        vals = [float(x) for x in pos]
+        for attr, v in zip(("D", "B", "LP", "SP", "HP"), vals):
+            setattr(p, attr, v)
+    for flag, model in (("human", COL_HUMANLUM), ("even", COL_EVENLUM),
+                        ("sat", COL_SAT), ("independent", COL_INDEP)):
+        if flag in flags:
+            p.payne_colourstretchmodel = model
+            break
+    _keep(ctx, apply_ght(ctx.require_image(), p, device=ctx.device))
+
+
+@command("ght", "ght -D= [-B=] [-LP=] [-SP=] [-HP=] [-human|-even|-sat]",
+         min_args=1)
+def cmd_ght(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.stretch import STRETCH_PAYNE_NORMAL
+
+    _ght_cmd(ctx, args, STRETCH_PAYNE_NORMAL)
+
+
+@command("invght", "invght -D= …", min_args=1)
+def cmd_invght(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.stretch import STRETCH_PAYNE_INVERSE
+
+    _ght_cmd(ctx, args, STRETCH_PAYNE_INVERSE)
+
+
+@command("modasinh", "modasinh -D= …", min_args=1)
+def cmd_modasinh(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.stretch import STRETCH_ASINH
+
+    _ght_cmd(ctx, args, STRETCH_ASINH)
+
+
+@command("invmodasinh", "invmodasinh -D= …", min_args=1)
+def cmd_invmodasinh(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.stretch import STRETCH_INVASINH
+
+    _ght_cmd(ctx, args, STRETCH_INVASINH)
+
+
+@command("linstretch", "linstretch -BP=", min_args=1)
+def cmd_linstretch(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.stretch import linstretch
+
+    pos, flags = parse_flags(args)
+    bp = _f(flags.get("bp"), None)
+    if bp is None and pos:
+        bp = float(pos[0])
+    _keep(ctx, linstretch(ctx.require_image(), bp or 0.0, device=ctx.device))
+
+
+@command("autoghs", "autoghs [-linked] shadowsclip stretchamount [-b=] "
+         "[-hp=] [-lp=]", min_args=2)
+def cmd_autoghs(ctx: Session, args: List[str]) -> None:
+    """A GHT with SP at the layers' mean median + shadowsclip·MAD·1.4826
+    (the mean MAD), D the stretch amount, B 13 and HP 0.7 by default."""
+    from siril_tpu_torch.ops.statistics import STATS_MAD, compute_stats_np
+    from siril_tpu_torch.ops.stretch import GHTParams, apply_ght
+
+    pos, flags = parse_flags(args)
+    shadows_clip = float(pos[0])
+    amount = float(pos[1])
+    img = ctx.require_image()
+    data = img.host()
+    stats = [compute_stats_np(data[c], STATS_MAD) for c in range(img.nchans)]
+    m = float(np.mean([s.median for s in stats]))
+    mad = float(np.mean([s.mad for s in stats])) * 1.4826
+    p = GHTParams(D=amount, B=_f(flags.get("b"), 13.0) or 13.0,
+                  SP=max(m + shadows_clip * mad, 0.0),
+                  LP=_f(flags.get("lp"), 0.0) or 0.0,
+                  HP=_f(flags.get("hp"), 0.7) or 0.7)
+    _keep(ctx, apply_ght(img, p, device=ctx.device))
+
+
+@command("neg", "neg")
+def cmd_neg(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.colors import negative
+
+    _keep(ctx, negative(ctx.require_image(), device=ctx.device))
+
+
+@command("rmgreen", "rmgreen [type] [-nopreserve]")
+def cmd_rmgreen(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.colors import scnr
+
+    img = _need_rgb(ctx, "rmgreen")
+    pos, flags = parse_flags(args)
+    t = "avgneutral" if not pos or pos[0] == "0" else "maxneutral"
+    _keep(ctx, scnr(img, t, preserve_lightness="nopreserve" not in flags,
+                    device=ctx.device))
+
+
+#: satu's hue ranges by index (6, every hue, is the default)
+SATU_HUES = [(330, 30), (30, 90), (90, 150), (150, 210), (210, 270),
+             (270, 330), (0, 360)]
+
+
+@command("satu", "satu amount [background_factor [hue_range_index]]",
+         min_args=1)
+def cmd_satu(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.colors import saturation
+
+    img = _need_rgb(ctx, "satu")
+    amount = float(args[0])
+    bkg = float(args[1]) if len(args) > 1 else 1.0
+    hr = SATU_HUES[int(float(args[2]))] if len(args) > 2 else SATU_HUES[6]
+    _keep(ctx, saturation(img, amount, bkg, hr[0], hr[1], device=ctx.device))
+
+
+@command("ccm", "ccm m00 m01 m02 m10 m11 m12 m20 m21 m22 [gamma]",
+         min_args=9)
+def cmd_ccm(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.colors import apply_ccm
+
+    img = _need_rgb(ctx, "ccm")
+    m = [float(a) for a in args[:9]]
+    gamma = float(args[9]) if len(args) > 9 else 1.0
+    _keep(ctx, apply_ccm(img, m, gamma, device=ctx.device))
+
+
+@command("split", "split r g b [-hsl|-hsv|-lab]", min_args=3)
+def cmd_split(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.io.fits_io import write_fits
+    from siril_tpu_torch.ops.colors import split_channels
+
+    img = _need_rgb(ctx, "split")
+    pos, flags = parse_flags(args)
+    space = "rgb"
+    for s in ("hsl", "hsv", "lab"):
+        if s in flags:
+            space = s
+    for name, im in zip(pos[:3], split_channels(img, space,
+                                                device=ctx.device)):
+        write_fits(im, ctx.path(name + ctx.ext))
+    _log.info("Split into %s channels", space)
+
+
+def _load_operand(ctx: Session, name: str):
+    from siril_tpu_torch.io.conversion import load_any
+
+    p = ctx.path(name)
+    if not os.path.exists(p):
+        p = p + ctx.ext
+    return load_any(p)
+
+
+@command("rgbcomp", "rgbcomp r g b [-lum=] [-out=]", min_args=3)
+def cmd_rgbcomp(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.io.fits_io import write_fits
+    from siril_tpu_torch.ops.colors import align_rgb_channels, rgb_compose
+
+    pos, flags = parse_flags(args)
+    lum = _load_operand(ctx, flags["lum"]) \
+        if isinstance(flags.get("lum"), str) else None
+    r, g, b = (_load_operand(ctx, p) for p in pos[:3])
+    out = rgb_compose(r, g, b, lum=lum, device=ctx.device)
+    if "align" in flags:
+        out = align_rgb_channels(out)
+    name = flags.get("out") if isinstance(flags.get("out"), str) \
+        else "composed"
+    write_fits(out, ctx.path(name + ctx.ext))
+    ctx.set_image(out, name)
+
+
+@command("subsky", "subsky {-rbf | degree} [-samples=] [-tolerance=] "
+         "[-smooth=] [-dither] [-divide]", min_args=1)
+def cmd_subsky(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.background import (
+        BKG_POLY,
+        BKG_RBF,
+        DIVIDE,
+        SUBTRACT,
+        extract_background,
+    )
+
+    pos, flags = parse_flags(args)
+    if "rbf" in flags:
+        method, degree = BKG_RBF, 0
+    else:
+        method, degree = BKG_POLY, int(float(pos[0])) if pos else 4
+    corr = DIVIDE if str(flags.get("mode", "")).lower() == "divide" \
+        or "divide" in flags else SUBTRACT
+    _keep(ctx, extract_background(
+        ctx.require_image(), method, degree,
+        smoothing=_f(flags.get("smooth"),
+                     _f(flags.get("smoothness"), 0.5)) or 0.5,
+        nb_samples=int(_f(flags.get("samples"), 20) or 20),
+        tolerance=_f(flags.get("tolerance"), 1.0) or 1.0,
+        correction=corr, dither="dither" in flags, device=ctx.device,
+        stages=ctx.stages))
+
+
+# ===========================================================================
+# photometry and colour calibration
+# ===========================================================================
+
+
+def _phot_cfg(ctx: Session):
+    return dataclasses.replace(ctx.phot)
+
+
+@command("pcc", "pcc [-limitmag=] [-catalog=]")
+def cmd_pcc(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.astrometry.pcc import photometric_color_calibration
+
+    img = _need_rgb(ctx, "pcc")
+    pos, flags = parse_flags(args)
+    cat = _get_catalog(ctx, flags)
+    out = photometric_color_calibration(
+        img, cat, mag_limit=_f(flags.get("limitmag"), 13.0) or 13.0,
+        device=ctx.device, stages=ctx.stages)
+    if out is None:
+        raise CommandError("PCC failed")
+    _keep(ctx, out)
+
+
+@command("bgneutralize", "bgneutralize")
+def cmd_bgneutralize(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.astrometry.pcc import background_neutralization
+
+    _keep(ctx, background_neutralization(_need_rgb(ctx, "bgneutralize"),
+                                         device=ctx.device,
+                                         stages=ctx.stages))
+
+
+@command("setphot", "setphot [-inner=] [-outer=] [-aperture=] "
+         "[-force_radius=] [-gain=]")
+def cmd_setphot(ctx: Session, args: List[str]) -> None:
+    """The photometry settings that catmag's measurements take (the
+    reference's -min_val= and -max_val= are read and not used, as in the
+    JAX package)."""
+    pos, flags = parse_flags(args)
+    p = ctx.phot
+    for key in ("inner", "outer", "aperture", "gain"):
+        if key in flags:
+            setattr(p, key, float(flags[key]))
+    if "force_radius" in flags:
+        p.force_radius = str(flags["force_radius"]).lower() in (
+            "1", "yes", "true")
+    _log.info("photometry: inner=%s outer=%s aperture=%s gain=%s",
+              p.inner, p.outer, p.aperture, p.gain)
+
+
+@command("spcc", "spcc [-limitmag=] [-monosensor=|-oscsensor=] [-rfilter=] "
+         "[-gfilter=] [-bfilter=] [-oscfilter=] [-narrowband [-rwl= -gwl= "
+         "-bwl= -rbw= -gbw= -bbw=]] [-atmos [-obsheight=] "
+         "[-pressure=|-slp=]] [-catalog=]")
+def cmd_spcc(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.astrometry.spcc import (
+        ResponseLibrary,
+        atmospheric_transmission,
+        narrowband_filters,
+        spcc,
+    )
+
+    img = _need_rgb(ctx, "spcc")
+    pos, flags = parse_flags(args)
+    cat = _get_catalog(ctx, flags)
+    sensor = str(flags.get("monosensor") or flags.get("oscsensor")
+                 or flags.get("sensor") or "generic_qe")
+    filters = (str(flags.get("rfilter", "R")),
+               str(flags.get("gfilter", "G")),
+               str(flags.get("bfilter", "B")))
+    if isinstance(flags.get("oscfilter"), str):
+        filters = (flags["oscfilter"],) * 3
+    extra_resp = None
+    if "narrowband" in flags:
+        extra_resp = narrowband_filters(
+            **{k: _f(flags.get(k), d) or d for k, d in (
+                ("rwl", 656.28), ("gwl", 500.7), ("bwl", 500.7),
+                ("rbw", 3.0), ("gbw", 3.0), ("bbw", 3.0))})
+    atmos = None
+    if "atmos" in flags:
+        atmos = atmospheric_transmission(
+            obsheight_m=_f(flags.get("obsheight"), 0.0) or 0.0,
+            pressure_mbar=_f(flags.get("pressure"),
+                             _f(flags.get("slp"), None)))
+    out = spcc(img, cat, sensor=sensor, filters=filters,
+               library=ResponseLibrary(),
+               mag_limit=_f(flags.get("limitmag"), 13.0) or 13.0,
+               extra_responses=extra_resp, atmosphere=atmos,
+               device=ctx.device, stages=ctx.stages)
+    if out is None:
+        raise CommandError("SPCC failed")
+    _keep(ctx, out)
+
+
+@command("spcc_list", "spcc_list {sensors|filters}")
+def cmd_spcc_list(ctx: Session, args: List[str]) -> List[str]:
+    from siril_tpu_torch.astrometry.spcc import ResponseLibrary
+
+    names = ResponseLibrary().names()
+    for name in names:
+        _log.info("%s", name)
+    return names
+
+
+@command("findcompstars", "findcompstars x y [-dvmag=] [-dbv=] [-emag=] "
+         "[-narrow|-wide] [-out=] [-catalog=]", min_args=2)
+def cmd_findcompstars(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.astrometry.compstars import (
+        CompStarArgs,
+        export_compstars_list,
+        export_nina_csv,
+        find_comp_stars,
+    )
+
+    pos, flags = parse_flags(args)
+    cat = _get_catalog(ctx, flags)
+    ca = CompStarArgs()
+    if "emag" in flags:
+        ca.max_emag = float(flags["emag"])
+    if "narrow" in flags:
+        ca.narrow_fov = True
+    if "wide" in flags:
+        ca.narrow_fov = False
+    if "dvmag" in flags:
+        ca.delta_vmag = float(flags["dvmag"])
+    if "dbv" in flags:
+        ca.delta_bv = float(flags["dbv"])
+    try:
+        target, comps = find_comp_stars(
+            ctx.require_image(), cat, (float(pos[0]), float(pos[1])), ca)
+    except ValueError as e:
+        raise CommandError(str(e))
+    out = flags.get("out") if isinstance(flags.get("out"), str) \
+        else "compstars"
+    export_compstars_list(target, comps, ctx.path(out + ".lst"))
+    export_nina_csv(target, comps, ctx.path(out + ".csv"))
+    _log.info("wrote %s.lst and %s.csv", out, out)
+
+
+@command("catmag", "catmag [reftemp] [dtemp]")
+def cmd_catmag(ctx: Session, args: List[str]) -> float:
+    """The absolute magnitude offset (process_catmag_mono): stars detected
+    on the session's device matched to the catalogue within 4 px, the
+    offset median(catalogue − instrumental magnitude)."""
+    import torch
+
+    from siril_tpu_torch.device import resolve_device
+    from siril_tpu_torch.ops.photometry import measure_star
+    from siril_tpu_torch.registration.starfinder import detect_stars
+
+    img = ctx.require_image()
+    if img.wcs is None:
+        raise CommandError("image is not plate solved")
+    cat = _get_catalog(ctx, {})
+    w = img.wcs
+    ra_c, dec_c = w.pix2world(np.array([img.width / 2.0]),
+                              np.array([img.height / 2.0]))
+    fov = w.pixel_scale_arcsec * max(img.width, img.height) / 3600.0
+    cone = cat.cone_search(float(ra_c[0]), float(dec_c[0]), fov / 1.5, 15.0)
+    cx, cy = w.world2pix(cone.ra, cone.dec)
+    lay = img.host()[1 if img.nchans == 3 else 0]
+    stars = detect_stars(torch.from_numpy(lay).to(resolve_device(ctx.device)),
+                         _sf_params(ctx))
+    cvf = float(img.keywords.extra.get("CVF", 0.0) or 0.0)
+    offs = []
+    for s in stars:
+        d2 = (cx - s.x0) ** 2 + (cy - s.y0) ** 2
+        k = int(np.argmin(d2))
+        if d2[k] > 4.0 ** 2:
+            continue
+        phot = measure_star(lay, s.x0, s.y0, s.fwhmx, _phot_cfg(ctx),
+                            cvf or None)
+        if phot.valid and np.isfinite(cone.mag[k]):
+            offs.append(float(cone.mag[k]) - phot.mag)
+    if len(offs) < 3:
+        raise CommandError("catmag: not enough matched stars")
+    ctx.magnitude_offset = float(np.median(offs))
+    _log.info("Absolute magnitude offset: %.3f (%d stars)",
+              ctx.magnitude_offset, len(offs))
+    return ctx.magnitude_offset
+
+
+@command("eqcrop", "eqcrop ra1 dec1 ra2 dec2 [-marginpx=|-marginasec=] "
+         "[-minsize=]", min_args=4)
+def cmd_eqcrop(ctx: Session, args: List[str]) -> None:
+    """Crop to a sky-coordinate rectangle (process_eqcrop)."""
+    from siril_tpu_torch.ops.geometry import crop
+    from siril_tpu_torch.ops.wcs import parse_dec, parse_ra
+
+    img = ctx.require_image()
+    if img.wcs is None:
+        raise CommandError("image is not plate solved")
+    pos, flags = parse_flags(args)
+    ra1, dec1 = parse_ra(pos[0]), parse_dec(pos[1])
+    ra2, dec2 = parse_ra(pos[2]), parse_dec(pos[3])
+    xs, ys = img.wcs.world2pix(np.array([ra1, ra2]), np.array([dec1, dec2]))
+    margin = int(_f(flags.get("marginpx"), 0) or 0)
+    if "marginasec" in flags:
+        margin = int(round(float(flags["marginasec"])
+                           / img.wcs.pixel_scale_arcsec))
+    x0 = max(0, int(np.floor(min(xs))) - margin)
+    x1 = min(img.width, int(np.ceil(max(xs))) + margin)
+    y0 = max(0, int(np.floor(min(ys))) - margin)
+    y1 = min(img.height, int(np.ceil(max(ys))) + margin)
+    minsize = int(_f(flags.get("minsize"), 32) or 32)
+    if x1 - x0 < minsize or y1 - y0 < minsize:
+        raise CommandError("eqcrop: target region too small or outside "
+                           "the image")
+    _keep(ctx, crop(img, x0, y0, x1 - x0, y1 - y0, device=ctx.device))
+    _log.info("eqcrop: %dx%d at (%d,%d)", x1 - x0, y1 - y0, x0, y0)

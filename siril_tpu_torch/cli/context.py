@@ -3,7 +3,8 @@
 ``_find_film``:73, ``load_sequence``:86, ``CommandError``:118): the
 working directory, the FITS extension, the star-finder preferences, the
 FITS compression of ``save`` (``setcompress``), whether remote catalogues
-may be queried (``online``), the loaded image and its name, the current
+may be queried (``online``), the photometry settings (``setphot``) and the
+magnitude offset (``catmag``), the loaded image and its name, the current
 sequence and the last result of a headless run.
 (The reference's undo stack is not ported: ROADMAP §1.7, the surfaces.)
 """
@@ -16,6 +17,7 @@ from typing import List, Optional
 
 from siril_tpu_torch.core.image import SirilImage
 from siril_tpu_torch.core.sequence import Sequence
+from siril_tpu_torch.ops.photometry import PhotConfig
 from siril_tpu_torch.registration.starfinder import StarFinderParams
 
 
@@ -39,6 +41,12 @@ class Session:
     #: ``online`` / ``offline``: the live TAP / SIMBAD transport may run
     #: (recorded fixtures serve queries either way)
     online: bool = False
+    #: setphot: the aperture photometry settings (catmag)
+    phot: PhotConfig = field(default_factory=PhotConfig)
+    #: a selection (x, y, w, h) that ``crop`` takes without arguments
+    selection: Optional[tuple] = None
+    #: catmag: the absolute magnitude offset
+    magnitude_offset: float = 0.0
     sequence: Optional[Sequence] = None
     image: Optional[SirilImage] = None
     image_name: str = ""

@@ -3,8 +3,10 @@
 A trimmed copy: the fields and keywords the ported commands read and
 write (``_finalize_metadata``, calibration, the FITS boundary) and the
 plate solution (``wcs``: an ``ops.wcs.WCS`` or None, shared by copies as
-in the JAX package, ``core/image.py:119, 186-198``).  Pixel data is a
-planar (C, H, W) float32 numpy array in Siril's [0, 1] convention.
+in the JAX package, ``core/image.py:119, 186-198``), and the mask that
+the image ops blend their result through (``mask``, ``mask_active``,
+``apply_mask_blend``: ``core/image.py:117-118, 207-216``).  Pixel data is
+a planar (C, H, W) float32 numpy array in Siril's [0, 1] convention.
 """
 
 from __future__ import annotations
@@ -72,6 +74,8 @@ class SirilImage:
     orig_bitdepth: int = FLOAT_IMG
     history: list = field(default_factory=list)
     wcs: Optional[Any] = None
+    mask: Optional[Any] = None          # (H, W) float32 in [0, 1], or None
+    mask_active: bool = False
 
     @property
     def nchans(self) -> int:
@@ -98,7 +102,26 @@ class SirilImage:
         d = data if data is not None else np.array(self.data)
         return SirilImage(data=d, keywords=self.keywords.copy(),
                           orig_bitdepth=self.orig_bitdepth,
-                          history=list(self.history), wcs=self.wcs)
+                          history=list(self.history), wcs=self.wcs,
+                          mask=None if self.mask is None
+                          else np.array(self.mask),
+                          mask_active=self.mask_active)
 
     def log_history(self, msg: str) -> None:
         self.history.append(msg)
+
+    def apply_mask_blend(self, new_data):
+        """``mask·new + (1 − mask)·old`` while a mask is active, else
+        ``new_data`` (src/core/masks.c's blend): on the device of a
+        tensor result, in numpy for an array."""
+        if not self.mask_active or self.mask is None:
+            return new_data
+        if isinstance(new_data, np.ndarray):
+            m = np.asarray(self.mask, np.float32)[None]
+            return m * new_data + (1.0 - m) * self.host()
+        import torch
+
+        dev = new_data.device
+        m = torch.from_numpy(np.asarray(self.mask, np.float32)).to(dev)[None]
+        old = torch.from_numpy(self.host()).to(dev)
+        return m * new_data + (1.0 - m) * old

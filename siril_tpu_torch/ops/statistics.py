@@ -4,7 +4,9 @@ of ``compute_stats_np(…, STATS_BASIC)`` (:223) with the background noise
 ``bgnoise_np`` (:177) / ``_bgnoise_dense`` (:132), ``hist_median_jax``
 (:344) and ``norm_estimators_hist_jax`` (:413); and the host numpy
 IKSSlite of the overlap normalization (``median_np``:89, ``mad_np``:93,
-``bwmv_np``:101, ``ikss_lite_np``:114).
+``bwmv_np``:101, ``ikss_lite_np``:114).  The image ops read the host
+``compute_stats_np`` (:223; STATS_BASIC and STATS_MAD, with ``sd_np``:73,
+``bgnoise_np``:177 and ``_diff_sigma``:215) as the JAX package does.
 
 The reference's median is the lower-median sample for odd counts and the
 mean of the middle pair for even counts, 0 for an empty row.  The TPU
@@ -239,3 +241,146 @@ def ikss_lite_np(x: np.ndarray, med: float, mad: float):
     if m2 == 0.0:
         return None
     return loc, float(np.sqrt(bwmv_np(kept, m2, loc)) * 0.991)
+
+
+# ---------------------------------------------------------------------------
+# host numpy statistics of one layer (``compute_stats_np``: the autostretch
+# finders, pcc, spcc, bgneutralize and satu read them on the host, as the
+# JAX package does)
+# ---------------------------------------------------------------------------
+
+#: stats option bitmask (statistics.h:25-37)
+STATS_SIGMEAN = 1 << 1
+STATS_BASIC = 1 << 2
+STATS_MAD = 1 << 3
+
+
+def sd_np(x: np.ndarray) -> float:
+    """Sample sd (N−1) with float64 sums over float32 deviations from a
+    float32 mean (statistics.h:82-106)."""
+    n = x.size
+    if n < 2:
+        return 0.0
+    mean = np.float32(x.sum(dtype=np.float64) / n)
+    d = x - mean
+    vsum = np.einsum("i,i->", d, d, dtype=np.float64)
+    return float(np.sqrt(np.float32(vsum / (n - 1))))
+
+
+def _diff_sigma(d: np.ndarray, mean: float) -> float:
+    n = d.size
+    if n < 2:
+        return 0.0
+    v = ((d.astype(np.float64) - mean) ** 2).sum() / (n - 1)
+    return float(np.sqrt(v))
+
+
+def _bgnoise_dense_np(layer2d: np.ndarray, sigma_clip: float,
+                      niter: int) -> float:
+    """FnNoise1 of a layer with no invalid pixel: every row at once."""
+    d = (layer2d[:, :-1] - layer2d[:, 1:]).astype(np.float32)
+    ny, m = d.shape
+    keep = np.ones_like(d, bool)
+    cnt = np.full(ny, m, np.int64)
+    mean = d.sum(axis=1, dtype=np.float64) / m
+    dev = d - mean[:, None].astype(np.float32)
+    vsum = (dev * dev).sum(axis=1, dtype=np.float64)
+    stdev = np.sqrt(vsum / np.maximum(cnt - 1, 1))
+    frozen = np.zeros(ny, bool)
+    for _ in range(niter):
+        active = ~frozen & (stdev > 0.0)
+        if not active.any():
+            break
+        thr = (sigma_clip * stdev).astype(np.float32)
+        nkeep = keep & (np.abs(d - mean[:, None].astype(np.float32))
+                        < thr[:, None])
+        changed = active & ((nkeep != keep).any(axis=1))
+        frozen |= ~changed
+        if not changed.any():
+            break
+        keep = np.where(changed[:, None], nkeep, keep)
+        cnt = keep.sum(axis=1)
+        small = changed & (cnt < 2)      # < 2 survivors: keep last stdev
+        frozen |= small
+        upd = changed & ~small
+        if upd.any():
+            dk = np.where(keep, d, np.float32(0.0))
+            nm = dk.sum(axis=1, dtype=np.float64) / np.maximum(cnt, 1)
+            devk = np.where(keep, d - nm[:, None].astype(np.float32),
+                            np.float32(0.0))
+            nv = (devk * devk).sum(axis=1, dtype=np.float64)
+            ns = np.sqrt(nv / np.maximum(cnt - 1, 1))
+            mean = np.where(upd, nm, mean)
+            stdev = np.where(upd, ns, stdev)
+    return float(np.median(stdev / np.sqrt(2.0)))
+
+
+def bgnoise_np(layer2d: np.ndarray) -> float:
+    """FnNoise1 (quantize.c) on the host: the median over rows of the
+    5σ-clipped (3 passes) sd of the first differences between valid
+    pixels, over √2."""
+    sigma_clip, niter = 5.0, 3
+    ny, nx = layer2d.shape
+    if nx < 3:
+        return 0.0
+    if not ((layer2d == 0.0) | np.isnan(layer2d)).any():
+        return _bgnoise_dense_np(layer2d, sigma_clip, niter)
+    out = []
+    for j in range(ny):
+        row = layer2d[j]
+        good = row[(row != 0.0) & ~np.isnan(row)]
+        if good.size < 3:
+            continue
+        d = (good[:-1] - good[1:]).astype(np.float32)
+        mean = float(d.astype(np.float64).mean())
+        stdev = _diff_sigma(d, mean)
+        if stdev > 0.0:
+            for _ in range(niter):
+                keep = np.abs(d - np.float32(mean)) < sigma_clip * stdev
+                if keep.all():
+                    break
+                d = d[keep]
+                if d.size < 2:
+                    break
+                mean = float(d.astype(np.float64).mean())
+                stdev = _diff_sigma(d, mean)
+        out.append(stdev / np.sqrt(2.0))
+    return float(np.median(out)) if out else 0.0
+
+
+def per_layer(fn, layers) -> list:
+    """[fn(layer) for layer in layers], the layers on host threads at once
+    (numpy's medians and sums release the GIL; each result is the one a
+    loop gives)."""
+    import concurrent.futures as cf
+
+    layers = list(layers)
+    if len(layers) < 2:
+        return [fn(x) for x in layers]
+    with cf.ThreadPoolExecutor(max_workers=len(layers)) as pool:
+        return list(pool.map(fn, layers))
+
+
+def compute_stats_np(layer2d: np.ndarray,
+                     options: int = STATS_BASIC) -> ImStats:
+    """imstats of one host layer (``compute_stats_np``:223) for the
+    STATS_SIGMEAN, STATS_BASIC and STATS_MAD options, over the non-zero,
+    non-NaN pixels."""
+    st = ImStats()
+    flat = layer2d.ravel()
+    st.total = flat.size
+    good = flat[(flat != 0.0) & ~np.isnan(flat)]
+    st.ngoodpix = good.size
+    if good.size == 0:
+        return st
+    if options & (STATS_BASIC | STATS_SIGMEAN):
+        st.mean = float(good.sum(dtype=np.float64) / good.size)
+        st.sigma = sd_np(good)
+        st.min = float(good.min())
+        st.max = float(good.max())
+        st.bgnoise = bgnoise_np(layer2d)
+    if options & (STATS_BASIC | STATS_MAD):
+        st.median = median_np(good)
+    if options & STATS_MAD:
+        st.mad = mad_np(good, st.median)
+    return st

@@ -102,8 +102,9 @@ def test_healpix_htm_and_cone_search_vs_jax():
 
 def test_catalogue_files_across_packages(tmp_path):
     """npz / CSV, the binary Gaia catalogue and the KStars catalogue,
-    each written by one package and read by the other; the XP kinds of
-    the Gaia format raise in the port (ROADMAP §1.5)."""
+    each written by one package and read by the other; the astrometric
+    reader refuses the XP kinds of the Gaia format in both packages (their
+    reader is ``GaiaXPLocalCatalogue``, tests/test_torch_photometric.py)."""
     rng = np.random.default_rng(91)
     ra, dec, mag = _sky(rng)
     bmag = mag + rng.uniform(-0.2, 1.2, len(mag))
@@ -141,8 +142,9 @@ def test_catalogue_files_across_packages(tmp_path):
         assert len(a.cone_search(180.0, 10.0, 1.0, 13.0)) >= 25
     jgaia.write_gaia_xpsamp(str(tmp_path / "xp.cat"), ra[:5], dec[:5],
                             mag[:5], np.ones((5, 343)) * 1e-17)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1.5"):
-        tgaia.GaiaLocalCatalogue(str(tmp_path / "xp.cat"))
+    for reader in (tgaia.GaiaLocalCatalogue, jgaia.GaiaLocalCatalogue):
+        with pytest.raises(ValueError, match="unsupported catalogue type"):
+            reader(str(tmp_path / "xp.cat"))
     # KStars (HTM)
     tks.write_kstars_catalogue(str(tmp_path / "t_tycho.dat"), ra, dec, mag,
                                bmag=bmag, level=3)

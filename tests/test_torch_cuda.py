@@ -752,3 +752,120 @@ def test_platesolve_on_card_vs_cpu():
                                rtol=0, atol=1e-6)
     np.testing.assert_allclose(res["cuda"].wcs.cd, res["cpu"].wcs.cd,
                                rtol=0, atol=1e-6 * s)
+
+
+def _post_image(seed, size=192):
+    """A small stacked RGB field: a sky gradient, noise and stars."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    d = np.empty((3, size, size), np.float32)
+    for c in range(3):
+        f = 0.1 + 0.02 * (xx / size) ** 2 + rng.normal(0, 0.003, (size, size))
+        for _ in range(25):
+            x0, y0 = rng.uniform(8, size - 8, 2)
+            f += rng.uniform(0.05, 0.6) * np.exp(
+                -((xx - x0) ** 2 + (yy - y0) ** 2) / 4.5)
+        d[c] = np.clip(f, 0, 1)
+    return d
+
+
+@pytest.mark.cuda
+def test_post_ops_on_card_vs_cpu():
+    """Every device op of the post-stack session (chip_smoke.post_ops: the
+    stretches, the GHT family in every colour model, the colour ops, the
+    binning and the pcc / spcc apply) and the image entry points (with
+    the rotation, without its clamp) on the card against the CPU, within
+    the CPU tests' bounds against the JAX package (2e-6, 1e-5, 1.2e-7, or
+    equal)."""
+    _need_card()
+    import chip_smoke
+    from siril_tpu_torch.ops import colors as col
+    from siril_tpu_torch.ops import geometry as geo
+    from siril_tpu_torch.ops import stretch as st
+
+    d = _post_image(88)
+    x = torch.from_numpy(d)
+    for label, fn, bound in chip_smoke.post_ops():
+        a = fn(x).numpy()
+        b = fn(x.cuda()).cpu().numpy()
+        assert float(np.max(np.abs(a.astype(np.float64) - b))) <= bound, \
+            label
+    img = SirilImage(data=d)
+    for fn, bound in ((lambda dev: st.autostretch(img, device=dev), 2e-6),
+                      (lambda dev: col.saturation(img, 0.5, 1.0,
+                                                  device=dev), 1e-5),
+                      (lambda dev: col.scnr(img, "maxneutral", 0.7, False,
+                                            device=dev), 2e-6),
+                      (lambda dev: geo.crop(img, 5, 7, 100, 90,
+                                            device=dev), 0.0),
+                      (lambda dev: geo.mirrorx(img, device=dev), 0.0),
+                      (lambda dev: geo.rotate(img, 7.5, clamp=False,
+                                              device=dev), 2e-6),
+                      (lambda dev: geo.binxy(img, 3, False, device=dev),
+                       1.2e-7)):
+        a, b = fn("cpu").data, fn("cuda").data
+        assert float(np.max(np.abs(a - b))) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", [0, 1])
+def test_subsky_on_card_vs_cpu(method):
+    """subsky (poly 2 and RBF) on the card against the CPU within 1e-5;
+    the RBF evaluated in row blocks within 1e-6 of it whole, taking at
+    most its blocks' memory beyond the image (four float32 (pixels,
+    samples) temporaries)."""
+    _need_card()
+    from siril_tpu_torch.ops import background as bg
+
+    d = _post_image(89, 256)
+    img = SirilImage(data=d)
+    a = bg.extract_background(img, method, 2, device="cpu").data
+    b = bg.extract_background(img, method, 2, device="cuda").data
+    assert float(np.max(np.abs(a - b))) <= 1e-5
+    if method == 1:
+        s = bg.generate_samples(d[0], 20, 1.0)
+        n = sum(x.valid for x in s)
+        block = 8 * 256 * n
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        whole = bg.compute_background_rbf(s, (256, 256), 0.5, "cuda")
+        rows = bg.compute_background_rbf(s, (256, 256), 0.5, "cuda",
+                                         block_elems=block)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        # cuBLAS sums the samples of a block in another order for another
+        # block height: within float32 sums of ~400 terms
+        assert float((whole - rows).abs().max()) <= 1e-6
+        # the grids, the float64 affine part and the result, and at most
+        # four block temporaries of the whole evaluation
+        assert peak <= 256 * 256 * (4 * 2 + 8 * 3 + 4 * 2) + \
+            4 * 4 * 256 * 256 * n
+
+
+@pytest.mark.cuda
+def test_pcc_spcc_on_card_vs_cpu(tmp_path):
+    """pcc and spcc (chip_smoke.synth_post's fields at 256²) on the card
+    against the CPU: the same gains, the images bit-equal (the apply is
+    float64 on both devices)."""
+    _need_card()
+    import chip_smoke
+    from siril_tpu_torch.astrometry.catalog import Catalog
+    from siril_tpu_torch.astrometry.gaia_local import GaiaXPLocalCatalogue
+    from siril_tpu_torch.astrometry.pcc import photometric_color_calibration
+    from siril_tpu_torch.astrometry.spcc import spcc
+
+    made = chip_smoke.synth_post(str(tmp_path), 90, 256, 60)
+    chip_smoke.writes_done()
+    w = chip_smoke.sky_wcs(256)
+    for name, run in (
+            ("post_spcc", lambda img, dev: spcc(
+                img, GaiaXPLocalCatalogue(str(tmp_path / "post_xp.cat")),
+                mag_limit=20.0, device=dev)),
+            ("post_pcc", lambda img, dev: photometric_color_calibration(
+                img, Catalog.load(str(tmp_path / "post_bv.csv")),
+                mag_limit=20.0, device=dev))):
+        img = SirilImage(data=made[name], wcs=w)
+        a, b = run(img, "cpu"), run(img, "cuda")
+        assert a.history[-1] == b.history[-1]
+        assert np.array_equal(a.data, b.data)

@@ -131,6 +131,46 @@ def test_default_device_is_cuda(monkeypatch, tmp_path):
                             debayer=True)
 
 
+def test_image_ops_default_to_cuda(monkeypatch, tmp_path):
+    """The image ops of the post-stack session (the stretches, the colour
+    ops, the geometry, subsky, pcc / spcc / bgneutralize and their
+    commands) run on CUDA unless asked for the CPU, and raise without a
+    card; the new modules are among those imported without JAX above."""
+    names = set(_port_modules())
+    for m in ("ops.stretch", "ops.colors", "ops.background",
+              "ops.photometry", "astrometry.pcc", "astrometry.spcc",
+              "astrometry.xp_spectra", "astrometry.compstars"):
+        assert f"siril_tpu_torch.{m}" in names
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from siril_tpu_torch.astrometry.pcc import background_neutralization
+    from siril_tpu_torch.cli.commands import COMMANDS
+    from siril_tpu_torch.cli.context import Session
+    from siril_tpu_torch.core.image import SirilImage
+    from siril_tpu_torch.ops import background, colors, geometry, stretch
+
+    img = SirilImage(data=np.full((3, 16, 16), 0.2, np.float32))
+    for call in (lambda: stretch.autostretch(img),
+                 lambda: stretch.apply_ght(img, stretch.GHTParams()),
+                 lambda: stretch.asinh_stretch(img, 3.0),
+                 lambda: colors.scnr(img), lambda: colors.negative(img),
+                 lambda: colors.saturation(img, 0.5),
+                 lambda: colors.apply_ccm(img, np.eye(3)),
+                 lambda: geometry.crop(img, 0, 0, 8, 8),
+                 lambda: geometry.rotate(img, 10.0),
+                 lambda: geometry.binxy(img, 2),
+                 lambda: background.extract_background(img),
+                 lambda: background_neutralization(img)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    for words in (["neg"], ["mirrorx"], ["autostretch"], ["rmgreen"]):
+        s = Session(cwd=str(tmp_path))
+        s.set_image(img, "x")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            COMMANDS[words[0]].fn(s, words[1:])
+    out = colors.negative(img, device="cpu")
+    assert np.array_equal(out.data, 1.0 - img.data)
+
+
 def test_convert_round_trips():
     from siril_tpu.ops.normalization import NormCoeffs
     from siril_tpu.ops.stacking import StackArgs
