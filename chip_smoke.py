@@ -159,7 +159,25 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               the CPU (POST_CROP², the rotation and the background
               models POST_WARP_CROP²) within the CPU tests' bounds, its
               ms per SIZE² RGB image and the RBF's peak memory, on a
-              JSON line of its own.  No K1.
+              JSON line of its own.  No K1;
+  enhance — in the post phase's directory, the enhancement session
+              (ENHANCE_SCRIPT) through -s on its colour-calibrated field:
+              makepsf stars, rl, denoise, a star mask blurred and an
+              unsharp through it, wavelet / wrecons, epf -guided,
+              fmedian, clahe, pm, fftd / ffti, with each command's
+              seconds, stages and peak device memory; rl narrowing the
+              ENHANCE_STARS brightest isolated unclipped stars by
+              RL_NARROWING and keeping their fluxes within FLUX_TOL,
+              denoise halving each layer's background noise and keeping
+              the fluxes, the masked unsharp bit-equal where the mask is
+              0, fftd → ffti and wrecons 1 … 1 returning their inputs;
+              then every op of enhance_ops on the card against the CPU
+              (ENHANCE_CROP², NL-Bayes and DA3D ENHANCE_DENOISE_CROP²,
+              one step of each blind engine), its ms per SIZE² RGB image
+              and peak memory (fmedian 5 and 9 too) but for the
+              session's own, and denoise -da3d, -sos=1 and the two blind
+              engines on an ENHANCE_LAYER² layer, on a JSON line of its
+              own.  No K1.
 Then a JSON line describing every kernel, the card line, and last the
 result line.  Any failure exits non-zero without a result line.  The script
 needs CUDA and the repository beside it; it imports nothing of JAX.
@@ -217,8 +235,9 @@ close
 # (OSC_Preprocessing.ssf) up to its stack, on the script phase's biases and
 # darks and a colour night's flats and lights (the reference script then
 # mirrors and saves the result, image-op commands not ported yet); 16
-# lights at first, cut to 12 to make room for the astrometry phase
-OSC_LIGHTS = 12
+# lights at first, cut to 12 to make room for the astrometry phase and to
+# 8 for the enhance phase (the checks' tolerances scale with the count)
+OSC_LIGHTS = 8
 OSC_SCRIPT = """requires 1.2.0
 cd biases
 convert bias -out=../osc
@@ -3881,7 +3900,7 @@ def post_vs_cpu(image, crop_size: int, warp_crop: int, reps: int):
     return rows
 
 
-def phase_post(seed: int, size: int = SIZE):
+def phase_post(seed: int, tmp: str, size: int = SIZE):
     """The post-stack colour session through the CLI's -s entry on two
     stacked SIZE² RGB fields (synth_post): POST_SCRIPT (subsky 2, spcc on
     an xp_sampled catalogue, autostretch, ght, asinh, rmgreen, satu,
@@ -3890,8 +3909,9 @@ def phase_post(seed: int, size: int = SIZE):
     gains of spcc and pcc against the imbalance, bgneutralize's medians,
     the final image's shape; then every device op on the card against
     the CPU on a POST_CROP² crop (the rotation and the background models
-    on a POST_WARP_CROP² one), and its ms per SIZE² RGB image.
-    Returns (rows of the commands, rows of the ops)."""
+    on a POST_WARP_CROP² one), and its ms per SIZE² RGB image.  The
+    fields stay in ``tmp`` for the enhance phase.  Returns (rows of the
+    commands, rows of the ops, the truth of synth_post)."""
     import numpy as np
 
     from siril_tpu_torch import cli
@@ -3899,70 +3919,484 @@ def phase_post(seed: int, size: int = SIZE):
     from siril_tpu_torch.io.fits_io import read_fits
     from siril_tpu_torch.ops.statistics import per_layer
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_post_")
-    try:
+    t = time.perf_counter()
+    made = synth_post(tmp, seed + 53, size, POST_STARS)
+    writes_done()
+    log(f"  rendered two {size}² RGB fields of {POST_STARS} stars and "
+        f"their catalogues in {time.perf_counter() - t:.2f}s")
+    with open(os.path.join(tmp, "post.ssf"), "w") as f:
+        f.write(made["script"])
+    with open(os.path.join(tmp, "pcc.ssf"), "w") as f:
+        f.write(PCC_SCRIPT.format(catalog="post_bv.csv"))
+    rows = {}
+    for script in ("post.ssf", "pcc.ssf"):
         t = time.perf_counter()
-        made = synth_post(tmp, seed + 53, size, POST_STARS)
-        writes_done()
-        log(f"  rendered two {size}² RGB fields of {POST_STARS} stars and "
-            f"their catalogues in {time.perf_counter() - t:.2f}s")
-        with open(os.path.join(tmp, "post.ssf"), "w") as f:
-            f.write(made["script"])
-        with open(os.path.join(tmp, "pcc.ssf"), "w") as f:
-            f.write(PCC_SCRIPT.format(catalog="post_bv.csv"))
-        rows = {}
-        for script in ("post.ssf", "pcc.ssf"):
-            t = time.perf_counter()
-            session = cli.run(["-d", tmp, "-s", os.path.join(tmp, script)])
-            log(f"  {script}: {time.perf_counter() - t:.2f}s")
-            for row in session.command_log:
-                rows[f"{script}: {row['command']}"] = row
-                log(f"    {row['command']}: {row['seconds']:.3f}s" + (
-                    " (" + ", ".join(f"{k} {v:.3f}s" for k, v in
-                                     row["stages"].items()) + ")"
-                    if row["stages"] else ""))
-        files = {n: read_fits(os.path.join(tmp, n + ".fit")).data
-                 for n in ("post_sky", "post_cal", "pcc_sky", "pcc_cal",
-                           "pcc_final", "post_final")}
-        sd = POST_NOISE
-        for name, src in (("post_sky", "post_spcc"), ("pcc_sky", "post_pcc")):
-            for c in range(3):
-                before = np.ptp(tile_medians(made[src][c]))
-                after = np.ptp(tile_medians(files[name][c]))
-                log(f"  {name} layer {c}: gradient {before:.5f} → "
-                    f"{after:.6f} (bound {sd / 3:.5f})")
-                if not after < sd / 3:
-                    raise SystemExit(f"post: subsky left {after} in {name}")
-        for label, a, b in (("spcc", "post_sky", "post_cal"),
-                            ("pcc", "pcc_sky", "pcc_cal")):
-            g = post_gains(files[a], files[b], made)
-            want = 1.0 / np.asarray(POST_IMBALANCE)
-            err = np.abs(g / want - 1.0)
-            log(f"  {label}: gains R/G {g[0]:.4f} B/G {g[2]:.4f} against "
-                f"{want[0]:.4f} / {want[2]:.4f} (off {err[0]:.4f}, "
-                f"{err[2]:.4f}; bound {POST_GAIN_TOL})")
-            if not err.max() <= POST_GAIN_TOL:
-                raise SystemExit(f"post: {label} gains {g} off {want}")
-        meds = per_layer(layer_median, files["pcc_final"])
-        log(f"  bgneutralize: medians {meds}")
-        if np.ptp(meds) > 1e-5:
-            raise SystemExit(f"post: bgneutralize left medians {meds}")
-        # eqcrop's box, 8 px off each side, turned in place, binned by 2
-        # (the lanczos warp may ring a little past 1, as in the reference)
-        fin = files["post_final"]
-        side = made["crop_side"] // 2
-        if fin.shape != (3, side, side) or not np.isfinite(fin).all():
-            raise SystemExit(f"post: the final image is {fin.shape}, "
-                             f"[{fin.min()}, {fin.max()}]")
-        log(f"  final image {fin.shape}, median {np.median(fin):.4f}")
-        ops = post_vs_cpu(files["post_sky"], min(POST_CROP, size),
-                          min(POST_WARP_CROP, size), POST_REPS)
-        log("post: " + json.dumps(dict(commands={
-            k: dict(seconds=v["seconds"], stages=v["stages"])
-            for k, v in rows.items()}, ops=ops)))
-        return rows, ops
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        session = cli.run(["-d", tmp, "-s", os.path.join(tmp, script)])
+        log(f"  {script}: {time.perf_counter() - t:.2f}s")
+        for row in session.command_log:
+            rows[f"{script}: {row['command']}"] = row
+            log(f"    {row['command']}: {row['seconds']:.3f}s" + (
+                " (" + ", ".join(f"{k} {v:.3f}s" for k, v in
+                                 row["stages"].items()) + ")"
+                if row["stages"] else ""))
+    files = {n: read_fits(os.path.join(tmp, n + ".fit")).data
+             for n in ("post_sky", "post_cal", "pcc_sky", "pcc_cal",
+                       "pcc_final", "post_final")}
+    sd = POST_NOISE
+    for name, src in (("post_sky", "post_spcc"), ("pcc_sky", "post_pcc")):
+        for c in range(3):
+            before = np.ptp(tile_medians(made[src][c]))
+            after = np.ptp(tile_medians(files[name][c]))
+            log(f"  {name} layer {c}: gradient {before:.5f} → "
+                f"{after:.6f} (bound {sd / 3:.5f})")
+            if not after < sd / 3:
+                raise SystemExit(f"post: subsky left {after} in {name}")
+    for label, a, b in (("spcc", "post_sky", "post_cal"),
+                        ("pcc", "pcc_sky", "pcc_cal")):
+        g = post_gains(files[a], files[b], made)
+        want = 1.0 / np.asarray(POST_IMBALANCE)
+        err = np.abs(g / want - 1.0)
+        log(f"  {label}: gains R/G {g[0]:.4f} B/G {g[2]:.4f} against "
+            f"{want[0]:.4f} / {want[2]:.4f} (off {err[0]:.4f}, "
+            f"{err[2]:.4f}; bound {POST_GAIN_TOL})")
+        if not err.max() <= POST_GAIN_TOL:
+            raise SystemExit(f"post: {label} gains {g} off {want}")
+    meds = per_layer(layer_median, files["pcc_final"])
+    log(f"  bgneutralize: medians {meds}")
+    if np.ptp(meds) > 1e-5:
+        raise SystemExit(f"post: bgneutralize left medians {meds}")
+    # eqcrop's box, 8 px off each side, turned in place, binned by 2
+    # (the lanczos warp may ring a little past 1, as in the reference)
+    fin = files["post_final"]
+    side = made["crop_side"] // 2
+    if fin.shape != (3, side, side) or not np.isfinite(fin).all():
+        raise SystemExit(f"post: the final image is {fin.shape}, "
+                         f"[{fin.min()}, {fin.max()}]")
+    log(f"  final image {fin.shape}, median {np.median(fin):.4f}")
+    ops = post_vs_cpu(files["post_sky"], min(POST_CROP, size),
+                      min(POST_WARP_CROP, size), POST_REPS)
+    log("post: " + json.dumps(dict(commands={
+        k: dict(seconds=v["seconds"], stages=v["stages"])
+        for k, v in rows.items()}, ops=ops)))
+    for name in ("post_spcc", "post_pcc"):
+        del made[name]
+    return rows, ops, made
+
+
+#: the enhancement session on the post phase's colour-calibrated field
+#: (post_cal: 4096² RGB, POST_STARS stars of σ POST_PSF, noise
+#: POST_NOISE), in the order a user works on a linear stack; the saves
+#: are the checks' inputs
+ENHANCE_SCRIPT = """requires 1.2.0
+load post_cal
+makepsf stars
+rl
+save enh_rl
+denoise
+save enh_dn
+mask_from_stars
+mask_blur 2
+unsharp 1.5 1.6
+save enh_us
+clear_mask
+wavelet 5
+wrecons 1.3 1.2 1 1 1
+epf -guided
+fmedian 3 1
+clahe 2 8
+pm "$T * 0.9 + 0.01"
+save enh_pm
+fftd fmod fphase
+ffti fmod fphase
+save enh_final
+"""
+#: the checks: the ENHANCE_STARS brightest isolated stars; rl narrows
+#: their median FWHM by RL_NARROWING at least, rl and denoise keep their
+#: fluxes within FLUX_TOL, denoise halves each layer's background noise
+ENHANCE_STARS = 200
+RL_NARROWING = 0.15
+FLUX_TOL = 0.05
+#: the card-against-CPU crops (the pointwise and convolution ops; the
+#: denoisers, whose CPU side is the phase's slowest part), the layer on
+#: which denoise -da3d, -sos=1 and the blind engines are timed, and the
+#: timing reps
+ENHANCE_CROP = 256
+ENHANCE_DENOISE_CROP = 128
+ENHANCE_LAYER = 1024
+ENHANCE_REPS = 3
+#: the ops whose full-size figure is their command's wall in the session
+#: (not run again at SIZE²)
+IN_SESSION = ("rl 20", "epf -guided", "fmedian 3", "clahe 2 8",
+              "wavelet 5 + wrecons")
+
+
+def enhance_ops():
+    """[(label, fn(x), bound)] of the enhancement session's device ops on
+    a (3, S, S) tensor, each with its card-against-CPU bound: 0 for a
+    selection or exact float64 arithmetic, 1e-6 for float32 convolutions
+    and pointwise ops (one rounding of an exp, an FMA the card contracts),
+    1e-5 for the FFT ops and rgradient's gather at coordinates from
+    atan2 / sin / cos."""
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch.ops import arithmetic as ar
+    from siril_tpu_torch.ops import curves as cu
+    from siril_tpu_torch.ops import deconvolution as dc
+    from siril_tpu_torch.ops import filters as ft
+    from siril_tpu_torch.ops import wavelets as wv
+    from siril_tpu_torch.ops.pixelmath import evaluate
+
+    psf = dc.make_psf(dc.PSF_GAUSSIAN, 15, 3.5)
+    lut = cu.build_curve_lut([(0.0, 0.0), (0.2, 0.35), (0.7, 0.8),
+                              (1.0, 1.0)])
+
+    def fft_coefs(x):
+        modn, phase, _ = ft.fftd_tensor(x)
+        return torch.view_as_real(torch.polar(modn, 2 * np.pi * phase))
+
+    def fft_round(x):
+        modn, phase, mx = ft.fftd_tensor(x)
+        return ft.ffti_tensor(modn, phase, mx.reshape(-1).cpu().numpy())
+
+    return [
+        ("gauss 1.5", lambda x: ft.gaussian_blur_chw(x, 1.5), 1e-6),
+        ("unsharp 1.5 1.6", lambda x: torch.clamp(
+            1.6 * x - 0.6 * ft.gaussian_blur_chw(x, 1.5), 0.0, 1.0), 1e-6),
+        ("ddp 0.05 0.3 1.2", lambda x: ft.ddp_tensor(x, 0.05, 0.3, 1.2),
+         1e-6),
+        ("fmedian 3", lambda x: ft.median_blocks(x, 3), 0.0),
+        ("fmedian 5", lambda x: ft.median_blocks(x, 5), 0.0),
+        ("epf (bilateral d=5)", lambda x: ft.bilateral_tensor(x, x), 1e-6),
+        ("epf -guided", lambda x: ft.guided_tensor(x, x, 8, 0.01), 1e-6),
+        ("clahe 2 8", lambda x: ft.clahe_tensor(x, 2.0, 8), 0.0),
+        ("wavelet 5 + wrecons", lambda x: torch.clamp(
+            wv.atrous_reconstruct(wv.atrous_decompose(x, 5),
+                                  [1.3, 1.2, 1.0, 1.0, 1.0]), 0.0, 1.0),
+         1e-6),
+        ("seqatrous 4 (wavelet denoise)",
+         lambda x: wv.wavelet_denoise_tensor(x, 4), 1e-6),
+        ("unpurple", lambda x: ft.unpurple_tensor(x, 0.05, 0.8), 0.0),
+        ("rgradient", lambda x: ft.rgradient_tensor(
+            x, x.shape[-1] / 2 + 0.5, x.shape[-2] / 2, 3.0, 5.0), 1e-5),
+        ("fftd (coefficients)", fft_coefs, 1e-5),
+        ("fftd + ffti", fft_round, 1e-5),
+        ("rl 20", lambda x: dc.richardson_lucy_tensor(x, psf, 20), 1e-5),
+        ("wiener", lambda x: dc.wiener_tensor(x, psf), 1e-5),
+        ("sb 10", lambda x: dc.split_bregman_tensor(x, psf), 1e-5),
+        ("pm $T * 0.9 + 0.01", lambda x: torch.clamp(
+            evaluate("T * 0.9 + 0.01", {"T": x}), 0.0, 1.0), 1e-6),
+        ("pm iif(T > median(T), sqrt(T), T ^ 2)", lambda x: evaluate(
+            "iif(T > median(T), sqrt(T), T ^ 2)", {"T": x}), 1e-6),
+        ("idiv (clip16)", lambda x: ar.imoper(x, x.flip(-1), ar.OPER_DIV,
+                                              clip16=True), 0.0),
+        ("fmul 1.3", lambda x: ar.soper(x, 1.3, ar.OPER_MUL), 0.0),
+        ("curve (cubic)", lambda x: cu.apply_lut(x, lut), 0.0),
+    ]
+
+
+def _isolated_bright(made, size: int, n: int):
+    """Indices of the stars at least 64 px inside with no other star
+    within 16 px, brightest first."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    sx, sy = made["sx"], made["sy"]
+    pts = np.stack([sx, sy], axis=1)
+    d, _ = cKDTree(pts).query(pts, k=2)
+    ok = (d[:, 1] > 16.0) & (sx > 64) & (sx < size - 64) & (sy > 64) & \
+        (sy < size - 64)
+    idx = np.nonzero(ok)[0]
+    return idx[np.argsort(made["amp"][idx])[::-1]][:n]
+
+
+def _fwhm_at(layer, xs, ys):
+    """The star finder's FWHM (the mean of x and y) of the star nearest
+    each (x, y) within 1.5 px, NaN where none is found."""
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch.registration.starfinder import detect_stars
+
+    stars = detect_stars(torch.from_numpy(np.ascontiguousarray(
+        layer)).to(CARD))
+    sx = np.array([s.x0 for s in stars])
+    sy = np.array([s.y0 for s in stars])
+    fw = np.array([0.5 * (s.fwhmx + s.fwhmy) for s in stars])
+    out = np.full(len(xs), np.nan)
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        d = np.hypot(sx - x, sy - y)
+        j = int(np.argmin(d)) if len(d) else -1
+        if j >= 0 and d[j] <= 1.5:
+            out[i] = fw[j]
+    return out
+
+
+def _sky_fluxes(img, xs, ys, half: int = 10):
+    """Per star, per layer: the sum over a (2·half+1)² box of ``img`` (C,
+    H, W) less the layer's sky (the median of every 4th pixel in each
+    direction; the field is flat after subsky) over the box.  A sky from
+    the box's edge, as _star_fluxes takes it, reads rl's amplified noise
+    near a star as sky."""
+    import numpy as np
+
+    sky = np.median(img[:, ::4, ::4], axis=(1, 2))
+    n = (2 * half + 1) ** 2
+    return np.stack([img[:, y - half:y + half + 1,
+                         x - half:x + half + 1].sum(axis=(1, 2)) - sky * n
+                     for x, y in zip(xs, ys)])
+
+
+def enhance_checks(made, files, size: int) -> dict:
+    """rl narrows the stars and keeps their fluxes, denoise halves the
+    background noise and keeps the fluxes, the masked unsharp leaves the
+    pixels outside the mask as they were, fftd → ffti returns its input.
+    Returns the figures."""
+    import numpy as np
+
+    from siril_tpu_torch.core.image import SirilImage
+    from siril_tpu_torch.ops.masks import mask_blur, mask_from_stars
+    import torch
+
+    from siril_tpu_torch.ops.statistics import bgnoise
+
+    cal, rl, dn = files["post_cal"], files["enh_rl"], files["enh_dn"]
+    idx = _isolated_bright(made, size, 3 * ENHANCE_STARS)
+    xi = np.floor(made["sx"][idx]).astype(int)
+    yi = np.floor(made["sy"][idx]).astype(int)
+    peak = np.array([rl[:, y - 2:y + 3, x - 2:x + 3].max()
+                     for x, y in zip(xi, yi)])
+    xs, ys = made["sx"][idx], made["sy"][idx]
+    f0 = _fwhm_at(cal[1], xs, ys)
+    f1 = _fwhm_at(rl[1], xs, ys)
+    keep = (peak < 0.95) & np.isfinite(f0) & np.isfinite(f1)
+    sel = np.nonzero(keep)[0][:ENHANCE_STARS]
+    if len(sel) < ENHANCE_STARS // 2:
+        raise SystemExit(f"enhance: only {len(sel)} stars to measure")
+    w0, w1 = float(np.median(f0[sel])), float(np.median(f1[sel]))
+    narrowing = 1.0 - w1 / w0
+    flux = {n: _sky_fluxes(files[n], xi[sel], yi[sel])
+            for n in ("post_cal", "enh_rl", "enh_dn")}
+    rl_flux = np.median(flux["enh_rl"] / flux["post_cal"], axis=0)
+    dn_flux = np.median(flux["enh_dn"] / flux["enh_rl"], axis=0)
+    # the background noise on the card (statistics.bgnoise, bgnoise_np's
+    # dense path)
+    noise_rl, noise_dn = (np.array([bgnoise(torch.from_numpy(x).to(CARD))
+                                    for x in a]) for a in (rl, dn))
+    log(f"  rl: median FWHM of {len(sel)} stars {w0:.3f} → {w1:.3f} px "
+        f"(narrower by {narrowing:.3f}; bound {RL_NARROWING}), fluxes × "
+        f"{np.round(rl_flux, 4).tolist()} (bound ±{FLUX_TOL})")
+    log(f"  denoise: bgnoise {np.round(noise_rl, 6).tolist()} → "
+        f"{np.round(noise_dn, 6).tolist()} (bound half), fluxes × "
+        f"{np.round(dn_flux, 4).tolist()}")
+    if not narrowing >= RL_NARROWING:
+        raise SystemExit(f"enhance: rl narrowed the stars by {narrowing}")
+    if not (np.abs(rl_flux - 1.0).max() <= FLUX_TOL
+            and np.abs(dn_flux - 1.0).max() <= FLUX_TOL):
+        raise SystemExit(f"enhance: fluxes {rl_flux} {dn_flux}")
+    if not (noise_dn <= 0.5 * noise_rl).all():
+        raise SystemExit(f"enhance: denoise left {noise_dn} of {noise_rl}")
+    # the unsharp's mask, made again from the same image on the card
+    mask = mask_blur(mask_from_stars(SirilImage(data=dn), device=CARD),
+                     2.0, device=CARD)
+    zero = mask == 0.0
+    same = bool(np.array_equal(files["enh_us"][:, zero], dn[:, zero]))
+    moved = float(np.abs(files["enh_us"] - dn).max())
+    log(f"  masked unsharp: the mask is 0 on {zero.mean():.3f} of the "
+        f"image, bit-equal there: {same}; elsewhere up to {moved:.4f}")
+    if not (same and zero.mean() > 0.5 and moved > 0.0):
+        raise SystemExit("enhance: the masked unsharp changed pixels "
+                         "outside its mask")
+    fft_err = float(np.abs(files["enh_final"].astype(np.float64)
+                           - files["enh_pm"]).max())
+    log(f"  fftd → ffti: max|Δ| {fft_err:.3g} (bound 1e-5)")
+    if not fft_err <= 1e-5:
+        raise SystemExit(f"enhance: fftd → ffti is {fft_err} off")
+    return dict(stars=len(sel), fwhm=(w0, w1), narrowing=narrowing,
+                rl_flux=rl_flux.tolist(), dn_flux=dn_flux.tolist(),
+                bgnoise=(noise_rl.tolist(), noise_dn.tolist()),
+                mask_zero=float(zero.mean()), fft_err=fft_err)
+
+
+def _peak_ms(fn, reps: int):
+    """(ms, peak MiB beyond what was allocated before) of ``fn()``."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = _events_ms(fn, reps)
+    return ms, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def enhance_vs_cpu(image, crop: int, dn_crop: int, layer: int, reps: int):
+    """Every op of enhance_ops on the card against the CPU on the centre
+    crop² of ``image`` (3, S, S) and its ms on the whole image (CUDA
+    events, median of ``reps``) but for the session's own; the median
+    filter's peak at k = 5 and 9; NL-Bayes (and DA3D on its result) on
+    a dn_crop² layer on both devices, by their effect; the ℓ0 and HIO
+    steps; denoise -da3d, -sos=1 and the two blind engines timed on a
+    layer² layer.  Returns rows."""
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch.ops import blind_deconv as bd
+    from siril_tpu_torch.ops import filters as ft
+    from siril_tpu_torch.ops.da3d import da3d, da3d_patches
+    from siril_tpu_torch.ops.nlbayes import estimate_noise_sigma, \
+        nlbayes_tensor
+
+    S = image.shape[-1]
+
+    def centre(a, c):
+        c0 = (S - c) // 2
+        return np.ascontiguousarray(a[..., c0:c0 + c, c0:c0 + c])
+
+    rows = []
+    full = torch.from_numpy(image).cuda()
+    xh = torch.from_numpy(centre(image, crop))
+    xc = xh.cuda()
+    for label, fn, bound in enhance_ops():
+        got = fn(xc).cpu().numpy().astype(np.float64)
+        err = float(np.max(np.abs(got - fn(xh).numpy())))
+        row = dict(op=label, max_abs_err=err, bound=bound)
+        if label not in IN_SESSION:
+            row["ms"], row["peak_mib"] = _peak_ms(lambda: fn(full), reps)
+        rows.append(row)
+        log(f"    {label}: card vs cpu max|Δ| {err:.3g} (bound {bound:g})"
+            + (f", {row['ms']:.3f} ms per {S}² RGB image, peak "
+               f"{row['peak_mib']:.0f} MiB" if "ms" in row else ""))
+        if not err <= bound:
+            raise SystemExit(f"enhance: {label} on the card is {err} from "
+                             f"the CPU (bound {bound})")
+    ms, peak = _peak_ms(lambda: ft.median_blocks(full, 9), 1)
+    rows.append(dict(op="fmedian 9", ms=ms, peak_mib=peak))
+    log(f"    fmedian 9: {ms:.1f} ms per {S}² RGB image, peak {peak:.0f} "
+        "MiB")
+    # NL-Bayes on a small layer on both devices: the same result by its
+    # effect (the first pass's solve and the atomics, tests/
+    # test_torch_denoise.py), and DA3D on that result
+    lay = centre(image[1], dn_crop)
+    s = estimate_noise_sigma(lay)
+    dh = nlbayes_tensor(torch.from_numpy(lay), s)
+    dc_ = nlbayes_tensor(torch.from_numpy(lay).cuda(), s).cpu()
+    mean_d = float((dh - dc_).abs().mean())
+    xl = torch.from_numpy(lay)
+    nh, nc = float((xl - dh).std()), float((xl - dc_).std())
+    log(f"    NL-Bayes {dn_crop}²: card vs cpu mean|Δ| {mean_d:.3g} (bound "
+        f"5e-3), the noise removed (std of input − output) {nc:.3g} / "
+        f"{nh:.3g} (bound ±5 %)")
+    if not (mean_d <= 5e-3 and abs(nc / nh - 1.0) <= 0.05):
+        raise SystemExit("enhance: NL-Bayes on the card is off the CPU")
+    rh = da3d(lay, dh.numpy(), s, device="cpu")
+    rc = da3d(lay, dh.numpy(), s, device=CARD).cpu()
+    d3 = (rh - rc).abs()
+    log(f"    DA3D {dn_crop}²: card vs cpu mean|Δ| {float(d3.mean()):.3g} "
+        f"(bound 1e-5), max {float(d3.max()):.3g} (bound 1e-3)")
+    if not (float(d3.mean()) <= 1e-5 and float(d3.max()) <= 1e-3):
+        raise SystemExit("enhance: DA3D on the card is off the CPU")
+    rows.append(dict(op=f"denoise {dn_crop}² layer", mean_abs_err=mean_d,
+                     removed_std=(nc, nh)))
+    rows.append(dict(op=f"da3d {dn_crop}² layer",
+                     mean_abs_err=float(d3.mean()),
+                     max_abs_err=float(d3.max())))
+    # one step of each blind engine's iteration, and the DA3D patch step
+    v = centre(image[1], 256)
+    vt = torch.from_numpy(v)
+    k = bd._kernel_cleanup(bd.l0_k_update(vt, vt, 20.0, 15).numpy())
+    otf = bd._psf2otf_np(k, v.shape)
+    got = bd.l0_u_update(vt.cuda(), bd._c64(otf, CARD), 6.0, 6e4).cpu()
+    want = bd.l0_u_update(vt, bd._c64(otf, "cpu"), 6.0, 6e4)
+    g = torch.from_numpy(np.random.default_rng(3).random(
+        (60, 60)).astype(np.float32))
+    mag = torch.fft.fft2(g).abs()
+    sup = torch.zeros(60, 60, dtype=torch.bool)
+    sup[:5, :5] = True
+    hio = (bd.pr_step(g.cuda(), mag.cuda(), sup.cuda(), 0.9).cpu()
+           - bd.pr_step(g, mag, sup, 0.9)).abs().max()
+    py = torch.from_numpy(np.stack([v[i:i + 64, i:i + 64]
+                                    for i in range(0, 160, 32)]))
+    pc = da3d_patches(py.cuda(), py.cuda(), s, 31, 0.7, 14.0)[0].cpu()
+    ph = da3d_patches(py, py, s, 31, 0.7, 14.0)[0]
+    steps = dict(l0_step=float((got - want).abs().max()),
+                 hio_step=float(hio), da3d_patch=float((pc - ph).abs().max()))
+    log(f"    steps card vs cpu: {steps} (bounds 1e-5, 1e-6, 1e-5)")
+    if not (steps["l0_step"] <= 1e-5 and steps["hio_step"] <= 1e-6
+            and steps["da3d_patch"] <= 1e-5):
+        raise SystemExit(f"enhance: a step on the card is off: {steps}")
+    rows.append(dict(op="steps", **steps))
+    # the options not in the session, timed once on one layer² layer
+    big = torch.from_numpy(centre(image[1], layer)).cuda()
+    sb = estimate_noise_sigma(centre(image[1], layer))
+    base = nlbayes_tensor(big, sb)
+    lay_np = big.cpu().numpy()
+    for label, fn in (
+            (f"denoise -da3d (the refinement) {layer}²",
+             lambda: da3d(lay_np, base, sb, device=CARD)),
+            (f"denoise -sos=1 {layer}²",
+             lambda: nlbayes_tensor(big, sb, sos_iters=1)),
+            (f"makepsf blind -l0 {layer}²",
+             lambda: bd.estimate_kernel_blind(lay_np, 15, "l0",
+                                              device=CARD)),
+            (f"makepsf blind -si {layer}²",
+             lambda: bd.estimate_kernel_blind(lay_np, 15, "si",
+                                              device=CARD))):
+        ms, peak = _peak_ms(fn, 1)
+        rows.append(dict(op=label, ms=ms, peak_mib=peak))
+        log(f"    {label}: {ms:.1f} ms, peak {peak:.0f} MiB")
+    del full, big, base
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_enhance(seed: int, root: str, made: dict, size: int = SIZE):
+    """The enhancement session (ENHANCE_SCRIPT) through the CLI's -s
+    entry on the post phase's colour-calibrated field in its directory,
+    each command's seconds, stages and peak device memory; the checks
+    against the known scene (enhance_checks), ``wrecons 1 1 1 1 1`` on
+    the session's planes; then every device op on the card against the
+    CPU and timed (enhance_vs_cpu).  Returns (rows of the commands, rows
+    of the ops)."""
+    import numpy as np
+
+    from siril_tpu_torch import cli
+    from siril_tpu_torch.cli.commands import COMMANDS
+    from siril_tpu_torch.io.fits_io import read_fits
+
+    with open(os.path.join(root, "enhance.ssf"), "w") as f:
+        f.write(ENHANCE_SCRIPT)
+    t = time.perf_counter()
+    session = cli.run(["-d", root, "-s", os.path.join(root, "enhance.ssf")])
+    log(f"  enhance.ssf: {time.perf_counter() - t:.2f}s")
+    rows = {}
+    for row in session.command_log:
+        rows[row["command"]] = row
+        log(f"    {row['command']}: {row['seconds']:.3f}s, peak "
+            f"{row['peak_mib'] or 0:.0f} MiB" + (
+                " (" + ", ".join(f"{k} {v:.3f}s" for k, v in
+                                 row["stages"].items()) + ")"
+                if row["stages"] else ""))
+    files = {n: read_fits(os.path.join(root, n + ".fit")).data
+             for n in ("post_cal", "enh_rl", "enh_dn", "enh_us", "enh_pm",
+                       "enh_final")}
+    checks = enhance_checks(made, files, size)
+    took = np.array(session.wavelet_img.data)
+    COMMANDS["wrecons"].fn(session, ["1"] * 5)
+    err = float(np.abs(session.image.data.astype(np.float64) - took).max())
+    log(f"  wrecons 1 1 1 1 1: max|Δ| {err:.3g} from the image wavelet took "
+        "(bound 1e-6)")
+    if not err <= 1e-6:
+        raise SystemExit(f"enhance: wrecons 1 … 1 is {err} off")
+    checks["wrecons_err"] = err
+    del session, files["enh_rl"], files["enh_us"], files["enh_pm"]
+    ops = enhance_vs_cpu(files["post_cal"], min(ENHANCE_CROP, size),
+                         min(ENHANCE_DENOISE_CROP, size),
+                         min(ENHANCE_LAYER, size), ENHANCE_REPS)
+    log("enhance: " + json.dumps(dict(commands={
+        k: dict(seconds=v["seconds"], stages=v["stages"],
+                peak_mib=v["peak_mib"]) for k, v in rows.items()},
+        checks=checks, ops=ops)))
+    return rows, ops
 
 
 STACK_RUNS = [("K1b", "rej a 3 3 -norm=addscale"),
@@ -4118,8 +4552,15 @@ def main(argv=None) -> int:
         shutil.rmtree(script_root, ignore_errors=True)
     with Phase("mosaic"):
         mosaic_launches, _, _, mosaic_k1e = phase_mosaic(args.seed)
-    with Phase("post"):
-        phase_post(args.seed)
+    # the post phase's directory stays for the enhance phase
+    post_root = tempfile.mkdtemp(prefix="chip_smoke_post_")
+    try:
+        with Phase("post"):
+            _, _, post_made = phase_post(args.seed, post_root)
+        with Phase("enhance"):
+            phase_enhance(args.seed, post_root, post_made)
+    finally:
+        shutil.rmtree(post_root, ignore_errors=True)
     src = "siril_tpu_torch/csrc/reject_stack.cu"
     tpu = "siril_tpu/pallas/reject_stack.py"
     # K1a runs on several paths: fusedstack (shifts and homographies), and

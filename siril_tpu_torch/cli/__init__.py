@@ -3,9 +3,18 @@ dir``, ``-s script.ssf`` or one command) over the ported commands
 (``cli/commands.py``): requires, cd, setext, close, load, save,
 setcompress, convert, link, calibrate, the CFA commands (split_cfa, extract_Ha,
 extract_Green, extract_HaOIII, merge_cfa and their seq… forms),
-setfindstar, register, seqapplyreg, stack, fusedstack, and the astrometry
+setfindstar, register, seqapplyreg, stack, fusedstack, the astrometry
 commands (platesolve, seqplatesolve, conesearch, catsearch, show, disto,
-healpix, trixel, online, offline).
+healpix, trixel, online, offline), the post-stack colour session
+(stretches, colour ops, subsky, pcc, spcc, geometry) and the enhancement
+session: makepsf, rl, wiener, sb, denoise, the filters (gauss, unsharp,
+fmedian, clahe, epf, ddp, fixbanding, unpurple, rgradient, fftd, ffti,
+linear_match, thresh, threshlo, threshhi, nozero, fill, ffill), wavelet,
+wrecons, pm, the arithmetic (iadd, isub, imul, idiv, fadd, fsub, fmul,
+fdiv, offset, addmax), the masks (mask_from_channel, mask_from_lum,
+mask_from_stars, mask_from_color, mask_invert, mask_blur, mask_threshold,
+mask_autostretch, mask_bitpix, mask_feather, mask_fmul, clear_mask) and
+seqfixbanding, seqrl, seqwiener, seqsb, seqdenoise, seqatrous.
 
     python -m siril_tpu_torch.cli [-d dir] [--device cuda|cpu] \\
         -s script.ssf

@@ -22,7 +22,18 @@
 ``rgbcomp``:2236), ``subsky`` (:2197), photometry and colour calibration
 (``pcc``:2402, ``bgneutralize``:2416, ``setphot``:2423, ``spcc``:3072,
 ``spcc_list``:3116, ``findcompstars``:3125) and, from commands2.py,
-``catmag`` (:605) and ``eqcrop`` (:712).
+``catmag`` (:605) and ``eqcrop`` (:712); and the enhancement session:
+the filters (``ddp``:1549, the threshold family :1563-1598, ``gauss``
+:1606, ``unsharp``, ``fmedian``, ``clahe``, ``epf``:1636, ``fixbanding``,
+``unpurple``, ``rgradient``, ``fftd``, ``ffti``, ``linear_match``),
+``denoise`` (:1710), ``wavelet`` / ``wrecons``, ``makepsf`` (:1848),
+``_psf_for_deconv`` (:1897), ``rl``, ``wiener``, ``sb``, the arithmetic
+(``_load_operand``:1962, ``iadd`` … ``addmax``), ``pm`` (:2067), the
+masks (``mask_from_channel``:2117 … ``clear_mask``), the sequence forms
+``seqfixbanding`` (:2760), ``seqrl`` (:2871), ``seqwiener``, ``seqsb``,
+``seqdenoise`` (:2908), ``seqatrous`` (:2922), and from commands2.py
+``ffill`` (:108) and ``mask_autostretch`` (:214) … ``mask_from_color``
+(:259).
 
 Each command keeps the reference's name, argument order and ``-key=value``
 flags, so the standard preprocessing scripts run unchanged.  Device work
@@ -1961,3 +1972,722 @@ def cmd_eqcrop(ctx: Session, args: List[str]) -> None:
                            "the image")
     _keep(ctx, crop(img, x0, y0, x1 - x0, y1 - y0, device=ctx.device))
     _log.info("eqcrop: %dx%d at (%d,%d)", x1 - x0, y1 - y0, x0, y0)
+
+
+# ===========================================================================
+# the enhancement session: filters, wavelets, denoising, deconvolution,
+# arithmetic, pixel math, masks
+# ===========================================================================
+
+
+@command("ddp", "ddp level coef sigma", min_args=3)
+def cmd_ddp(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.filters import ddp
+
+    _keep(ctx, ddp(ctx.require_image(), float(args[0]), float(args[1]),
+                   float(args[2]), device=ctx.device))
+
+
+@command("thresh", "thresh lo hi", min_args=2)
+def cmd_thresh(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.filters import thresh
+
+    _keep(ctx, thresh(ctx.require_image(), float(args[0]) / 65535.0,
+                      float(args[1]) / 65535.0))
+
+
+@command("threshlo", "threshlo level", min_args=1)
+def cmd_threshlo(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.filters import threshlo
+
+    _keep(ctx, threshlo(ctx.require_image(), float(args[0]) / 65535.0))
+
+
+@command("threshhi", "threshhi level", min_args=1)
+def cmd_threshhi(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.filters import threshhi
+
+    _keep(ctx, threshhi(ctx.require_image(), float(args[0]) / 65535.0))
+
+
+@command("nozero", "nozero level", min_args=1)
+def cmd_nozero(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.filters import nozero
+
+    _keep(ctx, nozero(ctx.require_image(), float(args[0]) / 65535.0))
+
+
+@command("fill", "fill value [x y w h]", min_args=1)
+def cmd_fill(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.filters import fill
+
+    area = tuple(int(float(a)) for a in args[1:5]) if len(args) >= 5 \
+        else None
+    _keep(ctx, fill(ctx.require_image(), float(args[0]) / 65535.0, area))
+
+
+@command("ffill", "ffill value [x y width height]", min_args=1)
+def cmd_ffill(ctx: Session, args: List[str]) -> None:
+    """Symmetric fill (process_ffill): the region and its point-symmetric
+    counterpart about the image centre."""
+    from siril_tpu_torch.ops.filters import fill
+
+    img = ctx.require_image()
+    v = float(args[0]) / 65535.0
+    if len(args) >= 5:
+        x, y, w, h = (int(float(a)) for a in args[1:5])
+    elif ctx.selection:
+        x, y, w, h = ctx.selection
+    else:
+        x, y, w, h = 0, 0, img.width, img.height
+    out = fill(img, v, (x, y, w, h))
+    out = fill(out, v, (max(img.width - x - w, 0),
+                        max(img.height - y - h, 0), w, h))
+    _keep(ctx, out)
+
+
+@command("gauss", "gauss sigma", min_args=1)
+def cmd_gauss(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.filters import gauss
+
+    _keep(ctx, gauss(ctx.require_image(), float(args[0]), device=ctx.device))
+
+
+@command("unsharp", "unsharp sigma multi", min_args=2)
+def cmd_unsharp(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.filters import unsharp
+
+    _keep(ctx, unsharp(ctx.require_image(), float(args[0]), float(args[1]),
+                       device=ctx.device))
+
+
+@command("fmedian", "fmedian ksize modulation", min_args=2)
+def cmd_fmedian(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.filters import median_filter
+
+    _keep(ctx, median_filter(ctx.require_image(), int(float(args[0])),
+                             float(args[1]), device=ctx.device))
+
+
+@command("clahe", "clahe cliplimit tileSize", min_args=2)
+def cmd_clahe(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.filters import clahe
+
+    _keep(ctx, clahe(ctx.require_image(), float(args[0]),
+                     int(float(args[1])), device=ctx.device))
+
+
+@command("epf", "epf [-guided] [-d=] [-si=] [-ss=] [-mod=]")
+def cmd_epf(ctx: Session, args: List[str]) -> None:
+    """The bilateral filter, or with ``-guided`` the guided filter (eps
+    = si², as the JAX package reads it; ``-mod=0`` reads as 1)."""
+    from siril_tpu_torch.ops.filters import bilateral, guided_filter
+
+    pos, flags = parse_flags(args)
+    img = ctx.require_image()
+    mod = _f(flags.get("mod"), 1.0) or 1.0
+    if "guided" in flags:
+        out = guided_filter(img, radius=int(_f(flags.get("d"), 8) or 8),
+                            eps=(_f(flags.get("si"), 0.1) or 0.1) ** 2,
+                            mod=mod, device=ctx.device)
+    else:
+        out = bilateral(img, d=_f(flags.get("d"), 5) or 5,
+                        sigma_col=_f(flags.get("si"), 0.1) or 0.1,
+                        sigma_spatial=_f(flags.get("ss"), 3.0) or 3.0,
+                        mod=mod, device=ctx.device)
+    _keep(ctx, out)
+
+
+@command("fixbanding", "fixbanding amount sigma [-vertical]", min_args=2)
+def cmd_fixbanding(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.filters import fix_banding
+
+    pos, flags = parse_flags(args)
+    _keep(ctx, fix_banding(ctx.require_image(), sigma=float(pos[1]),
+                           amount=float(pos[0]),
+                           vertical="vertical" in flags))
+
+
+@command("unpurple", "unpurple [-blue=] [-strength=]")
+def cmd_unpurple(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.filters import unpurple
+
+    pos, flags = parse_flags(args)
+    _keep(ctx, unpurple(_need_rgb(ctx, "unpurple"),
+                        blue_threshold=_f(flags.get("blue"), 0.2) or 0.2,
+                        strength=_f(flags.get("strength"), 1.0) or 1.0,
+                        device=ctx.device))
+
+
+@command("rgradient", "rgradient xc yc dR dalpha", min_args=4)
+def cmd_rgradient(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.filters import rgradient
+
+    _keep(ctx, rgradient(ctx.require_image(), float(args[0]), float(args[1]),
+                         float(args[2]), float(args[3]), device=ctx.device))
+
+
+@command("denoise", "denoise [-mod=m] [-vst | -da3d | -sos=n [-rho=r]]")
+def cmd_denoise(ctx: Session, args: List[str]) -> None:
+    """NL-Bayes denoiser (``-vst``, ``-sos=``, ``-rho=``); ``-da3d`` runs
+    the dual-domain refinement; ``-mod`` blends with the original (``-mod=
+    0`` reads as 1, and ``-indep`` / ``-mask`` are not read, as in the JAX
+    package).  Stages: search, solve, aggregate (and da3d)."""
+    from siril_tpu_torch.ops.nlbayes import nlbayes_denoise
+
+    pos, flags = parse_flags(args)
+    sos = int(_f(flags.get("sos"), 0) or 0)
+    rho = _f(flags.get("rho"), 0.3) or 0.3
+    img = ctx.require_image()
+    out = nlbayes_denoise(img, use_vst="vst" in flags, sos_iters=sos,
+                          sos_rho=rho, device=ctx.device, stages=ctx.stages)
+    if "da3d" in flags:
+        import torch
+
+        from siril_tpu_torch.ops.da3d import da3d_image
+        from siril_tpu_torch.ops.statistics import bgnoise_np
+
+        t = time.perf_counter()
+        noisy = img.host()
+        sigma = float(np.mean([bgnoise_np(noisy[c])
+                               for c in range(img.nchans)]))
+        refined = da3d_image(noisy, out.host(), sigma, device=ctx.device)
+        out = out.copy(data=np.ascontiguousarray(
+            torch.clamp(refined, 0.0, 1.0).cpu().numpy()))
+        out.log_history("DA3D refinement")
+        ctx.stages["da3d"] = time.perf_counter() - t
+    mod = _f(flags.get("mod"), 1.0) or 1.0
+    if mod < 1.0:
+        blend = (mod * out.host() + (1.0 - mod) * img.host())
+        out = img.copy(data=blend.astype(np.float32))
+        out.log_history(f"denoise mod={mod}")
+    _keep(ctx, out)
+
+
+@command("wavelet", "wavelet nbr_layers type", min_args=1)
+def cmd_wavelet(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.wavelets import (
+        WAVELET_BSPLINE,
+        WAVELET_LINEAR,
+        wavelet_transform,
+    )
+
+    img = ctx.require_image()
+    n = int(float(args[0]))
+    ktype = WAVELET_LINEAR if (len(args) > 1 and args[1] == "1") \
+        else WAVELET_BSPLINE
+    ctx.wavelet_planes = wavelet_transform(img, n, ktype, device=ctx.device)
+    ctx.wavelet_img = img
+    _log.info("Computed %d wavelet layers", n)
+
+
+@command("wrecons", "wrecons c1 c2 …", min_args=1)
+def cmd_wrecons(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.wavelets import wavelet_reconstruct
+
+    ctx.require_image()
+    if ctx.wavelet_planes is None:
+        raise CommandError("run `wavelet` first")
+    _keep(ctx, wavelet_reconstruct(ctx.wavelet_img, ctx.wavelet_planes,
+                                   [float(a) for a in args]))
+
+
+@command("fftd", "fftd modulus phase", min_args=2)
+def cmd_fftd(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.io.fits_io import write_fits
+    from siril_tpu_torch.ops.filters import fftd
+
+    mod, phase = fftd(ctx.require_image(), device=ctx.device)
+    write_fits(mod, ctx.path(args[0] + ctx.ext), bitdepth=FLOAT_IMG)
+    write_fits(phase, ctx.path(args[1] + ctx.ext), bitdepth=FLOAT_IMG)
+    # the session keeps the maxima (FFTNORM) for a later ffti
+    ctx.pm_images["__fft_mod"] = mod
+    ctx.pm_images["__fft_phase"] = phase
+
+
+@command("ffti", "ffti modulus phase", min_args=2)
+def cmd_ffti(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.io.fits_io import read_fits
+    from siril_tpu_torch.ops.filters import ffti
+
+    mod = ctx.pm_images.get("__fft_mod")
+    phase = ctx.pm_images.get("__fft_phase")
+    if mod is None:
+        mod = read_fits(ctx.path(args[0] + ctx.ext))
+        phase = read_fits(ctx.path(args[1] + ctx.ext))
+    _keep(ctx, ffti(mod, phase, device=ctx.device))
+
+
+@command("linear_match", "linear_match reference low high", min_args=1)
+def cmd_linear_match(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.filters import linear_match
+
+    ref = _load_operand(ctx, args[0])
+    lo = float(args[1]) if len(args) > 1 else 1e-7
+    hi = float(args[2]) if len(args) > 2 else 0.92
+    _keep(ctx, linear_match(ctx.require_image(), ref, lo, hi))
+
+
+# ---- deconvolution ----
+
+
+def _get_psf(ctx: Session, flags: dict):
+    from siril_tpu_torch.ops.deconvolution import (
+        PSF_AIRY,
+        PSF_DISC,
+        PSF_GAUSSIAN,
+        PSF_MOFFAT,
+        make_psf,
+        psf_from_stars,
+    )
+
+    ks = int(_f(flags.get("ks"), 31) or 31)
+    if "psfstars" in flags or "stars" in flags:
+        return psf_from_stars(ctx.require_image(), size=min(ks, 31),
+                              device=ctx.device)
+    kind = PSF_GAUSSIAN
+    if "moffat" in flags:
+        kind = PSF_MOFFAT
+    elif "disc" in flags:
+        kind = PSF_DISC
+    elif "airy" in flags:
+        kind = PSF_AIRY
+    return make_psf(kind, size=ks, fwhm=_f(flags.get("fwhm"), 5.0) or 5.0,
+                    beta=_f(flags.get("beta"), 2.2) or 2.2,
+                    ratio=_f(flags.get("ratio"), 1.0) or 1.0,
+                    angle_deg=_f(flags.get("angle"), 0.0) or 0.0,
+                    diameter=_f(flags.get("dia"), 5.0) or 5.0)
+
+
+def _write_psf(ctx: Session, psf, name: str) -> None:
+    from siril_tpu_torch.core.image import SirilImage
+    from siril_tpu_torch.io.fits_io import write_fits
+
+    write_fits(SirilImage(data=psf[None] / psf.max()), ctx.path(name),
+               bitdepth=FLOAT_IMG)
+
+
+@command("makepsf",
+         "makepsf {clear|load f|save [f]|blind [-l0] [-si] [-multiscale] "
+         "[-lambda=] [-comp=] [-ks=] [-savepsf=]|stars [-sym] [-ks=] "
+         "[-savepsf=]|manual …}", min_args=1)
+def cmd_makepsf(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.deconvolution import psf_from_stars
+
+    pos, flags = parse_flags(args)
+    mode = pos[0]
+    if mode == "clear":
+        ctx.psf = None
+        _log.info("PSF cleared")
+        return
+    if mode == "load":
+        from siril_tpu_torch.io.conversion import load_any
+
+        a = np.asarray(load_any(ctx.path(pos[1])).host()[0], np.float64)
+        ctx.psf = (a / a.sum() if a.sum() > 0 else a).astype(np.float32)
+        _log.info("PSF loaded")
+        return
+    if mode == "save":
+        if ctx.psf is None:
+            raise CommandError("no PSF to save")
+        _write_psf(ctx, ctx.psf, pos[1] if len(pos) > 1 else "psf")
+        return
+    if mode == "blind":
+        # -si: the spectral-irregularity engine; -l0 (default) the
+        # ℓ0-descent engine
+        from siril_tpu_torch.ops.blind_deconv import estimate_kernel_blind
+
+        psf = estimate_kernel_blind(
+            ctx.require_image().host(),
+            ks=int(_f(flags.get("ks"), 15) or 15),
+            method="si" if "si" in flags else "l0",
+            multiscale="multiscale" in flags,
+            lam=_f(flags.get("lambda"), 1e-3) or 1e-3,
+            comp=_f(flags.get("comp"), None), device=ctx.device)
+    elif mode == "stars":
+        psf = psf_from_stars(ctx.require_image(), device=ctx.device)
+    else:
+        psf = _get_psf(ctx, flags)
+    ctx.psf = psf
+    if isinstance(flags.get("savepsf"), str):
+        _write_psf(ctx, psf, flags["savepsf"])
+    _log.info("PSF generated (%dx%d)", psf.shape[0], psf.shape[1])
+
+
+def _psf_for_deconv(ctx: Session, flags: dict):
+    """``-loadpsf=file``, else the session's PSF; any other flag makes a
+    new synthetic PSF, the session's discarded (as the JAX package
+    does)."""
+    if isinstance(flags.get("loadpsf"), str):
+        from siril_tpu_torch.io.conversion import load_any
+
+        a = np.asarray(load_any(ctx.path(flags["loadpsf"])).host()[0],
+                       np.float64)
+        ssum = a.sum()
+        return (a / ssum if ssum > 0 else a).astype(np.float32)
+    psf = ctx.psf
+    if psf is None or flags:
+        psf = _get_psf(ctx, flags)
+    return psf
+
+
+@command("rl", "rl [-iters=] [-alpha=] [-gdstep=] [-mul] [-stop=] "
+         "[psf flags]")
+def cmd_rl(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.deconvolution import richardson_lucy
+
+    pos, flags = parse_flags(args)
+    psf = _psf_for_deconv(ctx, flags)
+    _keep(ctx, richardson_lucy(
+        ctx.require_image(), psf,
+        iterations=int(_f(flags.get("iters"), 20) or 20),
+        tv_alpha=_f(flags.get("alpha"), 0.0) or 0.0,
+        step=_f(flags.get("gdstep"), 0.0005) or 0.0005,
+        multiplicative="mul" in flags or "gdstep" not in flags,
+        stop_delta=_f(flags.get("stop"), 0.0) or 0.0, device=ctx.device))
+
+
+@command("wiener", "wiener [-alpha=] [psf flags]")
+def cmd_wiener(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.deconvolution import wiener
+
+    pos, flags = parse_flags(args)
+    psf = _psf_for_deconv(ctx, flags)
+    _keep(ctx, wiener(ctx.require_image(), psf,
+                      alpha=1.0 / (_f(flags.get("alpha"), 500.0) or 500.0),
+                      device=ctx.device))
+
+
+@command("sb", "sb [-iters=] [-lambda=] [psf flags]")
+def cmd_sb(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.deconvolution import split_bregman_tv
+
+    pos, flags = parse_flags(args)
+    psf = _psf_for_deconv(ctx, flags)
+    _keep(ctx, split_bregman_tv(
+        ctx.require_image(), psf,
+        lam=_f(flags.get("lambda"), 3000.0) or 3000.0,
+        iterations=int(_f(flags.get("iters"), 10) or 10), device=ctx.device))
+
+
+# ---- arithmetic & pixel math ----
+
+
+def _arith(ctx: Session, fn, *operands) -> None:
+    """The loaded image replaced by ``fn`` of it and ``operands`` (images
+    or scalars), on the session's device; no mask blend."""
+    from siril_tpu_torch.ops.stretch import upload
+
+    img = ctx.require_image()
+    ops = [upload(o, ctx.device) if hasattr(o, "host") else o
+           for o in operands]
+    out = fn(upload(img, ctx.device), *ops)
+    _keep(ctx, img.copy(data=np.ascontiguousarray(out.cpu().numpy())))
+
+
+def _imoper_command(name: str, oper: int):
+    @command(name, f"{name} filename", min_args=1)
+    def cmd(ctx: Session, args: List[str]) -> None:
+        from siril_tpu_torch.ops.arithmetic import imoper
+
+        _arith(ctx, lambda a, b: imoper(a, b, oper, clip16=ctx.force_16bit),
+               _load_operand(ctx, args[0]))
+
+    return cmd
+
+
+def _soper_command(name: str, oper: int, scale: float,
+                   clip16: bool = False):
+    @command(name, f"{name} scalar", min_args=1)
+    def cmd(ctx: Session, args: List[str]) -> None:
+        from siril_tpu_torch.ops.arithmetic import soper
+
+        _arith(ctx, lambda a: soper(a, float(args[0]) / scale, oper,
+                                    clip16=clip16))
+
+    return cmd
+
+
+cmd_iadd = _imoper_command("iadd", 0)
+cmd_isub = _imoper_command("isub", 1)
+cmd_imul = _imoper_command("imul", 2)
+cmd_idiv = _imoper_command("idiv", 3)
+cmd_fadd = _soper_command("fadd", 0, 65535.0)
+cmd_fsub = _soper_command("fsub", 1, 65535.0)
+cmd_fmul = _soper_command("fmul", 2, 1.0)
+# offset adds a value in ADU, always through the u16 quantizer
+cmd_offset = _soper_command("offset", 0, 65535.0, clip16=True)
+
+
+@command("fdiv", "fdiv filename scalar", min_args=2)
+def cmd_fdiv(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.arithmetic import fdiv
+
+    _arith(ctx, lambda a, b: fdiv(a, b, float(args[1])),
+           _load_operand(ctx, args[0]))
+
+
+@command("addmax", "addmax filename", min_args=1)
+def cmd_addmax(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.arithmetic import addmax
+
+    _arith(ctx, addmax, _load_operand(ctx, args[0]))
+
+
+@command("pm", "pm \"expression\" [-rescale]", min_args=1)
+def cmd_pm(ctx: Session, args: List[str]) -> None:
+    """``$name$`` reads the image ``name`` (a file); without any, ``$T``
+    is the loaded image."""
+    from siril_tpu_torch.ops.pixelmath import pixel_math
+
+    pos, flags = parse_flags(args)
+    expr = pos[0].strip('"')
+    images = {}
+    for n in set(re.findall(r"\$([A-Za-z0-9_]+)\$", expr)):
+        images[n] = _load_operand(ctx, n)
+        expr = expr.replace(f"${n}$", n)
+    if not images and ctx.image is not None:
+        images["T"] = ctx.image
+        expr = expr.replace("$T", "T")
+    ctx.set_image(pixel_math(expr, images, rescale="rescale" in flags,
+                             device=ctx.device), "pm_result")
+
+
+# ---- masks ----
+
+
+def _require_mask(ctx: Session):
+    img = ctx.require_image()
+    if img.mask is None:
+        raise CommandError("no mask defined")
+    return img
+
+
+def _mask_postprocess(ctx: Session, img, flags: dict) -> None:
+    """The mask_from_* options -autostretch, -invert, -feather=,
+    -bitdepth=; the mask becomes active."""
+    from siril_tpu_torch.ops.masks import (
+        mask_autostretch,
+        mask_feather,
+        mask_invert,
+    )
+
+    if "autostretch" in flags:
+        img.mask = mask_autostretch(img.mask, device=ctx.device)
+    if "invert" in flags:
+        img.mask = mask_invert(img.mask)
+    if "feather" in flags and flags["feather"] is not True:
+        img.mask = mask_feather(img.mask, int(float(flags["feather"])))
+    q = {"8": 255.0, "16": 65535.0}.get(flags.get("bitdepth"))
+    if q:
+        img.mask = (np.round(img.mask * q) / q).astype(np.float32)
+    img.mask_active = True
+
+
+@command("mask_from_channel", "mask_from_channel channel [-invert] "
+         "[-feather=] [-autostretch] [-bitdepth=]", min_args=1)
+def cmd_mask_from_channel(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.masks import mask_from_channel
+
+    pos, flags = parse_flags(args)
+    img = ctx.require_image()
+    img.mask = mask_from_channel(img, int(float(pos[0])))
+    _mask_postprocess(ctx, img, flags)
+
+
+@command("mask_from_lum", "mask_from_lum [-rw=] [-gw=] [-bw=] [-invert] "
+         "[-feather=] [-autostretch] [-bitdepth=]")
+def cmd_mask_from_lum(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.masks import mask_from_lum
+
+    pos, flags = parse_flags(args)
+    img = ctx.require_image()
+    if any(k in flags for k in ("rw", "gw", "bw")):
+        img.mask = mask_from_lum(img, weights=(
+            _f(flags.get("rw"), 0.2126) or 0.2126,
+            _f(flags.get("gw"), 0.7152) or 0.7152,
+            _f(flags.get("bw"), 0.0722) or 0.0722))
+    else:
+        img.mask = mask_from_lum(img)
+    _mask_postprocess(ctx, img, flags)
+
+
+@command("mask_from_stars", "mask_from_stars [-invert] [-feather=] "
+         "[-bitdepth=]")
+def cmd_mask_from_stars(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.masks import mask_from_stars
+
+    pos, flags = parse_flags(args)
+    img = ctx.require_image()
+    img.mask = mask_from_stars(img, device=ctx.device)
+    _mask_postprocess(ctx, img, flags)
+
+
+@command("mask_from_color", "mask_from_color -cr= -cg= -cb= -tol= "
+         "[-invert]", min_args=4)
+def cmd_mask_from_color(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.masks import mask_from_color, mask_invert
+
+    pos, flags = parse_flags(args)
+    try:
+        color = (float(flags["cr"]), float(flags["cg"]), float(flags["cb"]))
+        tol = float(flags["tol"])
+    except (KeyError, ValueError):
+        raise CommandError("usage: mask_from_color -cr= -cg= -cb= -tol=")
+    img = _need_rgb(ctx, "mask_from_color")
+    m = mask_from_color(img, color, tol)
+    img.mask = mask_invert(m) if "invert" in flags else m
+    _log.info("mask created from color")
+
+
+@command("mask_invert", "mask_invert")
+def cmd_mask_invert(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.masks import mask_invert
+
+    img = _require_mask(ctx)
+    img.mask = mask_invert(img.mask)
+
+
+@command("mask_blur", "mask_blur sigma", min_args=1)
+def cmd_mask_blur(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.masks import mask_blur
+
+    img = _require_mask(ctx)
+    img.mask = mask_blur(img.mask, float(args[0]), device=ctx.device)
+
+
+@command("mask_threshold", "mask_threshold lo [hi]", min_args=1)
+def cmd_mask_threshold(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.masks import mask_threshold
+
+    img = _require_mask(ctx)
+    hi = float(args[1]) if len(args) > 1 else 1.0
+    img.mask = mask_threshold(img.mask, float(args[0]), hi)
+
+
+@command("mask_autostretch", "mask_autostretch")
+def cmd_mask_autostretch(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.masks import mask_autostretch
+
+    img = _require_mask(ctx)
+    img.mask = mask_autostretch(img.mask, device=ctx.device)
+
+
+@command("mask_bitpix", "mask_bitpix depth", min_args=1)
+def cmd_mask_bitpix(ctx: Session, args: List[str]) -> None:
+    """The mask quantized to the resolution of depth 8, 16 or 32."""
+    img = _require_mask(ctx)
+    m = img.mask
+    depth = args[0]
+    if depth in ("8", "byte"):
+        m = np.round(m * 255.0) / 255.0
+    elif depth in ("16", "ushort"):
+        m = np.round(m * 65535.0) / 65535.0
+    elif depth not in ("32", "float"):
+        raise CommandError("mask_bitpix: depth must be 8, 16 or 32")
+    img.mask = m.astype(np.float32)
+
+
+@command("mask_feather", "mask_feather -dist= [-mode=]", min_args=1)
+def cmd_mask_feather(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.masks import mask_feather
+
+    pos, flags = parse_flags(args)
+    dist = int(_f(flags.get("dist"), 0) or (float(pos[0]) if pos else 0))
+    if dist <= 0:
+        raise CommandError("mask_feather: -dist= required")
+    img = _require_mask(ctx)
+    img.mask = mask_feather(img.mask, dist)
+
+
+@command("mask_fmul", "mask_fmul factor", min_args=1)
+def cmd_mask_fmul(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.masks import mask_fmul
+
+    img = _require_mask(ctx)
+    img.mask = mask_fmul(img.mask, float(args[0]))
+
+
+@command("clear_mask", "clear_mask")
+def cmd_clear_mask(ctx: Session, args: List[str]) -> None:
+    img = ctx.require_image()
+    img.mask = None
+    img.mask_active = False
+
+
+# ---- the sequence forms ----
+
+
+@command("seqfixbanding", "seqfixbanding sequencename amount sigma "
+         "[-prefix=] [-vertical]", min_args=3)
+def cmd_seqfixbanding(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.filters import fix_banding
+
+    pos, flags = parse_flags(args)
+    _seq_apply(ctx, pos[0], _prefix(flags, "unband_"), "seqfixbanding",
+               lambda im: fix_banding(im, sigma=float(pos[2]),
+                                      amount=float(pos[1]),
+                                      vertical="vertical" in flags))
+
+
+@command("seqrl", "seqrl sequencename [-iters=] [psf flags]", min_args=1)
+def cmd_seqrl(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.deconvolution import richardson_lucy
+
+    pos, flags = parse_flags(args)
+    psf = _psf_for_deconv(ctx, flags)
+    iters = int(_f(flags.get("iters"), 20) or 20)
+    _seq_apply(ctx, pos[0], _prefix(flags, "rl_"), "seqrl",
+               lambda im: richardson_lucy(im, psf, iterations=iters,
+                                          device=ctx.device))
+
+
+@command("seqwiener", "seqwiener sequencename [-alpha=] [psf flags]",
+         min_args=1)
+def cmd_seqwiener(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.deconvolution import wiener
+
+    pos, flags = parse_flags(args)
+    psf = _psf_for_deconv(ctx, flags)
+    alpha = 1.0 / (_f(flags.get("alpha"), 500.0) or 500.0)
+    _seq_apply(ctx, pos[0], _prefix(flags, "wiener_"), "seqwiener",
+               lambda im: wiener(im, psf, alpha=alpha, device=ctx.device))
+
+
+@command("seqsb", "seqsb sequencename [-iters=] [psf flags]", min_args=1)
+def cmd_seqsb(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.deconvolution import split_bregman_tv
+
+    pos, flags = parse_flags(args)
+    psf = _psf_for_deconv(ctx, flags)
+    iters = int(_f(flags.get("iters"), 10) or 10)
+    _seq_apply(ctx, pos[0], _prefix(flags, "sb_"), "seqsb",
+               lambda im: split_bregman_tv(im, psf, iterations=iters,
+                                           device=ctx.device))
+
+
+@command("seqdenoise", "seqdenoise sequencename [-vst | -sos=n [-rho=r]]",
+         min_args=1)
+def cmd_seqdenoise(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.nlbayes import nlbayes_denoise
+
+    pos, flags = parse_flags(args)
+    sos = int(_f(flags.get("sos"), 0) or 0)
+    rho = _f(flags.get("rho"), 0.3) or 0.3
+    _seq_apply(ctx, pos[0], _prefix(flags, "dn_"), "seqdenoise",
+               lambda im: nlbayes_denoise(im, use_vst="vst" in flags,
+                                          sos_iters=sos, sos_rho=rho,
+                                          device=ctx.device))
+
+
+@command("seqatrous", "seqatrous sequencename nbr_layers [-prefix=]",
+         min_args=1)
+def cmd_seqatrous(ctx: Session, args: List[str]) -> None:
+    from siril_tpu_torch.ops.wavelets import wavelet_denoise
+
+    pos, flags = parse_flags(args)
+    n = int(float(pos[1])) if len(pos) > 1 else 4
+    _seq_apply(ctx, pos[0], _prefix(flags, "atrous_"), "seqatrous",
+               lambda im: wavelet_denoise(im, nb_layers=n,
+                                          use_vst="anscombe" in flags,
+                                          device=ctx.device))

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from siril_tpu_torch.core.image import SirilImage
 from siril_tpu_torch.core.sequence import Sequence
@@ -47,6 +47,17 @@ class Session:
     selection: Optional[tuple] = None
     #: catmag: the absolute magnitude offset
     magnitude_offset: float = 0.0
+    #: the arithmetic commands quantize to u16 (the reference's 16-bit
+    #: mode)
+    force_16bit: bool = False
+    #: ``wavelet``: the planes (tensors on the session's device) and the
+    #: image they came from, for a later ``wrecons``
+    wavelet_planes: Optional[list] = None
+    wavelet_img: Optional[SirilImage] = None
+    #: pixel-math operands and ``fftd``'s modulus and phase for ``ffti``
+    pm_images: Dict[str, SirilImage] = field(default_factory=dict)
+    #: ``makepsf``: the PSF that ``rl``, ``wiener`` and ``sb`` take
+    psf: Optional[object] = None
     sequence: Optional[Sequence] = None
     image: Optional[SirilImage] = None
     image_name: str = ""

@@ -3,8 +3,9 @@
 ``execute_script``:83; reference ``src/core/command_line_processor.c``).
 
 ``execute_script`` also keeps, for each command, its wall seconds, the
-launches of kernel K1 it made and the stages it timed in
-``Session.command_log``.
+launches of kernel K1 it made, the stages it timed and, on a card, the
+peak device memory it took beyond what was allocated before it
+(``peak_mib``) in ``Session.command_log``.
 """
 
 from __future__ import annotations
@@ -57,6 +58,25 @@ def execute_command(ctx: Session, words: List[str]) -> int:
         return 1
 
 
+def _reset_peak(dev) -> int:
+    """Start a command's peak-memory count; the bytes allocated now."""
+    if dev.type != "cuda":
+        return 0
+    import torch
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def _peak_mib(dev, base: int):
+    """MiB at the command's peak beyond ``base``; None off the card."""
+    if dev.type != "cuda":
+        return None
+    import torch
+
+    return (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+
+
 def execute_script(ctx: Session, path: str) -> int:
     """Run a ``.ssf`` script (execute_script, command_line_processor.c:
     246), stopping at the first failing command; returns its code, else
@@ -74,6 +94,7 @@ def execute_script(ctx: Session, path: str) -> int:
                 continue
             before = dict(k1.launches)
             ctx.stages = {}
+            base = _reset_peak(dev)
             t = time.perf_counter()
             rc = execute_command(ctx, words)
             synchronize(dev)
@@ -82,7 +103,8 @@ def execute_script(ctx: Session, path: str) -> int:
                 launches={v: n - before.get(v, 0)
                           for v, n in k1.launches.items()
                           if n != before.get(v, 0)},
-                stages=dict(ctx.stages), rc=rc))
+                stages=dict(ctx.stages), rc=rc,
+                peak_mib=_peak_mib(dev, base)))
             if rc != 0:
                 _log.error("Script aborted at line %d: %s", lineno,
                            line.strip())

@@ -308,3 +308,104 @@ def test_astrometry_entry_points_need_a_card(monkeypatch, tmp_path):
     av.add_frame(img)
     av.close()
     assert AviReader(str(tmp_path / "a.avi")).read_frame(0).nchans == 1
+
+
+ENHANCE_MODULES = ("filters", "wavelets", "deconvolution", "blind_deconv",
+                   "nlbayes", "da3d", "pixelmath", "arithmetic", "curves",
+                   "masks")
+
+
+def test_enhance_modules_run_with_jax_blocked():
+    """The ten modules of the enhancement session and the command table
+    import and run (on the CPU, a 40² image through each) in a process
+    where importing ``jax`` or ``siril_tpu`` raises, so that no call
+    reaches either lazily."""
+    code = (
+        "import importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'siril_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import numpy as np\n"
+        "from siril_tpu_torch.cli.commands import COMMANDS\n"
+        "from siril_tpu_torch.cli.context import Session\n"
+        "from siril_tpu_torch.core.image import SirilImage\n"
+        f"for m in {ENHANCE_MODULES!r}:\n"
+        "    __import__('siril_tpu_torch.ops.' + m)\n"
+        "rng = np.random.default_rng(0)\n"
+        "img = SirilImage(data=(0.1 + 0.05 * rng.random((3, 40, 40)))"
+        ".astype(np.float32))\n"
+        "s = Session(device='cpu')\n"
+        "s.set_image(img, 'x')\n"
+        "for line in ('gauss 1', 'unsharp 1 1.5', 'fmedian 3 1', "
+        "'clahe 2 4', 'epf', 'epf -guided', 'ddp 0.05 0.3 1', "
+        "'rgradient 20 20 2 3', 'unpurple', 'wavelet 3', 'wrecons 1 1 1', "
+        "'denoise -da3d', 'makepsf manual -ks=9', 'rl -iters=2', "
+        "'wiener', 'sb -iters=2', 'fmul 1.1', 'pm \"$T * 0.9\"', "
+        "'mask_from_lum', 'mask_blur 1', 'mask_autostretch', "
+        "'clear_mask'):\n"
+        "    w = line.split(' ', 1)\n"
+        "    args = [a.strip('\"') for a in w[1].split(' ')] "
+        "if len(w) > 1 and not w[1].startswith('\"') else "
+        "([w[1].strip('\"')] if len(w) > 1 else [])\n"
+        "    COMMANDS[w[0]].fn(s, args)\n"
+        "from siril_tpu_torch.ops import blind_deconv\n"
+        "blind_deconv.estimate_kernel_blind(rng.random((64, 64))"
+        ".astype(np.float32), 7, 'si', device='cpu')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'siril_tpu')]\n"
+        "print('ok' if not bad and s.image.data.shape == (3, 40, 40) "
+        "else bad)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_enhance_ops_default_to_cuda(monkeypatch, tmp_path):
+    """The enhancement session's entry points run on CUDA unless asked
+    for the CPU, and raise without a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from siril_tpu_torch.cli.commands import COMMANDS
+    from siril_tpu_torch.cli.context import Session
+    from siril_tpu_torch.core.image import SirilImage
+    from siril_tpu_torch.ops import (
+        blind_deconv,
+        curves,
+        da3d,
+        deconvolution,
+        filters,
+        masks,
+        nlbayes,
+        pixelmath,
+        wavelets,
+    )
+
+    img = SirilImage(data=np.full((3, 16, 16), 0.2, np.float32))
+    psf = deconvolution.make_psf(size=5)
+    plane = np.full((70, 70), 0.2, np.float32)
+    for call in (lambda: filters.gauss(img, 1.0),
+                 lambda: filters.median_filter(img, 3),
+                 lambda: filters.clahe(img),
+                 lambda: filters.guided_filter(img),
+                 lambda: filters.fftd(img),
+                 lambda: wavelets.wavelet_denoise(img),
+                 lambda: deconvolution.richardson_lucy(img, psf, 1),
+                 lambda: nlbayes.nlbayes_denoise(img),
+                 lambda: da3d.da3d(plane, plane, 0.01),
+                 lambda: blind_deconv.estimate_kernel_blind(plane, 5),
+                 lambda: pixelmath.pixel_math("T", {"T": img}),
+                 lambda: curves.apply_curve(img, [(0.5, 0.6)]),
+                 lambda: masks.mask_blur(plane, 1.0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    for words in (["gauss", "1"], ["rl"], ["denoise"], ["fmul", "2"],
+                  ["mask_from_stars"]):
+        s = Session(cwd=str(tmp_path))
+        s.set_image(img, "x")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            COMMANDS[words[0]].fn(s, words[1:])
+    out = filters.gauss(img, 1.0, device="cpu").data
+    assert np.abs(out - img.data).max() <= 1e-7
