@@ -43,8 +43,7 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               SIGMEDIAN, LINEARFIT), and SIGMEDIAN at N=1000, P=2^14;
               then the column kernel timed at the 100-frame stack
               command's call size (N=STACK100, P=SIZE100², winsorized and
-              GESDT) and winsorized at N=128, 300 (P=SIZE²) and 1000
-              (P=2^20), each held against the plain version on 2^14
+              GESDT), each held against the plain version on 2^14
               pixels in runs spread over P, with the bound from the plain
               version's work on them scaled to P;
   warps  — each rung of the FFT warp ladder on 4 frames of SIZE² rendered
@@ -123,6 +122,23 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               bright isolated stars against their undistorted positions;
               the SIP warp's ms per frame beside the gather warp's and
               the card against the CPU on a SIP_CROP² crop;
+  analysis — the analysis session (ANALYSIS_SCRIPT) through -s on
+              ANALYSIS_LIGHTS 16-bit SIZE² lights rendered on the card
+              (synth_analysis: the sky field through sky_wcs, shifts, DATE-OBS
+              and WCS cards, an eclipsing target and constant comparison
+              stars in a NINA CSV, hot and cold pixels, a satellite trail
+              in one light) and a dark with hot pixels: convert,
+              seqfind_cosme, seqstat, seqfindstar, seqpsf, light_curve
+              -ninastars -aavso, seqsetmag, the sequence forms, then on one
+              corrected light stat, bg, bgnoise, entropy, histo, cdg,
+              findstar, psf, tilt, detect_streaks, synthstar, ssr, profile,
+              the ICC commands, inspector, and find_hot → cosme on the
+              dark; the light curve against the known one, the AAVSO JDs,
+              every defect corrected, the trail found (and none in a light
+              without one), find_hot's list, the ICC bytes read back; each
+              device op on the card against the CPU on an ANALYSIS_CROP²
+              crop, and ms per SIZE² frame of find_cosme, stat main,
+              icc_convert_to, detect_streaks, synthstar and ssr.  No K1;
   formats — FORMATS_LIGHTS of the script phase's raw lights: convert
               -fitseq, convert -ser, link, and rej 3 3 stacks of the
               cube (bit-equal to the regular one's), the SER video
@@ -931,16 +947,15 @@ COLUMN_FRAMES = [(33, 1 << 20, 0.3, None), (48, 1 << 16, 0.3, None),
                  (300, 1 << 13, 0.3, None), (1000, 1 << 11, 0.02, None),
                  (1000, 1 << 14, 0.02, "sigmedian")]
 #: the column kernel's timing sizes: the 100-frame stack command's call
-#: (winsorized and GESDT, as the stack phase runs it), then winsorized at
-#: 128, 300 and 1000 frames; each held against the plain version on
-#: COLUMN_SLICE pixels in COLUMN_CHUNKS runs spread over P, the last
-#: ending at P, so that tiles that blocks take after their first are
-#: compared too
+#: (winsorized and GESDT, as the stack phase runs it), held against the
+#: plain version on COLUMN_SLICE pixels in COLUMN_CHUNKS runs spread over
+#: P, the last ending at P, so that tiles that blocks take after their
+#: first are compared too.  The sizes no command launches (winsorized at
+#: N = 128 and 300 on SIZE², 1000 on 2^20; PERF.md §6 keeps their last
+#: times) are not timed, to make room for the analysis phase;
+#: COLUMN_FRAMES still compares every mode at 300 and 1000 frames
 COLUMN_TIMING = [(STACK100, SIZE100 * SIZE100, "winsorized"),
-                 (STACK100, SIZE100 * SIZE100, "gesdt"),
-                 (128, SIZE * SIZE, "winsorized"),
-                 (300, SIZE * SIZE, "winsorized"),
-                 (1000, 1 << 20, "winsorized")]
+                 (STACK100, SIZE100 * SIZE100, "gesdt")]
 COLUMN_SLICE = 1 << 14
 COLUMN_CHUNKS = 16
 
@@ -1408,7 +1423,7 @@ def write_u16_fits(path: str, u16, bayer: str = "", extra=()) -> None:
     cards += list(extra) + ["END"]
     hdr = "".join(c.ljust(80) for c in cards).encode("ascii")
     hdr += b" " * ((-len(hdr)) % 2880)
-    body = (u16[::-1].astype(np.int32) - 32768).astype(">i2").tobytes()
+    body = (u16[::-1] ^ np.uint16(0x8000)).astype(">u2").tobytes()
     with open(path, "wb") as f:
         f.write(hdr)
         f.write(body)
@@ -3108,6 +3123,552 @@ def phase_astrometry(seed: int, script_dir: str, night: dict):
     return rows, timings
 
 
+#: the analysis phase: ANALYSIS_LIGHTS 16-bit lights of the sky
+#: field, shifted by up to ±ANALYSIS_SHIFT px, DATE-OBS ANALYSIS_STEP_MIN
+#: apart, WCS cards on each; a target star whose magnitude follows
+#: ECLIPSE_DM (0.2 mag deep across frames 3-5) and ANALYSIS_COMPS constant
+#: comparison stars of the same brightness, listed in a NINA CSV;
+#: ANALYSIS_DEFECTS hot (0.95) and as many cold (0) pixels in each light;
+#: one satellite trail in light TRAIL_LIGHT from TRAIL_FROM, TRAIL_LENGTH
+#: px long at TRAIL_ANGLE (both ×size/4096; its normal on a 0.5° bin of
+#: the Hough vote)
+ANALYSIS_LIGHTS = 8
+ANALYSIS_STARS = 4000
+ANALYSIS_SHIFT = 4.0
+ANALYSIS_STEP_MIN = 10.0
+ANALYSIS_DATE0 = "2026-03-14T22:00:00.000"
+ECLIPSE_DM = (0.0, 0.0, 0.0, 0.1, 0.2, 0.1, 0.0, 0.0)
+ANALYSIS_AMP = 0.4
+ANALYSIS_COMPS = 5
+ANALYSIS_DEFECTS = 300
+ANALYSIS_SKY, ANALYSIS_NOISE = 0.1, 0.005
+TRAIL_LIGHT = 3
+TRAIL_FROM, TRAIL_LENGTH, TRAIL_ANGLE = (400.0, 600.0), 4000.0, 36.5
+TRAIL_AMP, TRAIL_SIGMA = 0.15, 0.8
+#: seqfind_cosme's σ factors against the frame's avgDev (~0.0041): cold
+#: 8 (0.033 below the 24-neighbour median), hot 120 (0.49 above: above the
+#: brightest star's core, 0.75·0.55, below a hot pixel's 0.85)
+COSME_COLD, COSME_HOT = 8, 120
+#: the dark of find_hot: DARK_SIZE², 0.02 ± 0.002, DARK_HOT pixels at 0.5
+DARK_SIZE, DARK_HOT = 512, 100
+#: the card against the CPU on a crop of a light
+ANALYSIS_CROP = 256
+#: the light curve: each point within LC_K × its reported error (the
+#: target's and the comparisons' in quadrature, with the out-of-eclipse
+#: mean's) of the known curve
+LC_K = 5.0
+
+ANALYSIS_SCRIPT = """requires 1.2.0
+convert light
+seqfind_cosme light_ {cold} {hot}
+seqstat cc_light_ seqstat.csv main
+seqfindstar cc_light_
+seqpsf cc_light_ 0 {tx:.2f} {ty:.2f}
+light_curve cc_light_ 0 -ninastars=nina.csv -aavso
+seqsetmag 12.5
+sequnsetmag
+seqmtf cc_light_ 0.02 0.2 1
+seqghs cc_light_ -D=2
+seqcrop cc_light_ {crop_x} {crop_y} {crop_w} {crop_w}
+seqresample cc_light_ 0.5
+seqsubsky scaled_cc_light_ 1
+load cc_light_{trail:05d}
+detect_streaks -out=streaks.csv
+load cc_light_00001
+detect_streaks -out=nostreak.csv
+stat main
+bg
+bgnoise
+entropy
+histo 0
+cdg
+findstar -out=stars.csv
+psf {tx:.2f} {ty:.2f}
+tilt
+synthstar
+save an_synth
+load cc_light_00001
+ssr
+save an_ssr
+load cc_light_00001
+profile -from={px0},{py0} -to={px1},{py1} -savedat
+icc_assign rec2020
+icc_convert_to srgblinear
+save an_icc
+load an_icc
+icc_remove
+inspector
+save an_insp
+load dark/dark
+find_hot dark/hot 5 5
+cosme dark/hot
+save dark/dark_cc
+"""
+
+
+def _trail_geometry(size: int):
+    """(start, end) of the trail at ``size``."""
+    import math
+
+    k = size / 4096.0
+    a = math.radians(TRAIL_ANGLE)
+    p0 = (TRAIL_FROM[0] * k, TRAIL_FROM[1] * k)
+    return p0, (p0[0] + TRAIL_LENGTH * k * math.cos(a),
+                p0[1] + TRAIL_LENGTH * k * math.sin(a))
+
+
+def _segment_distance(px, py, p0, p1):
+    """Distance of the points (px, py) — numpy arrays or tensors — to the
+    segment p0 → p1."""
+    dx, dy = p1[0] - p0[0], p1[1] - p0[1]
+    t = (((px - p0[0]) * dx + (py - p0[1]) * dy)
+         / (dx * dx + dy * dy)).clip(0.0, 1.0)
+    return ((px - p0[0] - t * dx) ** 2 + (py - p0[1] - t * dy) ** 2) ** 0.5
+
+
+def _render_torch(size: int, sky: float, cx, cy, amp, dev,
+                  psf_s: float = 1.3):
+    """``_render`` on the card: the stars on 13×13 patches, summed."""
+    import numpy as np
+    import torch
+
+    img = torch.full((size * size,), sky, dtype=torch.float32, device=dev)
+    r = 6
+    o = torch.arange(-r, r + 1, device=dev)
+    cx = torch.as_tensor(np.asarray(cx), device=dev)[:, None, None]
+    cy = torch.as_tensor(np.asarray(cy), device=dev)[:, None, None]
+    px = torch.floor(cx).long() + o[None, None, :]
+    py = torch.floor(cy).long() + o[None, :, None]
+    d2 = (px + 0.5 - cx) ** 2 + (py + 0.5 - cy) ** 2
+    a = torch.as_tensor(np.asarray(amp), device=dev)[:, None, None]
+    val = (a * torch.exp(-d2 / (2 * psf_s ** 2))).float()
+    px, py = px.expand(val.shape), py.expand(val.shape)
+    inb = (px >= 0) & (px < size) & (py >= 0) & (py < size)
+    img.index_put_(((py * size + px)[inb],), val[inb], accumulate=True)
+    return img.reshape(size, size)
+
+
+def synth_analysis(root: str, seed: int, size: int,
+                   nstars: int = ANALYSIS_STARS, device: str = ""):
+    """The analysis phase's session in ``root``: ANALYSIS_LIGHTS raw
+    16-bit lights ``raw_0000k.fit`` rendered on the card (sky field,
+    shifts, noise, the eclipsing target, the defects, the trail in
+    TRAIL_LIGHT), the NINA CSV ``nina.csv``, and ``dark/dark.fit``
+    (rendered on ``device``, the card by default).  Returns what the
+    checks need."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    from siril_tpu_torch.io.fits_io import _format_card
+    from siril_tpu_torch.utils.dates import format_date_obs, parse_date_obs
+
+    rng = np.random.default_rng(seed + 71)
+    dev = torch.device(device or CARD)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 72)
+    sx, sy, amp = _star_field(rng, size, nstars)
+    p0, p1 = _trail_geometry(size)
+    # no star within 12 px of the trail's line, so that the inliers of the
+    # found line are the trail's own pixels
+    d_line = np.abs((sx - p0[0]) * (p1[1] - p0[1]) - (sy - p0[1])
+                    * (p1[0] - p0[0])) / np.hypot(p1[0] - p0[0],
+                                                  p1[1] - p0[1])
+    keep = d_line > 12.0
+    sx, sy, amp = sx[keep], sy[keep], amp[keep]
+    # the target and its comparisons: bright isolated stars, away from the
+    # trail
+    margin = max(64, size // 16)
+    k = size / 4096.0
+    iso = _isolated(sx, sy, amp, size, n=len(sx), margin=margin,
+                    near=max(10.0, 40.0 * k))
+    iso = [i for i in iso if d_line[keep][i] > max(15.0, 60.0 * k)]
+    picks = np.asarray(iso[:1 + ANALYSIS_COMPS], np.int64)
+    if len(picks) < 1 + ANALYSIS_COMPS:
+        raise SystemExit("analysis: too few isolated stars for the light "
+                         "curve")
+    amp = amp.copy()
+    amp[picks] = ANALYSIS_AMP
+    target, comps = int(picks[0]), picks[1:]
+    sky = sky_wcs(size)
+    tree = cKDTree(np.stack([sx, sy], axis=1))
+    shifts = [(0.0, 0.0)] + [tuple(rng.uniform(-ANALYSIS_SHIFT,
+                                               ANALYSIS_SHIFT, 2))
+                             for _ in range(ANALYSIS_LIGHTS - 1)]
+    t0 = parse_date_obs(ANALYSIS_DATE0)
+    dates, defects = [], []
+    # as many defects as the 16-px cells allow at a small size
+    ndef = min(ANALYSIS_DEFECTS, (size // 16) ** 2 // 8)
+    for k, (dx, dy) in enumerate(shifts):
+        a = amp.copy()
+        a[target] = ANALYSIS_AMP * 10.0 ** (-0.4 * ECLIPSE_DM[k])
+        clean = _render_torch(size, ANALYSIS_SKY, sx + dx, sy + dy, a, dev)
+        if k == TRAIL_LIGHT:
+            lo = [int(max(0, min(p0[i], p1[i]) - 8)) for i in (0, 1)]
+            hi = [int(min(size, max(p0[i], p1[i]) + 9)) for i in (0, 1)]
+            yy, xx = torch.meshgrid(
+                torch.arange(lo[1], hi[1], device=dev, dtype=torch.float64),
+                torch.arange(lo[0], hi[0], device=dev, dtype=torch.float64),
+                indexing="ij")
+            d = _segment_distance(xx + 0.5, yy + 0.5, p0, p1)
+            clean[lo[1]:hi[1], lo[0]:hi[0]] += (TRAIL_AMP * torch.exp(
+                -d * d / (2 * TRAIL_SIGMA ** 2))).float()
+        f = clean + ANALYSIS_NOISE * torch.randn(
+            (size, size), generator=gen, device=dev)
+        # defects on the sky, no two within 4 px (one per 16-px cell): no
+        # star within 8 px, away from the trail
+        n = 2 * ndef
+        cand = _lattice_points(rng, size, 4 * n)
+        ok = (tree.query(cand[:, ::-1] + 0.5 - np.array([dx, dy]))[0] > 8.0) \
+            & (_segment_distance(cand[:, 1] + 0.5, cand[:, 0] + 0.5, p0, p1)
+               > 12.0)
+        cand = cand[ok][:n]
+        hot, cold = cand[:ndef], cand[ndef:n]
+        for pts, v in ((hot, 0.95), (cold, 0.0)):
+            f[torch.as_tensor(pts[:, 0], device=dev),
+              torch.as_tensor(pts[:, 1], device=dev)] = v
+        defects.append(dict(
+            hot=hot, cold=cold,
+            clean_hot=clean[torch.as_tensor(hot[:, 0], device=dev),
+                            torch.as_tensor(hot[:, 1], device=dev)]
+            .cpu().numpy(),
+            clean_cold=clean[torch.as_tensor(cold[:, 0], device=dev),
+                             torch.as_tensor(cold[:, 1], device=dev)]
+            .cpu().numpy()))
+        u16 = torch.round(torch.clamp(f, 0, 1) * 65535.0).to(
+            torch.int32).cpu().numpy().astype(np.uint16)
+        date = format_date_obs(t0 + __import__("datetime").timedelta(
+            minutes=ANALYSIS_STEP_MIN * k))
+        dates.append(date)
+        cards = [_format_card("DATE-OBS", date)] + [
+            _format_card(key, v, c) for key, v, c in
+            sky.shifted(dx, dy).to_cards()]
+        write_later(write_u16_fits, os.path.join(root, f"raw_{k + 1:05d}.fit"),
+                    u16, extra=cards)
+        del clean, f
+    ra, dec = sky.pix2world(sx[picks], sy[picks])
+    with open(os.path.join(root, "nina.csv"), "w") as f:
+        f.write("Type,Name,Ra,Dec\n")
+        for j in range(len(picks)):
+            f.write(f"{'Target' if j == 0 else 'Comparison'},s{j},"
+                    f"{ra[j]:.8f},{dec[j]:.8f}\n")
+    # the dark of find_hot
+    os.makedirs(os.path.join(root, "dark"), exist_ok=True)
+    dark = (0.02 + 0.002 * rng.standard_normal((DARK_SIZE, DARK_SIZE)))
+    hot = _lattice_points(rng, DARK_SIZE, DARK_HOT)
+    dark[hot[:, 0], hot[:, 1]] = 0.5
+    write_later(write_float_u16, os.path.join(root, "dark", "dark.fit"),
+                dark)
+    return dict(sx=sx, sy=sy, amp=amp, target=target, comps=comps,
+                shifts=shifts, dates=dates, defects=defects, trail=(p0, p1),
+                dark_hot=hot)
+
+
+def _lattice_points(rng, size: int, n: int):
+    """``n`` (row, col) points, one in each of ``n`` distinct 16-px cells
+    at 2-13 px into it: no two within 4 px, none within 2 px of an
+    edge."""
+    import numpy as np
+
+    cells = size // 16
+    c = rng.choice(cells * cells, n, replace=False)
+    return np.stack([c // cells, c % cells], axis=1) * 16 + \
+        rng.integers(2, 14, (n, 2))
+
+
+def analysis_checks(root: str, made: dict, size: int) -> dict:
+    """The checks of the analysis session against what synth_analysis
+    made; raises on the first that fails."""
+    import math
+
+    import numpy as np
+
+    from siril_tpu_torch.io.fits_io import read_fits, read_icc_extension
+    from siril_tpu_torch.ops.icc import _builtin_icc
+    from siril_tpu_torch.ops.icc_file import write_icc_bytes
+    from siril_tpu_torch.utils.dates import date_obs_to_julian
+
+    out = {}
+    # every injected hot and cold pixel corrected, within 5σ of the scene
+    worst = 0.0
+    for k, d in enumerate(made["defects"]):
+        img = read_fits(os.path.join(root, f"cc_light_{k + 1:05d}.fit"))
+        lay = img.data[0]
+        for pts, clean in ((d["hot"], d["clean_hot"]),
+                           (d["cold"], d["clean_cold"])):
+            err = np.abs(lay[pts[:, 0], pts[:, 1]] - clean)
+            worst = max(worst, float(err.max()))
+    out["cosme_worst_sigma"] = worst / ANALYSIS_NOISE
+    log(f"  seqfind_cosme: the worst of {2 * len(d['hot'])} defects × "
+        f"{ANALYSIS_LIGHTS} lights is {worst / ANALYSIS_NOISE:.2f}σ from "
+        "the clean scene (bound 5σ)")
+    if not worst <= 5.0 * ANALYSIS_NOISE:
+        raise SystemExit("analysis: seqfind_cosme left a defect")
+    # the light curve against the known one
+    rows = [ln.split() for ln in open(os.path.join(root, "light_curve.dat"))
+            if not ln.startswith("#")]
+    frames = [int(r[0]) for r in rows]
+    rel = np.array([float(r[2]) for r in rows])
+    err = np.array([float(r[3]) for r in rows])
+    dm = np.array([ECLIPSE_DM[i] for i in frames])
+    flat = dm == 0.0
+    base = rel[flat].mean()
+    tol = LC_K * np.sqrt(err ** 2 + np.mean(err[flat] ** 2) / flat.sum())
+    dev = np.abs(rel - base - dm)
+    out["light_curve"] = dict(frames=frames, rel=(rel - base).tolist(),
+                              err=err.tolist(), dev=dev.tolist(),
+                              tol=tol.tolist())
+    log(f"  light curve: {len(rows)} points; rel. mag − baseline "
+        f"{np.round(rel - base, 4).tolist()} against {dm.tolist()}; "
+        f"|Δ| max {dev.max():.4f} (bound {LC_K}× the reported error, "
+        f"{tol.min():.4f}-{tol.max():.4f})")
+    if len(rows) != ANALYSIS_LIGHTS or not (dev <= tol).all():
+        raise SystemExit("analysis: the light curve is off the known one")
+    # the AAVSO report: one row a frame, JD from DATE-OBS
+    lines = [ln.strip().split(",") for ln in open(
+        os.path.join(root, "light_curve_aavso.csv"))
+        if not ln.startswith("#")]
+    want = np.array([date_obs_to_julian(d) for d in made["dates"]])
+    jd0 = 2440587.5 + (__import__("datetime").datetime(
+        2026, 3, 14, 22, tzinfo=__import__("datetime").timezone.utc)
+        .timestamp()) / 86400.0
+    truth = jd0 + ANALYSIS_STEP_MIN / 1440.0 * np.arange(ANALYSIS_LIGHTS)
+    got = np.array([float(r[1]) for r in lines])
+    jd_err = float(np.abs(got - truth).max()) if len(got) == len(truth) \
+        else math.inf
+    out["aavso_jd_err"] = jd_err
+    log(f"  AAVSO: {len(lines)} rows, JD max|Δ| {jd_err:.2e} d (bound 1e-5; "
+        f"DATE-OBS → JD {float(np.abs(want - truth).max()):.1e})")
+    if len(lines) != ANALYSIS_LIGHTS or not jd_err <= 1e-5:
+        raise SystemExit("analysis: the AAVSO report is off")
+    # the trail, and none in a light without one
+    p0, p1 = made["trail"]
+    best = None
+    for r in [ln.strip().split(",") for ln in
+              open(os.path.join(root, "streaks.csv"))][1:]:
+        a, b = (float(r[0]), float(r[1])), (float(r[2]), float(r[3]))
+        # pixel centres against the rendered segment's ends
+        e = min(max(math.dist(a, (p0[0] - .5, p0[1] - .5)),
+                    math.dist(b, (p1[0] - .5, p1[1] - .5))),
+                max(math.dist(b, (p0[0] - .5, p0[1] - .5)),
+                    math.dist(a, (p1[0] - .5, p1[1] - .5))))
+        want_ang = math.degrees(math.atan2(p1[1] - p0[1], p1[0] - p0[0]))
+        ang = (float(r[5]) - want_ang + 90.0) % 180.0 - 90.0
+        if best is None or e < best[0]:
+            best = (e, abs(ang))
+    out["streak"] = best
+    nostreak = os.path.exists(os.path.join(root, "nostreak.csv"))
+    log("  detect_streaks: " + (
+        f"endpoints {best[0]:.2f} px, angle {best[1]:.3f}° off" if best
+        else "no track") + " (bounds 5 px, 0.5°); the light without a "
+        f"trail: {'a track' if nostreak else 'none'}")
+    if best is None or not (best[0] <= 5.0 and best[1] <= 0.5) or nostreak:
+        raise SystemExit("analysis: detect_streaks missed")
+    # find_hot's list and cosme
+    lst = [ln.split() for ln in open(os.path.join(root, "dark", "hot.lst"))]
+    listed = {(int(r[1]), DARK_SIZE - 1 - int(r[2])) for r in lst
+              if r[3] == "H"}
+    hot = made["dark_hot"]
+    missing = sum((int(x), int(y)) not in listed for y, x in hot)
+    cc = read_fits(os.path.join(root, "dark", "dark_cc.fit")).data[0]
+    left = float(np.abs(cc[hot[:, 0], hot[:, 1]] - 0.02).max())
+    out["find_hot"] = dict(listed=len(listed), missing=missing, left=left)
+    log(f"  find_hot: {len(listed)} hot pixels listed, {missing} of "
+        f"{len(hot)} missing; after cosme max|Δ| {left:.4f} from the dark "
+        "level (bound 5σ = 0.01)")
+    if missing or not left <= 0.01:
+        raise SystemExit("analysis: find_hot / cosme missed a hot pixel")
+    # the ICC profile read back from the saved FITS
+    raw = read_icc_extension(os.path.join(root, "an_icc.fit"))
+    same = raw == write_icc_bytes(_builtin_icc("srgblinear"))
+    out["icc_bytes_equal"] = same
+    log(f"  icc: the profile read back from an_icc.fit ({len(raw or b'')} "
+        f"bytes) is {'byte-equal to' if same else 'NOT'} the one written")
+    if not same:
+        raise SystemExit("analysis: the ICC profile did not round-trip")
+    return out
+
+
+def analysis_vs_cpu(root: str, made: dict, crop: int) -> list:
+    """Each device op of the analysis session on the card against the CPU
+    on a crop² of the trail light (cc_light_ of TRAIL_LIGHT): the
+    24-neighbour median and its masks, the Hough vote, the histogram, the
+    statistics, the painting of synthstar and ssr, the ICC curves, the
+    profile."""
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch.core.image import SirilImage
+    from siril_tpu_torch.io.fits_io import read_fits
+    from siril_tpu_torch.ops import cosmetic, icc, inspector, statistics
+    from siril_tpu_torch.ops import streaks, synthstar
+    from siril_tpu_torch.registration.starfinder import detect_stars
+
+    img = read_fits(os.path.join(root, f"cc_light_{TRAIL_LIGHT + 1:05d}.fit"))
+    S = img.width
+    p0, _ = made["trail"]
+    # a crop that holds the trail's start and stars
+    c0 = (int(np.clip(p0[1] - crop // 4, 0, S - crop)),
+          int(np.clip(p0[0] - crop // 4, 0, S - crop)))
+    h = np.ascontiguousarray(img.data[0, c0[0]:c0[0] + crop,
+                                      c0[1]:c0[1] + crop])
+    xh = torch.from_numpy(h)
+    xc = xh.to(CARD)
+    rows = []
+
+    def row(op, err, bound):
+        rows.append(dict(op=op, max_abs_err=err, bound=bound))
+        log(f"    {op}: card vs cpu max|Δ| {err:.3g} (bound {bound:g})")
+        if not err <= bound:
+            raise SystemExit(f"analysis: {op} on the card is {err} from the "
+                             f"CPU (bound {bound})")
+
+    # the 24-neighbour median and the masks (a frame and as a CFA)
+    err = 0.0
+    for cfa in (False, True):
+        a = cosmetic.auto_detect_tensor(xc, 3.0, 3.0, cfa)
+        b = cosmetic.auto_detect_tensor(xh, 3.0, 3.0, cfa)
+        m = cosmetic.neighbour_median(xc, cfa).cpu()
+        err = max(err, float((a[0].cpu() - b[0]).abs().max()),
+                  float((m - cosmetic.neighbour_median(xh, cfa)).abs().max()),
+                  float((a[1].cpu() != b[1]).sum() + (a[2].cpu() != b[2])
+                        .sum()))
+    row("find_cosme: median, masks, correction", err, 0.0)
+    yx = torch.nonzero(xh > 0.2).float()
+    acc = [streaks.hough_accumulator(t[:, 0], t[:, 1], (crop, crop), 360)
+           for t in (yx.to(CARD), yx)]
+    row(f"detect_streaks: Hough vote of {yx.shape[0]} points",
+        float(np.abs(acc[0].astype(np.int64) - acc[1]).max()), 0.0)
+    hist = [statistics.histogram256(t) for t in (xc, xh)]
+    row("histogram", float(np.abs(hist[0] - hist[1]).max()), 0.0)
+    sc, sh = (statistics.compute_stats_tensor(t, statistics.STATS_EXTRA)
+              for t in (xc, xh))
+    med = max(abs(getattr(sc, k) - getattr(sh, k))
+              for k in ("median", "mad", "location", "min", "max"))
+    row("statistics: medians, MAD, IKSS location", med, 0.0)
+    row("statistics: mean, avgdev, σ, bgnoise, bwmv, scale", max(
+        abs(getattr(sc, k) - getattr(sh, k))
+        for k in ("mean", "avgdev", "sigma", "bgnoise", "sqrtbwmv",
+                  "scale")), 1e-12)
+    stars = detect_stars(xh)
+    rgb = np.stack([h, 0.8 * h, np.clip(1.2 * h, 0, 1)]).astype(np.float32)
+    paint = [synthstar.paint_stars(torch.from_numpy(rgb.copy()).to(d),
+                                   stars, 0).cpu() for d in (CARD, "cpu")]
+    row(f"synthstar: painting {len(stars)} stars, in "
+        f"{len(synthstar.paint_waves(stars, crop, crop))} waves",
+        float((paint[0] - paint[1]).abs().max()), 1e-6)
+    discs = [synthstar.star_discs(stars, crop, crop, torch.device(d)).cpu()
+             for d in (CARD, "cpu")]
+    row("ssr: the star mask", float((discs[0] != discs[1]).sum()), 0.0)
+    dd = torch.from_numpy(rgb).double()
+    timg = SirilImage(data=rgb)
+    for prof in ("rec2020", "srgblinear"):
+        timg = icc.assign_profile(SirilImage(data=rgb), "srgb")
+        a = icc.convert_tensor(dd.to(CARD), timg, prof)[0].cpu()
+        b = icc.convert_tensor(dd, timg, prof)[0]
+        row(f"icc_convert_to {prof}: float64 curves",
+            float((a - b).abs().max()), 1e-12)
+    prof = [inspector.intensity_profile(SirilImage(data=rgb), (3.2, 5.7),
+                                        (crop - 4.1, crop - 9.3), width=3,
+                                        device=d) for d in (CARD, "cpu")]
+    row("profile", float(np.abs(prof[0] - prof[1]).max()), 1e-6)
+    return rows
+
+
+def analysis_timings(root: str, reps: int) -> dict:
+    """ms per SIZE² frame (CUDA events) of the session's device ops on the
+    trail light."""
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch.core.image import SirilImage
+    from siril_tpu_torch.io.fits_io import read_fits
+    from siril_tpu_torch.ops import cosmetic, icc, statistics, streaks
+    from siril_tpu_torch.ops import synthstar
+    from siril_tpu_torch.registration.starfinder import detect_stars
+
+    img = read_fits(os.path.join(root, f"cc_light_{TRAIL_LIGHT + 1:05d}.fit"))
+    x = torch.from_numpy(img.data[0]).to(CARD)
+    d3 = x[None].double()
+    srgb = icc.assign_profile(SirilImage(data=img.data), "srgb")
+    out = {}
+    for label, fn, n in (
+            ("find_cosme", lambda: cosmetic.auto_detect_tensor(
+                x, COSME_HOT, COSME_COLD), reps),
+            ("stat main", lambda: statistics.compute_stats_tensor(
+                x, statistics.STATS_MAIN), reps),
+            ("icc_convert_to rec2020", lambda: icc.convert_tensor(
+                d3, srgb, "rec2020"), reps),
+            ("detect_streaks", lambda: streaks.detect_streaks_tensor(x), 1),
+            ("synthstar", lambda: synthstar.paint_stars(
+                x[None].clone(), detect_stars(x), 0), 1),
+            ("ssr", lambda: x.clone().masked_fill_(synthstar.star_discs(
+                detect_stars(x), x.shape[0], x.shape[1], x.device),
+                statistics.compute_stats_tensor(
+                    x, statistics.STATS_BASIC).median), 1)):
+        out[label], peak = _peak_ms(fn, n)
+        log(f"    {label}: {out[label]:.3f} ms per {img.width}² frame"
+            f" ({'median of ' + str(n) if n > 1 else 'one run'}), peak "
+            f"{peak:.0f} MiB")
+    del x, d3
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_analysis(seed: int, size: int = SIZE):
+    """The analysis session (ANALYSIS_SCRIPT) through the CLI's -s entry
+    on synth_analysis's lights: each command's seconds and peak device
+    memory; analysis_checks against the known scene; the card against
+    the CPU (analysis_vs_cpu); the device ops timed (analysis_timings).
+    Returns (rows of the commands, checks, card rows, timings)."""
+    from siril_tpu_torch import cli
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
+    try:
+        t = time.perf_counter()
+        made = synth_analysis(root, seed, size, int(
+            ANALYSIS_STARS * (size / 4096.0) ** 2))
+        writes_done()
+        log(f"  {ANALYSIS_LIGHTS} lights of {size}², the NINA list and the "
+            f"dark rendered and written in {time.perf_counter() - t:.2f}s")
+        k = size / 4096.0
+        p0, p1 = made["trail"]
+        script = ANALYSIS_SCRIPT.format(
+            cold=COSME_COLD, hot=COSME_HOT,
+            tx=made["sx"][made["target"]], ty=made["sy"][made["target"]],
+            crop_x=int(1024 * k), crop_y=int(1024 * k), crop_w=int(2048 * k),
+            trail=TRAIL_LIGHT + 1, px0=int(100 * k), py0=int(200 * k),
+            px1=int(3900 * k), py1=int(3700 * k))
+        with open(os.path.join(root, "analysis.ssf"), "w") as f:
+            f.write(script)
+        t = time.perf_counter()
+        session = cli.run(["-d", root, "-s",
+                           os.path.join(root, "analysis.ssf")])
+        log(f"  analysis.ssf: {time.perf_counter() - t:.2f}s")
+        rows = {}
+        for row in session.command_log:
+            rows[row["command"]] = row
+            log(f"    {row['command']}: {row['seconds']:.3f}s, peak "
+                f"{row['peak_mib'] or 0:.0f} MiB" + (
+                    " (" + ", ".join(f"{k} {v:.3f}s" for k, v in
+                                     row["stages"].items()) + ")"
+                    if row["stages"] else ""))
+        t = time.perf_counter()
+        checks = analysis_checks(root, made, size)
+        log(f"  checks: {time.perf_counter() - t:.2f}s")
+        t = time.perf_counter()
+        ops = analysis_vs_cpu(root, made, min(ANALYSIS_CROP, size))
+        log(f"  card vs cpu: {time.perf_counter() - t:.2f}s")
+        timings = analysis_timings(root, 3)
+        log("analysis: " + json.dumps(dict(
+            commands={k: dict(seconds=v["seconds"], peak_mib=v["peak_mib"])
+                      for k, v in rows.items()},
+            checks=checks, ops=ops, ms=timings), default=str))
+        return rows, checks, ops, timings
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 #: the formats phase: the script phase's first FORMATS_LIGHTS raw lights
 #: (8 until the astrometry phase came: cut to make room, PERF.md §4)
 FORMATS_LIGHTS = 4
@@ -4545,6 +5106,8 @@ def main(argv=None) -> int:
         with Phase("astrometry"):
             phase_astrometry(args.seed, script_root, night)
         del night
+        with Phase("analysis"):
+            phase_analysis(args.seed)
         with Phase("formats"):
             formats_launches, _, _ = phase_formats(args.seed, script_root)
     finally:
@@ -4592,24 +5155,16 @@ def main(argv=None) -> int:
                             replaces=f"{tpu}:{lines[var]}", **extra,
                             **k1v[var]))
     # the column kernel: a row for each 100-frame stack command, at its
-    # call size, with its launches; the winsorized row also carries the
-    # other timing sizes, which no command launched
+    # call size, with its launches
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     cmd_of = {"winsorized": STACK100_RUNS[0][1],
               "gesdt": STACK100_RUNS[1][1]}
-    calls = [r for r in k1col if (r["n"], r["p"]) == (STACK100,
-                                                      SIZE100 * SIZE100)]
-    others = [dict(n=o["n"], p=o["p"], slice=o["slice"],
-                   **{key: o[key] for key in keys})
-              for o in k1col if o not in calls]
-    for r in calls:
+    for r in k1col:
         kernels.append(dict(
             name=f"reject_stack (K1col {r['label']}, N={r['n']}, "
                  f"P={r['p']}; plain version on {r['slice']} pixels)",
             launches=stack100[cmd_of[r["label"]]]["K1col"],
-            replaces=f"{tpu}:763", **r,
-            **({"other_sizes": others} if r["label"] == "winsorized"
-               else {})))
+            replaces=f"{tpu}:763", **r))
     report = {"kernels": [
         dict(name=k["name"], route="cuda", source=src,
              replaces=k["replaces"], launches=k["launches"],

@@ -77,9 +77,13 @@ class Command:
 COMMANDS: Dict[str, Command] = {}
 
 
-def command(name: str, usage: str = "", min_args: int = 0):
+def command(name: str, usage: str = "", min_args: int = 0,
+            aliases=()):
     def deco(fn):
-        COMMANDS[name.lower()] = Command(name, fn, usage, min_args)
+        cmd = Command(name, fn, usage, min_args)
+        COMMANDS[name.lower()] = cmd
+        for a in aliases:
+            COMMANDS[a.lower()] = cmd
         return fn
 
     return deco
@@ -178,9 +182,10 @@ def cmd_load(ctx: Session, args: List[str]) -> None:
 
 @command("save", "save filename", min_args=1)
 def cmd_save(ctx: Session, args: List[str]) -> None:
-    """Write the loaded image at its bit depth, tile-compressed while
-    ``setcompress`` is on; ``$KEY:fmt$`` in the name takes the image's
-    keywords."""
+    """Write the loaded image at its bit depth (16 bits while
+    ``set16bits`` is on), tile-compressed while ``setcompress`` is on;
+    ``$KEY:fmt$`` in the name takes the image's keywords."""
+    from siril_tpu_torch.core.image import USHORT_IMG
     from siril_tpu_torch.io.fits_io import write_fits
     from siril_tpu_torch.utils.pathparse import parse_path
 
@@ -190,7 +195,8 @@ def cmd_save(ctx: Session, args: List[str]) -> None:
     os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
     if not os.path.splitext(p)[1]:
         p += ctx.ext
-    write_fits(img, p, bitdepth=img.orig_bitdepth,
+    write_fits(img, p,
+               bitdepth=USHORT_IMG if ctx.force_16bit else img.orig_bitdepth,
                compression=ctx.compression)
     _log.info("Saving FITS: '%s'%s", os.path.basename(p),
               f" (compressed: {ctx.compression})" if ctx.compression else "")
@@ -353,7 +359,8 @@ def cmd_split_cfa(ctx: Session, args: List[str]) -> None:
     _log.info("Extracted 4 CFA channels from %s", base)
 
 
-@command("extract_Ha", "extract_Ha [-upscale]")
+@command("extract_Ha", "extract_Ha [-upscale]",
+         aliases=("extract_haoiii_ha",))
 def cmd_extract_ha(ctx: Session, args: List[str]) -> None:
     from siril_tpu_torch.io.fits_io import write_fits
     from siril_tpu_torch.ops.extraction import extract_ha
@@ -2691,3 +2698,7 @@ def cmd_seqatrous(ctx: Session, args: List[str]) -> None:
                lambda im: wavelet_denoise(im, nb_layers=n,
                                           use_vst="anscombe" in flags,
                                           device=ctx.device))
+
+
+# the analysis session's commands (register into COMMANDS on import)
+from siril_tpu_torch.cli import analysis  # noqa: E402,F401  isort:skip

@@ -3,9 +3,10 @@
 ``_find_film``:73, ``load_sequence``:86, ``CommandError``:118): the
 working directory, the FITS extension, the star-finder preferences, the
 FITS compression of ``save`` (``setcompress``), whether remote catalogues
-may be queried (``online``), the photometry settings (``setphot``) and the
-magnitude offset (``catmag``), the loaded image and its name, the current
-sequence and the last result of a headless run.
+may be queried (``online``), the photometry settings (``setphot``), the
+magnitude offset (``catmag``, ``setmag``), the 16-bit mode
+(``set16bits``), the star list of ``findstar``, the loaded image and its
+name, the current sequence and the last result of a headless run.
 (The reference's undo stack is not ported: ROADMAP §1.7, the surfaces.)
 """
 
@@ -45,10 +46,10 @@ class Session:
     phot: PhotConfig = field(default_factory=PhotConfig)
     #: a selection (x, y, w, h) that ``crop`` takes without arguments
     selection: Optional[tuple] = None
-    #: catmag: the absolute magnitude offset
+    #: catmag / setmag: the absolute magnitude offset
     magnitude_offset: float = 0.0
-    #: the arithmetic commands quantize to u16 (the reference's 16-bit
-    #: mode)
+    #: ``set16bits``: ``save`` writes 16 bits and the arithmetic commands
+    #: quantize to u16 (the reference's 16-bit mode)
     force_16bit: bool = False
     #: ``wavelet``: the planes (tensors on the session's device) and the
     #: image they came from, for a later ``wrecons``
@@ -58,6 +59,8 @@ class Session:
     pm_images: Dict[str, SirilImage] = field(default_factory=dict)
     #: ``makepsf``: the PSF that ``rl``, ``wiener`` and ``sb`` take
     psf: Optional[object] = None
+    #: ``findstar``: the last star list (``clearstar`` empties it)
+    stars: list = field(default_factory=list)
     sequence: Optional[Sequence] = None
     image: Optional[SirilImage] = None
     image_name: str = ""

@@ -5,8 +5,8 @@
 
 Frames stream through three stages: a thread pool reads ``prefetch``
 frames ahead, the ``image`` hook transforms each one (calibration,
-registration), and one writer thread writes the results with at most
-``max_inflight_writes`` frames queued.  A frame is written at its
+registration), and WRITER_THREADS writer threads write the results with
+at most ``max_inflight_writes`` frames queued.  A frame is written at its
 ``orig_bitdepth`` unless the command sets one (engine.py:123-125), so
 frames read from 16-bit files are written as 16-bit.
 
@@ -48,7 +48,8 @@ class SeqArgs:
     output_bitdepth: Optional[int] = None
     user: dict = field(default_factory=dict)
     #: seconds per stage: the engine adds "read" (waiting for a frame)
-    #: and "write" (the writer thread's busy time); hooks add their own
+    #: and "write" (the writer threads' busy time, summed); hooks add
+    #: their own
     stage_s: dict = field(default_factory=dict)
 
 
@@ -61,15 +62,22 @@ class SeqResult:
     stage_s: dict = field(default_factory=dict)
 
 
+#: writer threads of a run: a frame's encode (numpy) and write release the
+#: GIL, so a few frames are written at once
+WRITER_THREADS = 3
+
+
 class _AsyncWriter:
-    """One writer thread behind a bounded queue (io/seqwriter.c)."""
+    """Writer threads behind a bounded queue (io/seqwriter.c)."""
 
     def __init__(self, max_inflight: int):
         self.q: "queue.Queue" = queue.Queue(maxsize=max_inflight)
         self.errors: List[str] = []
         self.failed_tags: List[int] = []
-        self.t = threading.Thread(target=self._run, daemon=True)
-        self.t.start()
+        self.threads = [threading.Thread(target=self._run, daemon=True)
+                        for _ in range(WRITER_THREADS)]
+        for t in self.threads:
+            t.start()
 
     def _run(self):
         while True:
@@ -88,8 +96,10 @@ class _AsyncWriter:
         self.q.put((fn, a, tag))
 
     def close(self):
-        self.q.put(None)
-        self.t.join()
+        for _ in self.threads:
+            self.q.put(None)
+        for t in self.threads:
+            t.join()
 
 
 def run_sequence(args: SeqArgs) -> SeqResult:
@@ -107,9 +117,12 @@ def run_sequence(args: SeqArgs) -> SeqResult:
         else f"{seq.name}_out"
     out_paths: dict = {}
     stage_s = args.stage_s
+    lock = threading.Lock()
 
     def add(name, t):
-        stage_s[name] = stage_s.get(name, 0.0) + time.perf_counter() - t
+        dt = time.perf_counter() - t
+        with lock:
+            stage_s[name] = stage_s.get(name, 0.0) + dt
 
     def write_one(pos, idx, img):
         # one FITS file a frame, whatever the input sequence's kind: a SER

@@ -5,7 +5,8 @@ write (``_finalize_metadata``, calibration, the FITS boundary) and the
 plate solution (``wcs``: an ``ops.wcs.WCS`` or None, shared by copies as
 in the JAX package, ``core/image.py:119, 186-198``), and the mask that
 the image ops blend their result through (``mask``, ``mask_active``,
-``apply_mask_blend``: ``core/image.py:117-118, 207-216``).  Pixel data is
+``apply_mask_blend``: ``core/image.py:117-118, 207-216``), and the
+embedded ICC profile (``icc_profile``, ``core/image.py:122``).  Pixel data is
 a planar (C, H, W) float32 numpy array in Siril's [0, 1] convention.
 """
 
@@ -76,6 +77,9 @@ class SirilImage:
     wcs: Optional[Any] = None
     mask: Optional[Any] = None          # (H, W) float32 in [0, 1], or None
     mask_active: bool = False
+    #: the raw bytes of an embedded ICC profile (ffit.icc_profile), kept
+    #: by copies and written as the FITS ``ICCProfile`` extension
+    icc_profile: Optional[bytes] = None
 
     @property
     def nchans(self) -> int:
@@ -105,7 +109,8 @@ class SirilImage:
                           history=list(self.history), wcs=self.wcs,
                           mask=None if self.mask is None
                           else np.array(self.mask),
-                          mask_active=self.mask_active)
+                          mask_active=self.mask_active,
+                          icc_profile=self.icc_profile)
 
     def log_history(self, msg: str) -> None:
         self.history.append(msg)

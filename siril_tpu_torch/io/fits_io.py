@@ -12,6 +12,10 @@ the image's ``wcs`` (``ops/wcs.WCS.from_header``) and its cards leave
 keywords, in plain and compressed files alike (the JAX package keeps
 the read cards in ``extra`` too and writes them twice).  FITS rows are stored bottom-up unless
 ROWORDER='TOP-DOWN'; the in-memory convention is top-down (row 0 = top).
+An image's ICC profile travels as an 8-bit IMAGE extension EXTNAME =
+'ICCProfile' after a plain image (``_icc_extension_bytes``:578,
+``read_icc_extension``:596, ``_icc_from_hdus``:601); a compressed file
+carries none, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -208,7 +212,11 @@ def _is_zimage(h: HDUInfo) -> bool:
 def image_hdus(path: Union[str, os.PathLike]) -> List[HDUInfo]:
     """The plain image HDUs (a FITS cube's frames), not the compressed
     ones."""
-    hdus = [h for h in scan_hdus(path)
+    return _plain_images(path, scan_hdus(path))
+
+
+def _plain_images(path, every: List[HDUInfo]) -> List[HDUInfo]:
+    hdus = [h for h in every
             if len(h.naxes) >= 2 and all(n > 0 for n in h.naxes)
             and not _is_zimage(h)]
     for h in hdus:
@@ -227,14 +235,17 @@ def _raw_to_float01(raw: np.ndarray, bitpix: int, bzero: float,
     """Physical value → Siril [0, 1] float32 (readfits rules): u8 /255,
     u16 /65535, u32 /(2³²−1) through float64, floats as they are.  A
     signed SHORT (BZERO 0) is shifted by 32768."""
-    if bitpix == 8:
-        phys = raw.astype(np.float32) * np.float32(bscale) + np.float32(bzero)
-        return phys * np.float32(1.0 / 255.0)
-    if bitpix == 16:
-        if bzero == 0.0 and bscale == 1.0:
+    if bitpix in (8, 16):
+        if bitpix == 16 and bzero == 0.0 and bscale == 1.0:
             bzero = 32768.0
-        phys = raw.astype(np.float32) * np.float32(bscale) + np.float32(bzero)
-        return phys * np.float32(INV_USHRT_MAX_SINGLE)
+        # (x·bscale + bzero)·(1/max) in float32, in place (x·1 is x)
+        phys = raw.astype(np.float32)
+        if bscale != 1.0:
+            phys *= np.float32(bscale)
+        phys += np.float32(bzero)
+        phys *= np.float32(1.0 / 255.0 if bitpix == 8
+                           else INV_USHRT_MAX_SINGLE)
+        return phys
     if bitpix == 32:
         phys = raw.astype(np.float64) * bscale + bzero
         return (phys / 4294967295.0).astype(np.float32)
@@ -367,9 +378,10 @@ def read_fits(path: Union[str, os.PathLike], hdu_index: int = 0
     """Read a FITS image (readfits, image_format_fits.c:1201): the
     ``hdu_index``-th plain image HDU, else the ``hdu_index``-th
     compressed one."""
-    hdus = image_hdus(path)
+    every = scan_hdus(path)
+    hdus = _plain_images(path, every)
     if not hdus:
-        zhdus = zimage_hdus(path)
+        zhdus = [h for h in every if _is_zimage(h)]
         if zhdus:
             return _read_zimage(path, zhdus[hdu_index])
         raise ValueError(f"{path}: no image HDU found")
@@ -377,22 +389,58 @@ def read_fits(path: Union[str, os.PathLike], hdu_index: int = 0
     c, hgt, wid = h.shape_chw
     raw = np.fromfile(path, dtype=_DTYPES[h.bitpix], count=c * hgt * wid,
                       offset=h.data_offset).reshape(c, hgt, wid)
-    data = _raw_to_float01(raw, h.bitpix, h.bzero, h.bscale)
     if h.header.row_order() != "TOP-DOWN":
-        data = data[:, ::-1, :]
-    return _with_wcs(SirilImage(
+        raw = raw[:, ::-1, :]            # the decode's copy turns the rows
+    data = _raw_to_float01(raw, h.bitpix, h.bzero, h.bscale)
+    img = _with_wcs(SirilImage(
         data=np.ascontiguousarray(data, dtype=np.float32),
         keywords=header_to_keywords(h.header),
         orig_bitdepth=h.bitpix if h.bitpix != 16 else USHORT_IMG,
         history=h.header.history()), h.header)
+    img.icc_profile = _icc_from_hdus(path, every)
+    return img
+
+
+def _icc_extension_bytes(profile: bytes) -> bytes:
+    """An 8-bit IMAGE extension EXTNAME = 'ICCProfile' holding the raw
+    ``.icc`` bytes (write_icc_profile_to_fptr, image_format_fits.c:931-987;
+    ``siril_tpu/io/fits_io.py:578``)."""
+    return _header_bytes([("XTENSION", "IMAGE", "IMAGE extension"),
+                          ("BITPIX", 8, ""), ("NAXIS", 1, ""),
+                          ("NAXIS1", len(profile), ""), ("PCOUNT", 0, ""),
+                          ("GCOUNT", 1, ""),
+                          ("EXTNAME", "ICCProfile", "")]) + _padded(profile)
+
+
+def read_icc_extension(path: Union[str, os.PathLike]) -> Optional[bytes]:
+    """The raw ICC bytes of an EXTNAME = 'ICCProfile' extension, or None
+    (``siril_tpu/io/fits_io.py:596``)."""
+    return _icc_from_hdus(path, scan_hdus(path))
+
+
+def _icc_from_hdus(path, hdus) -> Optional[bytes]:
+    for h in hdus:
+        if str(h.header.get("EXTNAME", "")).strip() == "ICCProfile":
+            n = int(h.header.get("NAXIS1", 0) or 0)
+            if n > 0:
+                with open(path, "rb") as f:
+                    f.seek(h.data_offset)
+                    return f.read(n)
+    return None
 
 
 def _encode(data: np.ndarray, bd: int):
     """(big-endian raw data, BITPIX, BZERO) of [0, 1] float32 rows at
     bit depth ``bd``: u16 through BZERO 32768, u8, or float32."""
     if bd == USHORT_IMG:
-        u16 = np.rint(np.clip(data, 0.0, 1.0) * 65535.0).astype(np.uint16)
-        return (u16.astype(np.int32) - 32768).astype(">i2"), 16, 32768.0
+        # rint(clip(x)·65535) as u16, less 32768 as i16: its top bit
+        # flipped, the same bytes (in place: two passes fewer)
+        u = np.clip(data, 0.0, 1.0)
+        u *= np.float32(65535.0)
+        np.rint(u, out=u)
+        u16 = u.astype(np.uint16)
+        u16 ^= 0x8000
+        return u16.astype(">u2"), 16, 32768.0
     if bd == BYTE_IMG:
         return np.rint(np.clip(data, 0.0, 1.0) * 255.0).astype(">u1"), 8, 0.0
     if bd in (FLOAT_IMG, DOUBLE_IMG):
@@ -467,6 +515,8 @@ def write_fits(img: SirilImage, path: Union[str, os.PathLike],
     with open(path, "wb") as f:
         f.write(_header_bytes(cards + meta))
         f.write(_padded(raw.tobytes()))
+        if img.icc_profile:
+            f.write(_icc_extension_bytes(img.icc_profile))
 
 
 class FitseqWriter:

@@ -5,8 +5,12 @@ of ``compute_stats_np(…, STATS_BASIC)`` (:223) with the background noise
 (:344) and ``norm_estimators_hist_jax`` (:413); and the host numpy
 IKSSlite of the overlap normalization (``median_np``:89, ``mad_np``:93,
 ``bwmv_np``:101, ``ikss_lite_np``:114).  The image ops read the host
-``compute_stats_np`` (:223; STATS_BASIC and STATS_MAD, with ``sd_np``:73,
+``compute_stats_np`` (:223, every option, with ``sd_np``:73,
 ``bgnoise_np``:177 and ``_diff_sigma``:215) as the JAX package does.
+The analysis commands (``stat``, ``bg``, ``bgnoise``, ``seqstat``,
+``entropy``, ``histo``) read ``compute_stats_image`` (:254) and
+``histogram256`` on the session's device: exact medians by a sort,
+float64 sums, and numpy's histogram bins.
 
 The reference's median is the lower-median sample for odd counts and the
 mean of the middle pair for even counts, 0 for an empty row.  The TPU
@@ -253,6 +257,11 @@ def ikss_lite_np(x: np.ndarray, med: float, mad: float):
 STATS_SIGMEAN = 1 << 1
 STATS_BASIC = 1 << 2
 STATS_MAD = 1 << 3
+STATS_AVGDEV = 1 << 4
+STATS_BWMV = 1 << 5
+STATS_IKSS = 1 << 6
+STATS_MAIN = STATS_BASIC | STATS_AVGDEV | STATS_MAD | STATS_BWMV
+STATS_EXTRA = STATS_MAIN | STATS_IKSS
 
 
 def sd_np(x: np.ndarray) -> float:
@@ -363,9 +372,10 @@ def per_layer(fn, layers) -> list:
 
 def compute_stats_np(layer2d: np.ndarray,
                      options: int = STATS_BASIC) -> ImStats:
-    """imstats of one host layer (``compute_stats_np``:223) for the
-    STATS_SIGMEAN, STATS_BASIC and STATS_MAD options, over the non-zero,
-    non-NaN pixels."""
+    """imstats of one host layer (``compute_stats_np``:223) over the
+    non-zero, non-NaN pixels, for every option.  The default stays
+    STATS_BASIC (the image ops' callers); the JAX package's is
+    STATS_MAIN."""
     st = ImStats()
     flat = layer2d.ravel()
     st.total = flat.size
@@ -379,8 +389,142 @@ def compute_stats_np(layer2d: np.ndarray,
         st.min = float(good.min())
         st.max = float(good.max())
         st.bgnoise = bgnoise_np(layer2d)
-    if options & (STATS_BASIC | STATS_MAD):
+    if options & (STATS_BASIC | STATS_MAD | STATS_AVGDEV | STATS_BWMV
+                  | STATS_IKSS):
         st.median = median_np(good)
-    if options & STATS_MAD:
+    if options & (STATS_MAD | STATS_BWMV | STATS_IKSS):
         st.mad = mad_np(good, st.median)
+    if options & STATS_AVGDEV:
+        st.avgdev = float(np.abs(good - np.float32(st.median)).sum(
+            dtype=np.float64) / good.size)
+    if options & (STATS_BWMV | STATS_IKSS):
+        st.sqrtbwmv = float(np.sqrt(bwmv_np(good, st.mad, st.median)))
+    if options & STATS_IKSS:
+        r = ikss_lite_np(good, st.median, st.mad)
+        if r is not None:
+            st.location, st.scale = r
     return st
+
+
+# ---------------------------------------------------------------------------
+# the same statistics on the device (the analysis commands)
+# ---------------------------------------------------------------------------
+
+
+def median_t(v: torch.Tensor, presorted: bool = False) -> torch.Tensor:
+    """np.median of a float32 tensor (every element), as a 0-d tensor
+    where it lies: the middle value, or the float32 mean of the middle
+    pair."""
+    s = v.reshape(-1) if presorted else torch.sort(v.reshape(-1)).values
+    n = s.numel()
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+
+
+def _median_sorted(s: torch.Tensor) -> float:
+    return float(median_t(s, presorted=True))
+
+
+def _sd_t(good: torch.Tensor) -> float:
+    """``sd_np``: float64 sums over float32 deviations from a float32
+    mean; the variance rounded to float32 and its root rounded to float32
+    (taken in float64: torch's float32 sqrt on the CPU is not correctly
+    rounded, and numpy's is)."""
+    n = good.numel()
+    if n < 2:
+        return 0.0
+    mean = (good.double().sum() / n).float()
+    d = (good - mean).double()
+    var = ((d * d).sum() / (n - 1)).float()
+    return float(torch.sqrt(var.double()).float())
+
+
+def _bwmv_t(x: torch.Tensor, mad: float, med: float) -> float:
+    """``bwmv_np``: float32 terms, float64 sums."""
+    if mad <= 0.0 or x.numel() == 0:
+        return 0.0
+    factor = torch.tensor(np.float32(1.0 / (9.0 * mad)), device=x.device)
+    i_med = x - torch.tensor(np.float32(med), device=x.device)
+    yi = i_med * factor
+    yi2 = torch.where(torch.abs(yi) < 1.0, yi * yi, 1.0)
+    one_m = 1.0 - yi2
+    up = ((i_med * (one_m * one_m)) ** 2).double().sum()
+    down = (one_m * (1.0 - 5.0 * yi2)).double().sum()
+    up, down = float(up), float(down)
+    return float(x.numel() * (up / (down * down))) if down else 0.0
+
+
+def _mad_t(x: torch.Tensor, med: float) -> float:
+    """median(|x − float32(med)|)."""
+    return _median_sorted(torch.sort(torch.abs(
+        x - torch.tensor(np.float32(med), device=x.device))).values)
+
+
+def compute_stats_tensor(layer2d: torch.Tensor,
+                         options: int = STATS_MAIN) -> ImStats:
+    """``compute_stats_np`` of one layer where the tensor lies: the same
+    numbers, from exact sorted medians and float64 sums (the sums in
+    another order: the means agree to ~1e-15)."""
+    st = ImStats()
+    flat = layer2d.reshape(-1).float()
+    st.total = flat.numel()
+    good = flat[(flat != 0.0) & ~torch.isnan(flat)]
+    n = good.numel()
+    st.ngoodpix = n
+    if n == 0:
+        return st
+    if options & (STATS_BASIC | STATS_SIGMEAN):
+        st.mean = float(good.double().sum() / n)
+        st.sigma = _sd_t(good)
+        st.min = float(good.min())
+        st.max = float(good.max())
+        st.bgnoise = bgnoise(layer2d)
+    if not options & (STATS_BASIC | STATS_MAD | STATS_AVGDEV | STATS_BWMV
+                      | STATS_IKSS):
+        return st
+    st.median = _median_sorted(torch.sort(good).values)
+    if options & (STATS_MAD | STATS_BWMV | STATS_IKSS):
+        st.mad = _mad_t(good, st.median)
+    if options & STATS_AVGDEV:
+        st.avgdev = float(torch.abs(good - torch.tensor(
+            np.float32(st.median), device=good.device)).double().sum() / n)
+    if options & (STATS_BWMV | STATS_IKSS):
+        st.sqrtbwmv = float(np.sqrt(_bwmv_t(good, st.mad, st.median)))
+    if options & STATS_IKSS:
+        # the bounds are Python floats compared with float32 pixels: both
+        # packages round them to float32 first
+        kept = good[(good >= st.median - 6.0 * st.mad)
+                    & (good <= st.median + 6.0 * st.mad)]
+        if kept.numel():
+            loc = _median_sorted(torch.sort(kept).values)
+            m2 = _mad_t(kept, loc)
+            if m2 != 0.0:
+                st.location = loc
+                st.scale = float(np.sqrt(_bwmv_t(kept, m2, loc)) * 0.991)
+    return st
+
+
+def compute_stats_image(img, layer=None, options: int = STATS_MAIN,
+                        device=None):
+    """Statistics of a SirilImage on ``device`` (``compute_stats_image``
+    :254): one layer's, or a list over its layers."""
+    from siril_tpu_torch.device import resolve_device
+
+    data = torch.from_numpy(np.ascontiguousarray(img.host())).to(
+        resolve_device(device))
+    if layer is not None:
+        return compute_stats_tensor(data[layer], options)
+    return [compute_stats_tensor(data[c], options)
+            for c in range(data.shape[0])]
+
+
+def histogram256(layer2d: torch.Tensor) -> np.ndarray:
+    """``np.histogram(layer, bins=256, range=(0, 1))[0]`` of a float32
+    layer where it lies.  numpy's edges are float32 (i/256, exact), and
+    its bin of x is the i with edges[i] ≤ x < edges[i+1], 1.0 in the last
+    bin; x·256 is exact in float32, so that i is floor(x·256) — no
+    rounding puts a value on an edge into its neighbour, as
+    ``torch.histc`` can."""
+    x = layer2d.reshape(-1).float()
+    x = x[(x >= 0.0) & (x <= 1.0)]
+    idx = torch.clamp(torch.floor(x * 256.0).long(), max=255)
+    return torch.bincount(idx, minlength=256).cpu().numpy()

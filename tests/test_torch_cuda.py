@@ -68,7 +68,18 @@ JAX):
   mean |Δ| within 5e-3; DA3D on one guide within 1e-5 on average), and
   NL-Bayes refusing TF32 matmuls; the ℓ0 blind engine's kernel (cosine ≥
   0.99);
-  chip_smoke.ENHANCE_SCRIPT through the CLI on both devices.
+  chip_smoke.ENHANCE_SCRIPT through the CLI on both devices;
+- every device op of the analysis session on the card against the CPU:
+  the 24-neighbour median, its masks and the correction of find_cosme
+  (mono and CFA), the Hough vote, the histogram, the medians and IKSS
+  location equal; the float64 sums within 1e-12; the painting of
+  synthstar within 1e-6 and ssr's star mask equal; the ICC curves in
+  float64 within 1e-12; the profile within 1e-6; and
+  chip_smoke.ANALYSIS_SCRIPT through the CLI on both devices (a 512²
+  session): the corrected frames, the statistics file, the histogram,
+  the trail's CSV and find_hot's list equal, the ICC-converted and
+  inspector images within a 16-bit step, the light curve within the
+  error it reports (its LM fits run in float32 on each device).
 """
 
 import numpy as np
@@ -1015,3 +1026,118 @@ def test_enhance_script_on_card_vs_cpu(tmp_path):
         a = read_fits(str(tmp_path / "cpu" / f"{name}.fit")).data
         b = read_fits(str(tmp_path / "cuda" / f"{name}.fit")).data
         assert float(stat(np.abs(a.astype(np.float64) - b))) <= bound, name
+
+
+def _analysis_scene(seed=5, size=256):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    img = 0.1 + 0.005 * rng.standard_normal((size, size))
+    for _ in range(30):
+        x0, y0 = rng.uniform(8, size - 8, 2)
+        img += rng.uniform(0.05, 0.6) * np.exp(
+            -((xx + 0.5 - x0) ** 2 + (yy + 0.5 - y0) ** 2) / 3.4)
+    img[rng.integers(0, size, 40), rng.integers(0, size, 40)] = 0.95
+    img[rng.integers(0, size, 40), rng.integers(0, size, 40)] = 0.0
+    t = np.linspace(0, 1, 600)
+    img[np.round(20 + 200 * t).astype(int),
+        np.round(30 + 190 * t).astype(int)] += 0.2
+    return np.clip(img, 0, 1).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_analysis_ops_on_card_vs_cpu():
+    _need_card()
+    from siril_tpu_torch.ops import cosmetic, icc, inspector, statistics
+    from siril_tpu_torch.ops import streaks, synthstar
+    from siril_tpu_torch.registration.starfinder import detect_stars
+
+    h = _analysis_scene()
+    xh = torch.from_numpy(h)
+    xc = xh.cuda()
+    for cfa in (False, True):
+        a = cosmetic.auto_detect_tensor(xc, 3.0, 3.0, cfa)
+        b = cosmetic.auto_detect_tensor(xh, 3.0, 3.0, cfa)
+        for u, v in zip(a, b):
+            assert torch.equal(u.cpu(), v)
+    yx = torch.nonzero(xh > 0.2).float()
+    assert np.array_equal(
+        streaks.hough_accumulator(yx[:, 0].cuda(), yx[:, 1].cuda(),
+                                  h.shape, 360),
+        streaks.hough_accumulator(yx[:, 0], yx[:, 1], h.shape, 360))
+    assert [(t.start, t.end, t.votes) for t in
+            streaks.detect_streaks_tensor(xc)] == \
+        [(t.start, t.end, t.votes) for t in streaks.detect_streaks_tensor(xh)]
+    assert np.array_equal(statistics.histogram256(xc),
+                          statistics.histogram256(xh))
+    sc = statistics.compute_stats_tensor(xc, statistics.STATS_EXTRA)
+    sh = statistics.compute_stats_tensor(xh, statistics.STATS_EXTRA)
+    for k in ("median", "mad", "location", "min", "max", "ngoodpix"):
+        assert getattr(sc, k) == getattr(sh, k), k
+    for k in ("mean", "avgdev", "sigma", "bgnoise", "sqrtbwmv", "scale"):
+        assert abs(getattr(sc, k) - getattr(sh, k)) <= 1e-12, k
+    stars = detect_stars(xh)
+    rgb = np.stack([h, 0.8 * h, np.clip(1.2 * h, 0, 1)]).astype(np.float32)
+    a, b = (synthstar.paint_stars(torch.from_numpy(rgb.copy()).to(d), stars,
+                                  0).cpu() for d in ("cuda", "cpu"))
+    assert float((a - b).abs().max()) <= 1e-6
+    assert torch.equal(
+        synthstar.star_discs(stars, 256, 256, torch.device("cuda")).cpu(),
+        synthstar.star_discs(stars, 256, 256, torch.device("cpu")))
+    img = icc.assign_profile(SirilImage(data=rgb), "srgb")
+    for prof in ("rec2020", "srgblinear", "graylinear"):
+        d = torch.from_numpy(rgb).double()
+        a = icc.convert_tensor(d.cuda(), img, prof)[0].cpu()
+        assert float((a - icc.convert_tensor(d, img, prof)[0]).abs().max()) \
+            <= 1e-12
+    a, b = (inspector.intensity_profile(SirilImage(data=rgb), (3.2, 5.7),
+                                        (250.1, 240.3), width=3, device=d)
+            for d in ("cuda", "cpu"))
+    assert float(np.abs(a - b).max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_analysis_script_on_card_vs_cpu(tmp_path):
+    """chip_smoke.ANALYSIS_SCRIPT on a 512² session (synth_analysis)
+    through the CLI on the card and on the CPU."""
+    _need_card()
+    import shutil
+
+    import chip_smoke
+    from siril_tpu_torch import cli
+    from siril_tpu_torch.io.fits_io import read_fits
+
+    src = tmp_path / "src"
+    src.mkdir()
+    size = 512
+    made = chip_smoke.synth_analysis(str(src), 7, size, 80)
+    chip_smoke.writes_done()
+    k = size / 4096.0
+    (src / "a.ssf").write_text(chip_smoke.ANALYSIS_SCRIPT.format(
+        cold=chip_smoke.COSME_COLD, hot=chip_smoke.COSME_HOT,
+        tx=made["sx"][made["target"]], ty=made["sy"][made["target"]],
+        crop_x=int(1024 * k), crop_y=int(1024 * k), crop_w=int(2048 * k),
+        trail=chip_smoke.TRAIL_LIGHT + 1, px0=12, py0=25, px1=487, py1=462))
+    for dev in ("cpu", "cuda"):
+        shutil.copytree(src, tmp_path / dev)
+        cli.run(["-d", str(tmp_path / dev), "--device", dev, "-s",
+                 str(tmp_path / dev / "a.ssf")])
+    for i in range(1, chip_smoke.ANALYSIS_LIGHTS + 1):
+        a = read_fits(str(tmp_path / "cpu" / f"cc_light_{i:05d}.fit")).data
+        b = read_fits(str(tmp_path / "cuda" / f"cc_light_{i:05d}.fit")).data
+        assert np.array_equal(a, b)
+    for name in ("seqstat.csv", "histo_0.dat", "streaks.csv",
+                 "dark/hot.lst"):
+        assert (tmp_path / "cpu" / name).read_text() == \
+            (tmp_path / "cuda" / name).read_text(), name
+    # the LM fits of the follow run in float32 on each device: the
+    # magnitudes part by a few 1e-4 (1.45e-3 measured), within the error
+    # each reports
+    a, b = (np.loadtxt(str(tmp_path / d / "light_curve.dat"),
+                       usecols=(0, 2, 3)) for d in ("cpu", "cuda"))
+    assert a.shape == b.shape and np.array_equal(a[:, 0], b[:, 0])
+    assert np.all(np.abs(a[:, 1] - b[:, 1]) <= a[:, 2])
+    for name in ("an_icc", "an_insp"):
+        a = read_fits(str(tmp_path / "cpu" / f"{name}.fit")).data
+        b = read_fits(str(tmp_path / "cuda" / f"{name}.fit")).data
+        assert float(np.abs(a - b).max()) <= 1.5 / 65535, name
+

@@ -91,6 +91,20 @@ def test_richardson_lucy_vs_jax(kw):
     close(got, want, 1e-5)
 
 
+def test_richardson_lucy_gradient_step_unsaturated_vs_jax():
+    """The gradient-descent path on an image it leaves unsaturated: the
+    cases above saturate it (``u − step·65535·grad`` drives 99.98-100 %
+    of the pixels to 0 or 1, ROADMAP §3); one step of 1e-5 saturates a
+    few per cent, and the packages agree within 2e-7 on the rest."""
+    d = star_field(23)
+    kw = dict(iterations=1, multiplicative=False, step=1e-5)
+    got = tdc.richardson_lucy(TImage(data=d), PSF, device=CPU, **kw).data
+    want = np.asarray(jdc.richardson_lucy(JImage(data=d), PSF, **kw).data)
+    saturated = float(np.mean((want <= 0.0) | (want >= 1.0)))
+    assert 0.0 < saturated <= 0.1, saturated
+    close(got, want, 2e-7)
+
+
 def test_richardson_lucy_tv_20_vs_jax():
     """With TV, the divergence term divides the gradient by its own
     magnitude (+1e-8), so the packages' float32 differences grow from

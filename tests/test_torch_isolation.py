@@ -171,6 +171,37 @@ def test_image_ops_default_to_cuda(monkeypatch, tmp_path):
     assert np.array_equal(out.data, 1.0 - img.data)
 
 
+ANALYSIS_COMMANDS = [
+    ["stat"], ["stat", "main"], ["bg"], ["bgnoise"], ["entropy"],
+    ["histo", "0"], ["cdg"], ["limit", "-clip"], ["find_cosme", "3", "3"],
+    ["cosme", "c"], ["findstar"], ["ssr"], ["synthstar"], ["unclipstars"],
+    ["psf", "8", "8"], ["tilt"], ["fix_xtrans"],
+    ["profile", "-from=1,1", "-to=10,10"], ["icc_convert_to", "rec2020"],
+    ["detect_streaks"], ["atrous", "2"], ["extract", "2"]]
+
+
+@pytest.mark.parametrize("words", ANALYSIS_COMMANDS,
+                         ids=[" ".join(w) for w in ANALYSIS_COMMANDS])
+def test_analysis_commands_default_to_cuda(monkeypatch, tmp_path, words):
+    """Every command of the analysis session that does pixel work runs on
+    CUDA unless asked for the CPU, and raises without a card; its modules
+    are among those imported without JAX above."""
+    names = set(_port_modules())
+    for m in ("ops.streaks", "ops.synthstar", "ops.inspector", "ops.icc",
+              "ops.icc_file", "ops.fitting", "utils.dates", "cli.analysis"):
+        assert f"siril_tpu_torch.{m}" in names
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from siril_tpu_torch.cli.commands import COMMANDS
+    from siril_tpu_torch.cli.context import Session
+    from siril_tpu_torch.core.image import SirilImage
+
+    (tmp_path / "c.lst").write_text("P 3 4 H\n")
+    s = Session(cwd=str(tmp_path))
+    s.set_image(SirilImage(data=np.full((1, 16, 16), 0.2, np.float32)), "x")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        COMMANDS[words[0]].fn(s, words[1:])
+
+
 def test_convert_round_trips():
     from siril_tpu.ops.normalization import NormCoeffs
     from siril_tpu.ops.stacking import StackArgs
