@@ -17,5 +17,9 @@ rejection mode and the weighted mean — as a hand-written CUDA kernel
 sessions (``ops/demosaic.py``); drizzle (``ops/drizzle.py``); FITS of
 BITPIX 8, 16, 32, −32 and −64 with tiled compression (``io/fits_io.py``,
 ``io/fits_compress.py``, ``native/``), SER videos and FITS cubes
-(``io/ser.py``, ``core/sequence.py``).
+(``io/ser.py``, ``core/sequence.py``); and later slices (ROADMAP):
+astrometry, the post-stack, enhancement and analysis sessions, the
+planetary session (``planetary/``, ``registration/shift.py``) and the
+image formats for ``convert`` (camera raw, DNG, XISF, IRIS ``.pic``,
+TIFF / PNG / BMP / PNM in ``io/image_formats.py``).
 """

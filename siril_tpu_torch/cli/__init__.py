@@ -14,7 +14,12 @@ wrecons, pm, the arithmetic (iadd, isub, imul, idiv, fadd, fsub, fmul,
 fdiv, offset, addmax), the masks (mask_from_channel, mask_from_lum,
 mask_from_stars, mask_from_color, mask_invert, mask_blur, mask_threshold,
 mask_autostretch, mask_bitpix, mask_feather, mask_fmul, clear_mask) and
-seqfixbanding, seqrl, seqwiener, seqsb, seqdenoise, seqatrous.
+seqfixbanding, seqrl, seqwiener, seqsb, seqdenoise, seqatrous; the
+analysis session (``cli/analysis.py``); the planetary session
+(``cli/planetary.py``: seqquality, mpp, register_mpp, stack_mpp, and
+``rgbcomp -align``) and the image formats (``cli/formats.py``:
+convertraw, savetif, savetif8, savetif32, savepng, savejpg, savejxl,
+savebmp, savepnm).
 
     python -m siril_tpu_torch.cli [-d dir] [--device cuda|cpu] \\
         -s script.ssf

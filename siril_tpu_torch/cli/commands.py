@@ -223,10 +223,14 @@ def cmd_setcompress(ctx: Session, args: List[str]) -> None:
 
 #: what ``convert`` picks up in the working directory (the reference's
 #: list; only FITS inputs are ported, the others raise in load_any)
+#: every extension ``load_any`` reads, and the films: the JAX package's
+#: list (``siril_tpu/cli/commands.py:482-483``) lacks RW2, PEF, ORF, CR3,
+#: XISF and PIC, so its ``convert`` skips those files (ROADMAP §3)
 _CONVERT_EXT = (".fit", ".fits", ".fts", ".tif", ".tiff", ".png", ".jpg",
                 ".jpeg", ".bmp", ".ppm", ".pgm", ".pnm", ".webp", ".avif",
-                ".ser", ".dng", ".cr2", ".nef", ".arw", ".raf", ".heic",
-                ".heif", ".avi", ".mpg", ".mpeg", ".mov", ".mp4", ".webm")
+                ".ser", ".dng", ".cr2", ".nef", ".arw", ".raf", ".rw2",
+                ".cr3", ".pef", ".orf", ".heic", ".heif", ".xisf", ".pic",
+                ".avi", ".mpg", ".mpeg", ".mov", ".mp4", ".webm")
 
 
 def _inputs(ctx: Session, dest: str, exts) -> List[str]:
@@ -1722,7 +1726,7 @@ def _load_operand(ctx: Session, name: str):
     return load_any(p)
 
 
-@command("rgbcomp", "rgbcomp r g b [-lum=] [-out=]", min_args=3)
+@command("rgbcomp", "rgbcomp r g b [-lum=] [-align] [-out=]", min_args=3)
 def cmd_rgbcomp(ctx: Session, args: List[str]) -> None:
     from siril_tpu_torch.io.fits_io import write_fits
     from siril_tpu_torch.ops.colors import align_rgb_channels, rgb_compose
@@ -1733,7 +1737,7 @@ def cmd_rgbcomp(ctx: Session, args: List[str]) -> None:
     r, g, b = (_load_operand(ctx, p) for p in pos[:3])
     out = rgb_compose(r, g, b, lum=lum, device=ctx.device)
     if "align" in flags:
-        out = align_rgb_channels(out)
+        out = align_rgb_channels(out, device=ctx.device)
     name = flags.get("out") if isinstance(flags.get("out"), str) \
         else "composed"
     write_fits(out, ctx.path(name + ctx.ext))
@@ -2702,3 +2706,5 @@ def cmd_seqatrous(ctx: Session, args: List[str]) -> None:
 
 # the analysis session's commands (register into COMMANDS on import)
 from siril_tpu_torch.cli import analysis  # noqa: E402,F401  isort:skip
+from siril_tpu_torch.cli import formats  # noqa: E402,F401  isort:skip
+from siril_tpu_torch.cli import planetary  # noqa: E402,F401  isort:skip

@@ -18,7 +18,9 @@ from typing import Any, Optional
 
 import numpy as np
 
+USHRT_MAX_SINGLE = 65535.0
 INV_USHRT_MAX_SINGLE = 1.0 / 65535.0
+UCHAR_MAX_SINGLE = 255.0
 
 # Siril bitpix naming (cfitsio values)
 BYTE_IMG = 8
@@ -39,6 +41,8 @@ class Keywords:
     program: str = ""
     filename: str = ""
     pixel_size_x: float = 0.0
+    binning_x: int = 1
+    binning_y: int = 1
     row_order: str = ""
     date: Optional[str] = None
     date_obs: Optional[str] = None
@@ -100,6 +104,23 @@ class SirilImage:
         """One layer with a Bayer or X-Trans pattern (BAYERPAT)."""
         return self.nchans == 1 and bool(self.keywords.bayer_pattern)
 
+    def to_u16(self) -> np.ndarray:
+        """(C, H, W) uint16 by Siril's float → ushort rule: the value
+        clipped to [0, 1], times 65535, rounded half to even
+        (``core/image.py:169-172``)."""
+        return self._quantize(USHRT_MAX_SINGLE, np.uint16)
+
+    def to_u8(self) -> np.ndarray:
+        """(C, H, W) uint8, as ``to_u16`` with 255 (``core/image.py:174``)."""
+        return self._quantize(UCHAR_MAX_SINGLE, np.uint8)
+
+    def _quantize(self, top: float, dtype) -> np.ndarray:
+        """rint(clip(x, 0, 1) · top) in float32, in place on one copy."""
+        a = np.clip(self.host(), 0.0, 1.0)
+        a *= np.float32(top)
+        np.rint(a, out=a)
+        return a.astype(dtype)
+
     def copy(self, data: Any = None) -> "SirilImage":
         """A copy with ``data`` (default: a copy of this data); keywords
         and history copied, bit depth and WCS kept (``SirilImage.copy``)."""
@@ -130,3 +151,17 @@ class SirilImage:
         m = torch.from_numpy(np.asarray(self.mask, np.float32)).to(dev)[None]
         old = torch.from_numpy(self.host()).to(dev)
         return m * new_data + (1.0 - m) * old
+
+
+def ensure_chw(arr: np.ndarray) -> np.ndarray:
+    """An (H, W), (C, H, W) or interleaved (H, W, C) array as planar
+    (C, H, W) float32 (``core/image.py:219``)."""
+    a = np.asarray(arr, dtype=np.float32)
+    if a.ndim == 2:
+        return a[None]
+    if a.ndim == 3:
+        if a.shape[0] in (1, 3):
+            return a
+        if a.shape[2] in (1, 3):
+            return np.ascontiguousarray(np.moveaxis(a, 2, 0))
+    raise ValueError(f"unsupported image shape {a.shape}")

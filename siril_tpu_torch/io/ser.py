@@ -236,6 +236,16 @@ class SerWriter:
         if timestamp_ticks is not None:
             self._timestamps.append(timestamp_ticks)
 
+    def write_raw(self, frames: np.ndarray) -> None:
+        """Frames already quantized: (N, H, W) or (N, H, W, planes)
+        integer samples at the writer's bit depth, written as they are."""
+        h = self.header
+        dt = "<u2" if h.bytes_per_sample == 2 else "u1"
+        a = np.asarray(frames)
+        a = a.reshape(a.shape[0], h.height, h.width, h.planes)
+        self._f.write(np.ascontiguousarray(a, dtype=dt).tobytes())
+        h.frame_count += a.shape[0]
+
     def close(self) -> None:
         if self._timestamps and len(self._timestamps) == self.header.frame_count:
             for t in self._timestamps:

@@ -8,8 +8,8 @@ The conversions are elementwise float32 torch maps over (H, W) planes, in
 the JAX package's operation order; the ops run on ``device`` (CUDA unless
 "cpu").  ``satu``'s background threshold comes from the host statistics
 of the layers' mean, as in the JAX package.  ``align_rgb_channels``
-(:278) needs the FFT phase correlation of ``registration/shift.py``,
-which is not ported yet (ROADMAP §1.4).
+(:278) registers R and B onto G by the phase correlation of
+``registration/shift.py``.
 """
 
 from __future__ import annotations
@@ -291,10 +291,32 @@ def rgb_compose(r: SirilImage, g: SirilImage, b: SirilImage,
     return out
 
 
-def align_rgb_channels(img: SirilImage) -> SirilImage:
-    """Compositing channel alignment (src/compositing/align_rgb.c): R and
-    B registered onto G by phase correlation — not ported yet."""
-    raise NotImplementedError(
-        "RGB channel alignment (rgbcomp -align) needs the FFT phase "
-        "correlation of registration/shift.py, not ported yet (ROADMAP "
-        "§1.4, planetary and registration/shift.py)")
+def align_rgb_channels(img: SirilImage,
+                       device: DeviceLike = None) -> SirilImage:
+    """Compositing channel alignment (src/compositing/align_rgb.c,
+    ``siril_tpu/ops/colors.py:278``): R and B registered onto G by phase
+    correlation with the parabola's sub-pixel refinement, each shifted
+    by the gather warp with bilinear taps unless both of its shifts are
+    under 0.05 px, on ``device``.  A mono image is returned as it is."""
+    from siril_tpu_torch.device import resolve_device
+    from siril_tpu_torch.ops.interp import INTERP_BILINEAR, warp_homography
+    from siril_tpu_torch.registration.shift import phase_correlate
+
+    if img.nchans != 3:
+        return img
+    dev = resolve_device(device)
+    data = img.host()
+    d = phase_correlate(data[1], np.stack([data[0], data[2]]), device=dev)
+    out = data.copy()
+    for k, c in enumerate((0, 2)):
+        dx, dy = float(d[k][0]), float(d[k][1])
+        if abs(dx) < 0.05 and abs(dy) < 0.05:
+            continue
+        H = np.eye(3)
+        H[0, 2], H[1, 2] = dx, dy
+        out[c] = warp_homography(torch.from_numpy(data[c][None]).to(dev), H,
+                                 (img.height, img.width), INTERP_BILINEAR,
+                                 clamp=False)[0].cpu().numpy()
+    res = img.copy(data=out)
+    res.log_history("RGB channel alignment")
+    return res

@@ -79,7 +79,13 @@ JAX):
   session): the corrected frames, the statistics file, the histogram,
   the trail's CSV and find_hot's list equal, the ICC-converted and
   inspector images within a 16-bit step, the light curve within the
-  error it reports (its LM fits run in float32 on each device).
+  error it reports (its LM fits run in float32 on each device);
+- the planetary device ops on the card against the CPU: the frame
+  quality within 1e-5 relative, the phase correlation within 1e-3 px,
+  MultiLevelCorrelation on the same windows with the same integer shifts
+  and successes and sub-pixel shifts within 1e-3 px, the SER store's
+  decode equal; and the native raw decoders (LJPEG, Nikon, Panasonic)
+  bit-equal to their Python versions on the card machine's compiler.
 """
 
 import numpy as np
@@ -1141,3 +1147,77 @@ def test_analysis_script_on_card_vs_cpu(tmp_path):
         b = read_fits(str(tmp_path / "cuda" / f"{name}.fit")).data
         assert float(np.abs(a - b).max()) <= 1.5 / 65535, name
 
+
+
+def _planet(rng, n=6, size=128):
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    r = np.hypot(yy - size / 2, xx - size / 2)
+    disc = np.clip(1.0 - (r / (0.38 * size)) ** 8, 0, 1)
+    scene = 0.05 + disc * (0.55 + 0.12 * np.sin(yy / size * 9 * np.pi))
+    out = []
+    for _ in range(n):
+        dy, dx = rng.integers(-4, 5, 2)
+        f = np.roll(np.roll(scene, dy, 0), dx, 1)
+        out.append(f + rng.normal(0, 0.01, f.shape))
+    return np.clip(np.stack(out), 0, 1).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_planetary_ops_on_card_vs_cpu(tmp_path):
+    _need_card()
+    from siril_tpu_torch.io.ser import SER_MONO, SerWriter
+    from siril_tpu_torch.planetary import mlc, quality, source
+    from siril_tpu_torch.registration import shift
+
+    rng = np.random.default_rng(4)
+    fr = _planet(rng)
+    qc = quality.quality_batch(fr, device="cuda")
+    qh = quality.quality_batch(fr, device="cpu")
+    assert np.abs(qc / qh - 1).max() <= 1e-5
+    assert np.array_equal(np.argsort(qc), np.argsort(qh))
+    a = shift.phase_correlate(fr[0], fr, device="cuda")
+    b = shift.phase_correlate(fr[0], fr, device="cpu")
+    assert np.abs(a - b).max() <= 1e-3
+    E, S = mlc.mlc_window_extent(14), 48
+    big = np.stack([f[64 - S // 2 - E:64 + S // 2 + E,
+                      64 - S // 2 - E:64 + S // 2 + E] for f in fr])
+    ref = np.repeat(fr[:1, 64 - S // 2:64 + S // 2, 64 - S // 2:64 + S // 2],
+                    len(fr), 0)
+    dc = mlc.multilevel_correlation_batch(big, ref, device="cuda")
+    dh = mlc.multilevel_correlation_batch(big, ref, device="cpu")
+    assert np.array_equal(dc[2], dh[2])
+    assert np.array_equal(np.round(dc[0]), np.round(dh[0]))
+    assert np.array_equal(np.round(dc[1]), np.round(dh[1]))
+    assert max(np.abs(dc[0] - dh[0]).max(), np.abs(dc[1] - dh[1]).max()) \
+        <= 1e-3
+    w = SerWriter(str(tmp_path / "v.ser"), 128, 128, SER_MONO, 16)
+    for f in fr:
+        w.write_frame(SirilImage(data=f[None]))
+    w.close()
+    seq = Sequence.from_ser(str(tmp_path / "v.ser"))
+    (_, c), = list(source.frame_chunks(seq, np.arange(4), 0, 8, "cuda"))
+    seq2 = Sequence.from_ser(str(tmp_path / "v.ser"))
+    (_, h), = list(source.frame_chunks(seq2, np.arange(4), 0, 8, "cpu"))
+    assert torch.equal(c.cpu(), h)
+
+
+@pytest.mark.cuda
+def test_native_raw_decoders_on_card_machine():
+    """The C++ decoders built by the card machine's compiler, bit-equal to
+    the port's Python decoders on streams of their own encoders."""
+    _need_card()
+    import chip_smoke
+    from siril_tpu_torch import native
+    from siril_tpu_torch.io import dng, rawfile
+
+    rng = np.random.default_rng(6)
+    img = rng.integers(0, 1 << 14, (64, 64)).astype(np.uint16)
+    blob = chip_smoke.encode_ljpeg(img, 14)
+    assert np.array_equal(native.decode_ljpeg(blob)[0],
+                          dng._ljpeg_decode_py(blob)[0])
+    raw, vpred = chip_smoke.encode_nikon(img)
+    assert np.array_equal(native.decode_nikon(raw, 64, 64, 5, vpred, 0),
+                          rawfile._nikon_decode_py(raw, 64, 64, 5, vpred, 0))
+    pb = rng.integers(0, 256, 0x4000).astype(np.uint8).tobytes()
+    assert np.array_equal(native.decode_panasonic(pb, 70, 64),
+                          rawfile._pana_bits_decode_py(pb, 70, 64))

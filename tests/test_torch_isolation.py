@@ -440,3 +440,48 @@ def test_enhance_ops_default_to_cuda(monkeypatch, tmp_path):
             COMMANDS[words[0]].fn(s, words[1:])
     out = filters.gauss(img, 1.0, device="cpu").data
     assert np.abs(out - img.data).max() <= 1e-7
+
+
+PLANETARY_FORMAT_MODULES = (
+    "planetary.quality", "planetary.source", "planetary.mlc",
+    "planetary.mpp", "registration.shift", "io.dng", "io.rawfile",
+    "io.xisf", "io.internal_formats", "io.image_formats", "cli.planetary",
+    "cli.formats")
+
+
+def test_planetary_and_formats_need_a_card(monkeypatch, tmp_path):
+    """The planetary session and the raw conversion run on CUDA unless
+    asked for the CPU, and raise without a card; their modules are among
+    those imported without JAX above."""
+    from siril_tpu_torch.cli.commands import COMMANDS
+    from siril_tpu_torch.cli.context import Session
+    from siril_tpu_torch.core.image import SirilImage
+    from siril_tpu_torch.core.sequence import Sequence
+    from siril_tpu_torch.io.ser import SerWriter
+    from siril_tpu_torch.ops.colors import align_rgb_channels
+    from siril_tpu_torch.planetary import mpp, quality
+    from siril_tpu_torch.registration import shift
+
+    names = set(_port_modules())
+    for m in PLANETARY_FORMAT_MODULES:
+        assert f"siril_tpu_torch.{m}" in names, m
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    frame = np.full((1, 32, 32), 0.2, np.float32)
+    w = SerWriter(str(tmp_path / "v.ser"), 32, 32)
+    for _ in range(3):
+        w.write_frame(SirilImage(data=frame))
+    w.close()
+    seq = Sequence.from_ser(str(tmp_path / "v.ser"))
+    rgb = SirilImage(data=np.full((3, 32, 32), 0.2, np.float32))
+    for call in (lambda: quality.quality_batch(frame),
+                 lambda: quality.rank_sequence_quality(seq),
+                 lambda: mpp.mpp_analyze(seq),
+                 lambda: shift.phase_correlate(frame[0], frame),
+                 lambda: shift.template_match(frame[0, :8, :8], frame),
+                 lambda: align_rgb_channels(rgb)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    for words in (["seqquality", "v"], ["mpp", "v"], ["register_mpp", "v"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            COMMANDS[words[0]].fn(Session(cwd=str(tmp_path)), words[1:])
+    assert quality.quality_batch(frame, device="cpu").shape == (1,)

@@ -329,8 +329,8 @@ def test_parse_line():
 
 def test_script_entry_and_errors(tmp_path):
     """``python -m siril_tpu_torch.cli -s script`` runs a script; a
-    failing command stops it (a command error returns 1, an input not
-    ported raises)."""
+    failing command stops it (a command error returns 1, an input that
+    does not read raises)."""
     from siril_tpu_torch import cli
 
     (tmp_path / "bad.ssf").write_text("requires 1.2.0\ncd nowhere\nclose\n")
@@ -345,7 +345,7 @@ def test_script_entry_and_errors(tmp_path):
                           str(tmp_path / "new.ssf")) == 1
     (tmp_path / "a.png").write_bytes(b"\x89PNG")
     (tmp_path / "x.ssf").write_text("convert img\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="not a PNG"):
         execute_script(Session(cwd=str(tmp_path), device="cpu"),
                        str(tmp_path / "x.ssf"))
     (tmp_path / "ok.ssf").write_text("setext fits\nsetfindstar -radius=7 "

@@ -185,8 +185,9 @@ def test_convert_and_link_vs_jax(tmp_path, symlink):
         assert os.path.islink(a) == os.path.islink(b) == (
             symlink and n.endswith(".fit"))
         assert a.read_bytes() == b.read_bytes()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        conversion.load_any(str(tmp_path / "x.png"))
+    for load_any in (conversion.load_any, jconv.load_any):
+        with pytest.raises(FileNotFoundError):
+            load_any(str(tmp_path / "x.png"))
     jconv.convert_to_sequence(files, "l", str(tmp_path / "jax"), "ser")
     conversion.convert_to_sequence(files, "l", str(tmp_path / "port"), "ser")
     assert (tmp_path / "port" / "l_.ser").read_bytes() == \

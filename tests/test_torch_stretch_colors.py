@@ -238,7 +238,15 @@ def test_mask_blend_vs_jax():
     assert np.array_equal(tcol.negative(t, device=CPU).data, 1.0 - data)
 
 
-def test_align_rgb_raises():
+def test_align_rgb_raises(monkeypatch):
+    """Without a card and without ``device="cpu"`` the channel alignment
+    raises (no fallback); a mono image is returned as it is, as in the
+    JAX package.  The alignment itself is held against the JAX package
+    in tests/test_torch_planetary.py::test_commands_vs_jax."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     t = TImage(data=_scene(47))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1.4"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         tcol.align_rgb_channels(t)
+    mono = TImage(data=_scene(47)[:1])
+    assert tcol.align_rgb_channels(mono) is mono
+    assert jcol.align_rgb_channels(JImage(data=_scene(47)[:1])).nchans == 1
