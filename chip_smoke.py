@@ -72,6 +72,24 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               STACK100 aligned float32 SIZE100×SIZE100 frames (the column
               kernel) with winsorized and GESDT rejection, each checked
               against the known scene and its variant's launches;
+  multidevice — a world-1 process group (NCCL for the card, gloo for
+              the CPU's tensors; a FileStore rendezvous) and its meshes:
+              the config-5 chain (``survey_platesolve_pcc_stack``) on
+              SURVEY_FRAMES RGB frames of SURVEY_W × SURVEY_H (the IMX455)
+              made on the card by its reader (a TAN-projected sky of
+              SURVEY_STARS stars of known B−V through SURVEY_IMBALANCE, a
+              gain and offset per frame, noise, hits), its rows per block
+              those plan_survey_rows gives SURVEY_PLANNED frames on the
+              card: the stack against the scene, the plate solution
+              against the true WCS, the PCC gains against the imbalance,
+              SURVEY_HELD of its K1 calls held against the plain version
+              (held_at_call), the stages' seconds; then
+              ``fused_pipeline_step`` on FRAMES 16-bit SIZE² frames,
+              shifted (the separable route) and turned (the rotation
+              rung), against the scene, its K1 call held against the
+              plain version (held_at_call), and the card against the CPU
+              on their FUSED_CROP² centre, the two K1 calls' per-pixel
+              rejection counts there included;
   script — the standard preprocessing script through the CLI's -s entry
               (``python -m siril_tpu_torch.cli -d <dir> -s <script>``,
               PREPROCESSING_SCRIPT) on a synthetic night of CALIB_FRAMES
@@ -222,7 +240,25 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               and peak memory (fmedian 5 and 9 too) but for the
               session's own, and denoise -da3d, -sos=1 and the two blind
               engines on an ENHANCE_LAYER² layer, on a JSON line of its
-              own.  No K1.
+              own.  No K1;
+  live   — in the script phase's directory, after formats: start_ls
+              -dark= -flat= with its masters (the dark with the bias), a
+              thread dropping LIVE_DROPPED of LIVE_LIGHTS shifted 16-bit
+              SIZE² lights into the watched directory, livestack <file>
+              for the rest, stop_ls: the result against the scene, ms per
+              frame; seqexport of EXPORT_FRAMES pp_light frames (a .seq
+              with shifts) to each of EXPORT_FORMATS with -normalize
+              -crop=, read back against the shifted frames (their
+              normalization's estimators and coefficients from the card
+              held against host_norm_estimators of two frames), and
+              -format=mp4 (OpenCV, or the error naming cv2); then
+              SEQCMD_SCRIPT through -s on SEQCMD_SIZE² float32 frames of
+              the scene and two raw lights: load_seq, select, unselect,
+              setref, getref, seqheader, sequpdate_key, seqgps, seqclean,
+              merge, stackall (K1a once a sequence), calibrate_single
+              against calibrate, mirrorx_single, jsonmetadata, load,
+              dumpheader, update_key, parse, boxselect, gps, each result
+              checked, and seqstarnet's refusal.
 Then a JSON line describing every kernel, the card line, and last the
 result line.  Any failure exits non-zero without a result line.  The script
 needs CUDA and the repository beside it; it imports nothing of JAX.
@@ -231,6 +267,7 @@ needs CUDA and the repository beside it; it imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -803,6 +840,34 @@ def held_at_call(label: str, what: str, x, sc, off, mul, kw: dict,
     return r
 
 
+@contextlib.contextmanager
+def k1_calls(keep=lambda i: True):
+    """Records the calls of ``kernels.reject_stack.reject_mean`` (K1 on the
+    card, its plain version on the CPU) made inside the block: for each
+    call whose index ``keep`` takes, (its arguments cloned, its keywords,
+    its outputs: the mean and the per-pixel counts), else None."""
+    import torch
+
+    from siril_tpu_torch.kernels import reject_stack as k1
+
+    calls, real = [], k1.reject_mean
+
+    def spy(*a, **kw):
+        kept = keep(len(calls))
+        calls.append([tuple(v.clone() if torch.is_tensor(v) else v
+                            for v in a), dict(kw), None] if kept else None)
+        out = real(*a, **kw)
+        if kept:
+            calls[-1][2] = out
+        return out
+
+    k1.reject_mean = spy
+    try:
+        yield calls
+    finally:
+        k1.reject_mean = real
+
+
 def _bound(nbytes: int, work: dict) -> dict:
     """The least time for the work: bytes over the HBM rate or float
     operations (and sort comparisons) over the f32 peak, the larger."""
@@ -1175,22 +1240,34 @@ def _render(size: int, sky: float, cx, cy, amp, psf_s: float = 1.3):
     return img
 
 
+def _card_rng(seed: int):
+    """A torch generator seeded with ``seed`` on the card (CARD), or on
+    the CPU where there is none (the tests synthesize sessions there):
+    the synthesized frames' noise is drawn on it (host numpy took ~1 s a
+    4096² frame)."""
+    import torch
+
+    dev = CARD if CARD == "cpu" or torch.cuda.is_available() else "cpu"
+    g = torch.Generator(device=torch.device(dev))
+    g.manual_seed(seed)
+    return g
+
+
 def synth_frames(seed: int, n: int, size: int, aligned: bool = False):
     """A scene of Gaussian stars on a sky background, and ``n`` frames of
-    it shifted by integer + sub-pixel offsets, with noise and cosmic rays.
-    Returns (scene, frames u16 list, shifts, noise σ, ray value).  With
-    ``aligned`` the frames are not shifted (as registration leaves them)
-    and are float32."""
+    it shifted by integer + sub-pixel offsets, with noise and cosmic rays
+    (rendered on the card).  Returns (scene, frames u16 list, shifts,
+    noise σ, ray value).  With ``aligned`` the frames are not shifted (as
+    registration leaves them) and are float32."""
     import numpy as np
+    import torch
 
     rng = np.random.default_rng(seed)
+    g = _card_rng(seed)
+    dev = g.device
     sky, sigma_n, ray = 0.1, 0.01, 1.0
     sx, sy, amp = _star_field(rng, size, 4000)
-
-    def render(dx, dy):
-        return _render(size, sky, sx + dx, sy + dy, amp)
-
-    scene = render(0.0, 0.0)
+    scene_t = _render_torch(size, sky, sx, sy, amp, dev)
     shifts = [(0.0, 0.0)] * n if aligned else \
         [(0.0, 0.0)] + [(float(rng.integers(-12, 13)
                                + rng.uniform(-0.5, 0.5)),
@@ -1199,14 +1276,17 @@ def synth_frames(seed: int, n: int, size: int, aligned: bool = False):
                         for _ in range(n - 1)]
     frames = []
     for dx, dy in shifts:
-        f = scene.copy() if aligned else render(dx, dy)
-        f += sigma_n * rng.standard_normal((size, size), dtype=np.float32)
+        f = scene_t.clone() if aligned else \
+            _render_torch(size, sky, sx + dx, sy + dy, amp, dev)
+        f += sigma_n * torch.randn(f.shape, generator=g, device=dev)
         k = size * size // 4000
-        f[rng.integers(0, size, k), rng.integers(0, size, k)] = ray
-        f = np.clip(f, 0, 1)
-        frames.append(f if aligned else
-                      np.rint(f * 65535.0).astype(np.uint16))
-    return scene, frames, shifts, sigma_n, ray
+        f[torch.as_tensor(rng.integers(0, size, k), device=dev),
+          torch.as_tensor(rng.integers(0, size, k), device=dev)] = ray
+        f = f.clamp_(0, 1)
+        frames.append(f.cpu().numpy() if aligned else
+                      torch.round(f * 65535.0).to(torch.int32).cpu().numpy()
+                      .astype(np.uint16))
+    return scene_t.cpu().numpy(), frames, shifts, sigma_n, ray
 
 
 def _ray_tracks(rng, f, n: int, value: float):
@@ -1251,8 +1331,11 @@ def synth_session(root: str, seed: int, size: int, lights: int,
     the ray value, the hot pixels and, for each set, the reference
     frame's ray pixels (where the result is in its geometry)."""
     import numpy as np
+    import torch
 
     rng = np.random.default_rng(seed)
+    g = _card_rng(seed)
+    dev = g.device
     sky, sigma_n, ray, read_n = 0.1, 0.01, 1.0, 0.002
     sx, sy, amp = _star_field(rng, size, nstars)
     amp = np.minimum(amp * gain, 0.55)
@@ -1265,19 +1348,23 @@ def synth_session(root: str, seed: int, size: int, lights: int,
     nhot = max(size * size // 50000, 8)
     hy, hx = rng.integers(2, size - 2, nhot), rng.integers(2, size - 2, nhot)
     dark[hy, hx] = rng.uniform(0.1, 0.4, nhot)
+    bias_t, dark_t, vig_t = (torch.as_tensor(a, device=dev) for a in
+                             (bias, dark, vig.astype(np.float32)))
 
-    def noise(s):
-        return s * rng.standard_normal((size, size), dtype=np.float32)
+    def noisy(base, s):
+        # base + s·N(0, 1), to the host
+        return (base + s * torch.randn((size, size), generator=g,
+                                       device=dev)).cpu().numpy()
 
     def put(sub, name, f):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
         write_later(write_float_u16, os.path.join(root, sub, name), f)
 
     for i in range(calib):
-        put("biases", f"bias_{i + 1:05d}.fit", bias + noise(read_n))
+        put("biases", f"bias_{i + 1:05d}.fit", noisy(bias_t, read_n))
         put("flats", f"flat_{i + 1:05d}.fit",
-            bias + 0.5 * vig + noise(read_n))
-        put("darks", f"dark_{i + 1:05d}.fit", bias + dark + noise(read_n))
+            noisy(bias_t + 0.5 * vig_t, read_n))
+        put("darks", f"dark_{i + 1:05d}.fit", noisy(bias_t + dark_t, read_n))
     transforms, rays = [], {}
     for sub, rotate in (("lights", True), (shifted_dir, False)):
         for k in range(lights if sub else 0):
@@ -1293,13 +1380,14 @@ def synth_session(root: str, seed: int, size: int, lights: int,
             ct, st = (1.0 + s) * np.cos(th), (1.0 + s) * np.sin(th)
             cx = ct * (sx - c) - st * (sy - c) + c + dx
             cy = st * (sx - c) + ct * (sy - c) + c + dy
-            f = bias + dark + vig * _render(size, sky, cx, cy, amp) + \
-                noise(sigma_n)
+            f = noisy(bias_t + dark_t + vig_t * _render_torch(
+                size, sky, cx, cy, amp, dev), sigma_n)
             hit = _ray_tracks(rng, f, max(size * size // 40000, 4), ray)
             if k == 0:
                 rays[sub] = hit
             put(sub, f"light_{k + 1:05d}.fit", f)
-    scene = _render(size, sky, sx, sy, amp) * np.float32(vig.mean())
+    scene = _render_torch(size, sky, sx, sy, amp, dev).cpu().numpy() * \
+        np.float32(vig.mean())
     writes_done()
     return dict(scene=scene, sigma_n=sigma_n, ray=ray, hot=(hy, hx),
                 transforms=transforms, rays=rays, bias=bias, dark=dark,
@@ -1723,7 +1811,10 @@ def synth_turned(root: str, seed: int, size: int, n: int, nstars: int = 4000,
     ray value, the reference frame's ray pixels, the frames' maps)."""
     import numpy as np
 
+    import torch
+
     rng = np.random.default_rng(seed)
+    g = _card_rng(seed)
     sky, sigma_n, ray = 0.1, 0.01, 1.0
     sx, sy, amp = _star_field(rng, size, nstars)
     amp = np.minimum(amp * gain, 0.55)
@@ -1738,14 +1829,16 @@ def synth_turned(root: str, seed: int, size: int, n: int, nstars: int = 4000,
         Hm = similar_map(1.0, deg, dx, dy, size=(size, size))
         maps.append(Hm)
         v = np.linalg.inv(Hm) @ np.stack([sx, sy, np.ones_like(sx)])
-        f = _render(size, sky, v[0] / v[2], v[1] / v[2], amp)
-        f += sigma_n * rng.standard_normal((size, size), dtype=np.float32)
+        f = _render_torch(size, sky, v[0] / v[2], v[1] / v[2], amp,
+                          g.device)
+        f += sigma_n * torch.randn(f.shape, generator=g, device=g.device)
+        f = f.cpu().numpy()
         hit = _ray_tracks(rng, f, max(size * size // 400000, 4), ray)
         if k == 0:
             rays = hit
         write_later(write_float_u16,
                     os.path.join(root, f"light_{k + 1:05d}.fit"), f)
-    scene = _render(size, sky, sx, sy, amp)
+    scene = _render_torch(size, sky, sx, sy, amp, g.device).cpu().numpy()
     writes_done()
     return scene, sigma_n, ray, rays, np.stack(maps)
 
@@ -3268,13 +3361,15 @@ def _segment_distance(px, py, p0, p1):
     return ((px - p0[0] - t * dx) ** 2 + (py - p0[1] - t * dy) ** 2) ** 0.5
 
 
-def _render_torch(size: int, sky: float, cx, cy, amp, dev,
+def _render_torch(size, sky: float, cx, cy, amp, dev,
                   psf_s: float = 1.3):
-    """``_render`` on the card: the stars on 13×13 patches, summed."""
+    """``_render`` on the card: the stars on 13×13 patches, summed; a
+    ``size`` (h, w) renders a rectangle."""
     import numpy as np
     import torch
 
-    img = torch.full((size * size,), sky, dtype=torch.float32, device=dev)
+    h, size = (size, size) if isinstance(size, int) else size
+    img = torch.full((h * size,), sky, dtype=torch.float32, device=dev)
     r = 6
     o = torch.arange(-r, r + 1, device=dev)
     cx = torch.as_tensor(np.asarray(cx), device=dev)[:, None, None]
@@ -3285,9 +3380,9 @@ def _render_torch(size: int, sky: float, cx, cy, amp, dev,
     a = torch.as_tensor(np.asarray(amp), device=dev)[:, None, None]
     val = (a * torch.exp(-d2 / (2 * psf_s ** 2))).float()
     px, py = px.expand(val.shape), py.expand(val.shape)
-    inb = (px >= 0) & (px < size) & (py >= 0) & (py < size)
+    inb = (px >= 0) & (px < size) & (py >= 0) & (py < h)
     img.index_put_(((py * size + px)[inb],), val[inb], accumulate=True)
-    return img.reshape(size, size)
+    return img.reshape(h, size)
 
 
 def synth_analysis(root: str, seed: int, size: int,
@@ -6262,6 +6357,867 @@ def phase_stack(seed: int, frames: int = FRAMES, size: int = SIZE,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# multidevice: the config-5 chain and the sharded fused step
+# ---------------------------------------------------------------------------
+
+#: the config-5 frame: the IMX455 full-frame sensor, 9576 × 6388 (61.2 MP)
+SURVEY_W, SURVEY_H = 9576, 6388
+#: the chain's frames (a survey stacks 1000: the row blocks are planned
+#: for 1000 frames on this card, so each block is one a survey streams)
+SURVEY_FRAMES = 12
+SURVEY_PLANNED = 1000
+SURVEY_STARS = 6000
+SURVEY_NOISE = 0.01
+#: the catalogue stars' colours through the channels as a camera sees
+#: them; PCC undoes it
+SURVEY_IMBALANCE = (1.12, 1.0, 0.91)
+#: the chain's K1 calls held against the plain version (held_at_call)
+SURVEY_HELD = 2
+#: the solved WCS against the truth, RMS over the catalogue in the frame
+SURVEY_WCS_TOL = 0.5
+#: the sharded fused step: FRAMES 16-bit SIZE² frames, shifted by up to
+#: FUSED_SHIFT px (the separable path's MARGIN is 8), or turned by up to
+#: FUSED_TURN_DEG (the rotation rung), σ-clipped (as the JAX package's
+#: sharded tests; the CPU's plain winsorized on the crop took 5 s); card
+#: against CPU on FUSED_CROP²
+FUSED_SHIFT = 6.0
+FUSED_TURN_DEG = 0.5
+FUSED_CROP = 256
+FUSED_CPU_TOL = 1e-5
+#: the share of the crop's pixels whose σ-clip may flip between the card
+#: and the CPU: the rotation rung's cuFFT and pocketfft part by ~1e-7,
+#: which moves a value across a clipping bound now and then (a flip moves
+#: that pixel's mean by ~1e-3: 1.31e-3 on the H100)
+FUSED_FLIP_SHARE = 1e-3
+#: the largest |Δmean| of a flipped pixel: one value across a 3σ clip
+#: moves its column's mean by about 3σ/(N − 1), 1.3e-3 at the noise's σ
+#: 0.01 over 24 frames; this allows a column's σ up to three times the
+#: noise (the rim of a star after a turn)
+FUSED_FLIP_MAX = 4e-3
+
+
+def start_group():
+    """A world-1 process group on this host (NCCL for the card, gloo for
+    the CPU's tensors), its rendezvous a FileStore in a temporary
+    directory; ``destroy_process_group`` ends it."""
+    import torch.distributed as dist
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    backend = "cuda:nccl,cpu:gloo" if CARD == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{d}/store",
+                            world_size=1, rank=0)
+    return d
+
+
+def survey_scene(seed: int, h: int, w: int, nstars: int, dev):
+    """The chain's sky: ``nstars`` stars of known B−V through a TAN WCS
+    centred on SKY_CENTRE at SKY_SCALE″/px, each channel the stars'
+    ``bv_to_rgb`` colour × SURVEY_IMBALANCE on its sky, rendered on the
+    card; the catalogue, the truth WCS and the stars."""
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch.astrometry.catalog import Catalog
+    from siril_tpu_torch.astrometry.pcc import bv_to_rgb
+    from siril_tpu_torch.ops.wcs import WCS
+
+    rng = np.random.default_rng(seed)
+    m = 48
+    sx = rng.uniform(m, w - m, nstars)
+    sy = rng.uniform(m, h - m, nstars)
+    amp = np.minimum(0.05 + 0.02 * rng.pareto(1.5, nstars), 0.5)
+    bv = rng.uniform(0.0, 1.2, nstars)
+    th = np.radians(SKY_TURN)
+    s = SKY_SCALE / 3600.0
+    truth = WCS(crpix=(w / 2.0 + 0.5, h / 2.0 + 0.5), crval=SKY_CENTRE,
+                cd=np.array([[-s * np.cos(th), s * np.sin(th)],
+                             [s * np.sin(th), s * np.cos(th)]]), height=h)
+    ra, dec = truth.pix2world(sx, sy)
+    col = np.stack([bv_to_rgb(b) for b in bv], axis=1)
+    scene = torch.empty((3, h, w), dtype=torch.float32, device=dev)
+    for c in range(3):
+        scene[c] = _render_torch((h, w), 0.1 * (0.9 + 0.1 * c), sx, sy,
+                                 amp * col[c] * SURVEY_IMBALANCE[c], dev,
+                                 psf_s=1.5)
+    cat = Catalog(ra=ra, dec=dec, mag=star_mags(amp), bv=bv)
+    return scene, cat, truth, dict(sx=sx, sy=sy, amp=amp, h=h, w=w)
+
+
+def survey_reader(scene, seed: int, gains, offsets):
+    """``read_rows(frame, chan, y0, y1)``: rows of the scene through the
+    frame's gain and offset, with noise and cosmic-ray hits (one in 40000
+    pixels), seeded by (frame, channel, first row) and made on the card;
+    returned on the host as a reader of files would."""
+    import torch
+
+    dev = scene.device
+
+    def read_rows(k, c, y0, y1):
+        g = torch.Generator(device=dev)
+        g.manual_seed(((seed * 1009 + k) * 8 + c) * 100003 + y0)
+        blk = scene[c, y0:y1] * gains[k] + offsets[k]
+        blk += SURVEY_NOISE * torch.randn(blk.shape, generator=g,
+                                          device=dev)
+        hits = torch.randint(0, blk.numel(), (max(blk.numel() // 40000, 1),),
+                             generator=g, device=dev)
+        blk.view(-1)[hits] = 1.0
+        return blk.clamp_(0.0, 1.0).cpu().numpy()
+
+    return read_rows
+
+
+def _star_gains(before, after, stars, n: int = 200):
+    """``post_gains`` on a rectangle: the G-relative gains that took
+    ``before`` to ``after`` on the n brightest stars at least 64 px
+    inside."""
+    import numpy as np
+
+    sx, sy, amp, h, w = (stars[k] for k in ("sx", "sy", "amp", "h", "w"))
+    ok = (sx > 64) & (sx < w - 64) & (sy > 64) & (sy < h - 64)
+    idx = np.nonzero(ok)[0]
+    idx = idx[np.argsort(amp[idx])[::-1][:n]]
+    xi, yi = np.floor(sx[idx]).astype(int), np.floor(sy[idx]).astype(int)
+    k = []
+    for c in range(3):
+        pin = before[c, yi, xi] - np.median(before[c, ::4, ::4])
+        pout = after[c, yi, xi] - np.median(after[c, ::4, ::4])
+        k.append(float(np.median(pout / pin)))
+    return np.array(k) / k[1]
+
+
+def phase_survey(seed: int, mesh, h: int = SURVEY_H, w: int = SURVEY_W,
+                 n: int = SURVEY_FRAMES, nstars: int = SURVEY_STARS):
+    """The config-5 chain (``survey_platesolve_pcc_stack``) on ``n`` RGB
+    frames of h × w through the world-1 mesh: the stack against the known
+    scene, the plate solution against the truth, the PCC gains against
+    SURVEY_IMBALANCE, and SURVEY_HELD of its K1 calls held against the
+    plain version.  Returns ({launches}, the held rows, the stages)."""
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch.astrometry.solver import SolveArgs
+    from siril_tpu_torch.kernels import reject_stack as k1
+    from siril_tpu_torch.ops import rejection as rj
+    from siril_tpu_torch.ops.normalization import ADDITIVE_SCALING
+    from siril_tpu_torch.parallel.sharding import mesh_device
+    from siril_tpu_torch.parallel.survey import (
+        plan_survey_rows,
+        survey_platesolve_pcc_stack,
+    )
+
+    dev = mesh_device(mesh)
+    t = time.perf_counter()
+    scene, cat, truth, stars = survey_scene(seed + 71, h, w, nstars, dev)
+    rng = np.random.default_rng(seed + 72)
+    gains = np.concatenate([[1.0], rng.uniform(0.98, 1.02, n - 1)])
+    offsets = np.concatenate([[0.0], rng.uniform(-0.02, 0.02, n - 1)])
+    read_rows = survey_reader(scene, seed + 73, gains, offsets)
+    torch.cuda.synchronize()
+    log(f"  rendered the {w}x{h} RGB scene of {nstars} stars on the card "
+        f"in {time.perf_counter() - t:.2f}s")
+    rows_planned = plan_survey_rows(SURVEY_PLANNED, w, 1, device=dev)
+    budget = rows_planned * n * w * 16
+    log(f"  rows per block for {SURVEY_PLANNED} frames on this card: "
+        f"{rows_planned} (budget {budget} B for {n} frames)")
+    ra0, dec0 = truth.pix2world(np.array([w / 2.0]), np.array([h / 2.0]))
+    args = SolveArgs(ra=float(ra0[0]) + 0.08, dec=float(dec0[0]) - 0.06,
+                     pixel_scale=SKY_SCALE * 1.02, mag_limit=14.0)
+    n_blocks = 3 * -(-h // min(rows_planned, h))
+    held_at = {0, n_blocks // 2 + 1}
+    k1.reset_counts()
+    t = time.perf_counter()
+    with k1_calls(lambda i: i in held_at) as calls:
+        img, solve, sres = survey_platesolve_pcc_stack(
+            read_rows, n, 3, h, w, mesh, cat, args,
+            rtype=rj.WINSORIZED, mode=ADDITIVE_SCALING,
+            budget_bytes_per_dev=budget)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k: v for k, v in k1.launches.items() if v}
+    log(f"  survey_platesolve_pcc_stack: {n} frames x 3 x {w}x{h} in "
+        f"{wall:.2f}s; {sres.n_blocks} blocks of {sres.rows_per_block} rows, "
+        f"K1 launches {launches}, rejected {sres.total_rejected}")
+    log("    stages: " + ", ".join(f"{k} {v:.3f}s"
+                                   for k, v in sres.stage_s.items()))
+    out = sres.data
+    want = scene.cpu().numpy()
+    m = 48
+    errs = [float(np.abs(out[c, m:-m, m:-m] - want[c, m:-m, m:-m]).mean())
+            for c in range(3)]
+    ok = {}
+    ok["stack: interior mean |Δ| < noise/3 in each channel"] = \
+        max(errs) < SURVEY_NOISE / 3
+    ok["stack: rays rejected"] = sres.total_rejected[1] > 0
+    ok[f"rows per block as planned for {SURVEY_PLANNED} frames"] = \
+        sres.rows_per_block == min(rows_planned, h)
+    ok["K1 launched once a block"] = sum(launches.values()) == sres.n_blocks
+    log(f"  stack vs scene: interior mean |Δ| {errs} (noise "
+        f"{SURVEY_NOISE})")
+    ok["plate solved"] = solve is not None and img.wcs is not None
+    if solve is not None:
+        inside = (stars["sx"] > 64) & (stars["sx"] < w - 64) & \
+            (stars["sy"] > 64) & (stars["sy"] < h - 64)
+        xg, yg = truth.world2pix(cat.ra[inside], cat.dec[inside])
+        xs, ys = solve.wcs.world2pix(cat.ra[inside], cat.dec[inside])
+        rms = float(np.sqrt(np.mean((xs - xg) ** 2 + (ys - yg) ** 2)))
+        log(f"  plate solution: scale {solve.scale_arcsec:.5f}″/px (truth "
+            f"{SKY_SCALE}), RMS against the truth over {int(inside.sum())} "
+            f"stars {rms:.4f} px (bound {SURVEY_WCS_TOL})")
+        ok["solution within bound of the truth"] = rms < SURVEY_WCS_TOL
+        ok["scale within 0.5 %"] = \
+            abs(solve.scale_arcsec / SKY_SCALE - 1.0) < 5e-3
+    ok["PCC applied"] = "PCC" in " ".join(img.history)
+    g = _star_gains(np.clip(out, 0, 1), img.host(), stars)
+    want_g = 1.0 / np.asarray(SURVEY_IMBALANCE)
+    gerr = np.abs(g / want_g - 1.0)
+    log(f"  pcc: gains R/G {g[0]:.4f} B/G {g[2]:.4f} against "
+        f"{want_g[0]:.4f} / {want_g[2]:.4f} (off {gerr[0]:.4f}, "
+        f"{gerr[2]:.4f}; bound {POST_GAIN_TOL})")
+    ok["PCC gains against the imbalance"] = gerr.max() <= POST_GAIN_TOL
+    ok["result finite, expected shape"] = \
+        bool(np.isfinite(img.host()).all()) and img.host().shape == (3, h, w)
+    del scene, want
+    held = []
+    for i in sorted(held_at):
+        if i >= len(calls) or calls[i] is None:
+            ok[f"block {i} captured"] = False
+            continue
+        a, kw, _ = calls[i]
+        r = held_at_call(f"the survey's block {i}", "winsorized/addscale",
+                         *a, kw)
+        held.append(r)
+        ok[f"block {i} bit-equal to the plain version"] = r["ok"]
+    calls.clear()
+    for k, good in ok.items():
+        log(f"  check {k}: {'ok' if good else 'FAILED'}")
+    if not all(ok.values()):
+        raise RuntimeError("survey checks failed")
+    return launches, held, dict(wall=wall, n_blocks=sres.n_blocks,
+                                rows=sres.rows_per_block, **sres.stage_s)
+
+
+def fused_frames(seed: int, n: int, size: int, route: str, dev):
+    """``n`` raw int16 frames of a star scene on the card and their warp
+    parameters in the fused step's layout: (n, 2) shifts (out(x) =
+    in(x − d)) or (n, 5) rotations (p, q, tx, ty, flip) about the centre,
+    with noise and hits; frame 0 is the reference."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sx, sy, amp = _star_field(rng, size, 4000)
+    scene = _render_torch(size, 0.1, sx, sy, amp, dev)
+    raw = torch.empty((n, size, size), dtype=torch.int16, device=dev)
+    c = (size - 1) / 2.0
+    if route == "shift":
+        par = rng.uniform(-FUSED_SHIFT, FUSED_SHIFT, (n, 2))
+        par[0] = 0.0
+    else:
+        # turned about the frame's centre c, then shifted a little
+        th = np.radians(rng.uniform(-FUSED_TURN_DEG, FUSED_TURN_DEG, n))
+        th[0] = 0.0
+        par = np.zeros((n, 5))
+        p, q = np.cos(th), np.sin(th)
+        par[:, 0], par[:, 1] = p, q
+        par[:, 2] = c - (p * c + q * c)
+        par[:, 3] = c - (-q * c + p * c)
+        par[1:, 2:4] += rng.uniform(-3, 3, (n - 1, 2))
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    for k in range(n):
+        if route == "shift":
+            fx, fy = sx - par[k, 0], sy - par[k, 1]
+        else:
+            # the rung samples the frame at R·u + t for the output pixel u
+            # (R = [[p, q], [−q, p]], index coordinates; a star at x lies
+            # on pixel x − 0.5), so the scene's star at u is there
+            p, q, tx, ty = par[k, :4]
+            ux, uy = sx - 0.5, sy - 0.5
+            fx = p * ux + q * uy + tx + 0.5
+            fy = -q * ux + p * uy + ty + 0.5
+        f = _render_torch(size, 0.1, fx, fy, amp, dev)
+        f += 0.01 * torch.randn(f.shape, generator=g, device=dev)
+        hits = torch.randint(0, size * size, (size * size // 4000,),
+                             generator=g, device=dev)
+        f.view(-1)[hits] = 1.0
+        raw[k] = (torch.round(f.clamp(0, 1) * 65535.0) - 32768.0).to(
+            torch.int16)
+    return scene, raw, torch.as_tensor(par, dtype=torch.float32,
+                                       device=dev)
+
+
+def phase_fused_step(seed: int, mesh, cpu_mesh, n: int = FRAMES,
+                     size: int = SIZE):
+    """``fused_pipeline_step`` through the world-1 mesh on ``n`` 16-bit
+    size² frames, the shift route and the rotation rung: the result
+    against the known scene, its K1 call held against the plain version
+    on the same inputs (held_at_call), and the card against the CPU on
+    the centre FUSED_CROP² of the same frames, the per-pixel rejection
+    counts of the two K1 calls there included.  Returns ({route:
+    launches}, rows, the held rows)."""
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch.kernels import reject_stack as k1
+    from siril_tpu_torch.ops import rejection as rj
+    from siril_tpu_torch.ops.normalization import ADDITIVE_SCALING
+    from siril_tpu_torch.parallel.sharding import (
+        fused_pipeline_step,
+        mesh_device,
+    )
+
+    dev = mesh_device(mesh)
+    launches, rows, ok, held = {}, {}, {}, []
+    for route in ("shift", "rotation"):
+        t = time.perf_counter()
+        scene, raw, par = fused_frames(seed + (81 if route == "shift"
+                                               else 82), n, size, route,
+                                       dev)
+        torch.cuda.synchronize()
+        log(f"  {route}: rendered {n} 16-bit {size}² frames on the card in "
+            f"{time.perf_counter() - t:.2f}s")
+        kw = dict(shift_warp=route == "shift", rot_warp=route == "rotation")
+        dark = torch.zeros((size, size), device=dev)
+        flat = torch.ones((size, size), device=dev)
+        step = fused_pipeline_step(mesh, rj.SIGMA, ADDITIVE_SCALING,
+                                   3.0, 3.0, n, size, size, **kw)
+        k1.reset_counts()
+        t = time.perf_counter()
+        with k1_calls() as calls:
+            mean, rl, rh = step(raw, par, dark, flat, 0)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches[route] = {k: v for k, v in k1.launches.items() if v}
+        out = mean.reshape(size, size).cpu().numpy()
+        m = 64
+        want = scene.cpu().numpy()
+        err = float(np.abs(out[m:-m, m:-m] - want[m:-m, m:-m]).mean())
+        log(f"  {route}: fused_pipeline_step {wall:.3f}s "
+            f"({wall / n * 1e3:.2f} ms a frame), K1 launches "
+            f"{launches[route]}, rejected {int(rl)}/{int(rh)}, interior "
+            f"mean |Δ| vs scene {err:.5f} (noise 0.01)")
+        ok[f"{route}: interior mean |Δ| < noise/3"] = err < 0.01 / 3
+        ok[f"{route}: rays rejected"] = int(rh) > 0
+        ok[f"{route}: K1 launched once"] = \
+            sum(launches[route].values()) == len(calls) == 1
+        # the step's K1 call on its own inputs against the plain version
+        a, ckw, _ = calls[0]
+        calls.clear()
+        r = held_at_call(f"the fused step's call, {route}", "sigma/addscale",
+                         *a, ckw)
+        held.append(r)
+        ok[f"{route}: its K1 call bit-equal to the plain version"] = r["ok"]
+        del a, ckw
+        # the card against the CPU on the centre crop of the same frames,
+        # and the two K1 calls' per-pixel counts there
+        a = (size - FUSED_CROP) // 2
+        crop = np.s_[:, a:a + FUSED_CROP, a:a + FUSED_CROP]
+        cstep = [fused_pipeline_step(msh, rj.SIGMA, ADDITIVE_SCALING,
+                                     3.0, 3.0, n, FUSED_CROP, FUSED_CROP,
+                                     **kw) for msh in (mesh, cpu_mesh)]
+        with k1_calls() as calls:
+            got = cstep[0](raw[crop].contiguous(), par, dark[crop[1:]]
+                           .contiguous(), flat[crop[1:]].contiguous(), 0)
+            cpu = cstep[1](raw[crop].cpu(), par.cpu(),
+                           dark[crop[1:]].cpu(), flat[crop[1:]].cpu(), 0)
+        (_, _, (_, gl, gh)), (_, _, (_, cl, ch)) = calls
+        calls.clear()
+        gl, gh = gl.cpu(), gh.cpu()
+        dm = (got[0].cpu() - cpu[0]).abs()
+        d = float(dm.max())
+        past = dm > FUSED_CPU_TOL
+        flips = int(past.sum())
+        flip_max = float(dm[past].max()) if flips else 0.0
+        counts_apart = (gl != cl) | (gh != ch)
+        totals = [(int(got[1]), int(got[2])), (int(cpu[1]), int(cpu[2]))]
+        log(f"  {route}: card vs CPU on {FUSED_CROP}² max |Δmean| {d:.3g}, "
+            f"{flips} pixels past {FUSED_CPU_TOL} (largest {flip_max:.3g}),"
+            f" {int(counts_apart.sum())} with other rejection counts "
+            f"({int(counts_apart[past].sum())} of them past it); "
+            f"rejections {totals[0][0]}/{totals[0][1]} vs "
+            f"{totals[1][0]}/{totals[1][1]}")
+        ok[f"{route}: the step's totals are its K1 call's counts"] = \
+            totals == [(int(gl.sum()), int(gh.sum())),
+                       (int(cl.sum()), int(ch.sum()))]
+        if route == "shift":
+            ok["shift: card vs CPU bit-equal, same counts at every pixel"] \
+                = d == 0.0 and not bool(counts_apart.any())
+        else:
+            ok[f"{route}: card vs CPU within {FUSED_CPU_TOL} but on "
+               f"{FUSED_FLIP_SHARE:.0e} of the pixels (clips flipped by "
+               f"FFT rounding)"] = flips <= FUSED_FLIP_SHARE * dm.numel()
+            ok[f"{route}: a flipped pixel's |Δmean| ≤ {FUSED_FLIP_MAX}"] = \
+                flip_max <= FUSED_FLIP_MAX
+            ok[f"{route}: the same rejection counts at every pixel within "
+               f"{FUSED_CPU_TOL}"] = not bool((counts_apart & ~past).any())
+        rows[f"{route} card vs CPU"] = dict(
+            max_abs=d, flips=flips, flip_max=flip_max,
+            counts_apart=int(counts_apart.sum()), totals=totals)
+        rows[route] = dict(seconds=wall, ms_per_frame=wall / n * 1e3,
+                           err=err)
+        del scene, raw, mean
+        torch.cuda.empty_cache()
+    for k, good in ok.items():
+        log(f"  check {k}: {'ok' if good else 'FAILED'}")
+    if not all(ok.values()):
+        raise RuntimeError("fused step checks failed")
+    return launches, rows, held
+
+
+def phase_multidevice(seed: int):
+    """The world-1 group and its meshes (the card's over NCCL, a CPU one
+    over gloo for the comparisons), then the config-5 chain and the
+    sharded fused step; the group is destroyed whatever happens."""
+    import torch.distributed as dist
+
+    from siril_tpu_torch.parallel.sharding import make_mesh
+
+    store = start_group()
+    try:
+        mesh = make_mesh(1, 1, device_type=CARD)
+        cpu_mesh = make_mesh(1, 1, device_type="cpu")
+        log(f"  process group: backend {dist.get_backend()}, world "
+            f"{dist.get_world_size()}; mesh {tuple(mesh.shape)} "
+            f"{mesh.mesh_dim_names} on {mesh.device_type}")
+        survey = phase_survey(seed, mesh)
+        fused = phase_fused_step(seed, mesh, cpu_mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return survey, fused
+
+
+# ---------------------------------------------------------------------------
+# live: live stacking, seqexport and the sequence and header commands
+# ---------------------------------------------------------------------------
+
+#: lights of the live stack: LIVE_DROPPED dropped into the watched
+#: directory by a thread, the rest through ``livestack <file>``
+LIVE_LIGHTS = 8
+LIVE_DROPPED = 5
+LIVE_POLL = 0.05
+#: pp_light frames exported (4 for the live phase's 20 s: PERF.md §4),
+#: and the crop (x, y, w, h)
+EXPORT_FRAMES = 4
+EXPORT_CROP = (1024, 768, 1536, 1280)
+EXPORT_FORMATS = ("fits", "fitseq", "ser", "tiff", "avi")
+#: the sequence commands' frames: float32 crops of the night's scene
+SEQCMD_SIZE = 2048
+SEQCMD_FRAMES = (8, 4)
+SEQCMD_SCRIPT = """requires 1.2.0
+load_seq a_
+select a_ 0 7
+unselect a_ 6 7
+setref a_ 3
+getref a_
+select b_ 0 3
+seqheader a_ EXPTIME
+sequpdate_key a_ OBSERVER chip_smoke
+sequpdate_key b_ GPSLAT 48.5
+seqgps b_
+seqheader b_ GPSLAT
+seqclean a_ -sel
+merge a_ b_ ab_
+stackall rej 3 3 -norm=addscale
+calibrate raw -bias=../process/bias_stacked -dark=../process/pp_dark_stacked -flat=../process/pp_flat_stacked -cc=dark
+calibrate_single raw_00001.fit -bias=../process/bias_stacked -dark=../process/pp_dark_stacked -flat=../process/pp_flat_stacked -cc=dark -prefix=single_
+mirrorx_single raw_00002
+jsonmetadata ab_00001.fit -out=meta.json
+load ab_00001
+dumpheader
+update_key FIELD m42
+parse out_$FIELD$_$EXPTIME:%d$s
+boxselect 10 20 300 400
+gps
+"""
+
+
+def live_lights(night: dict, seed: int, size: int, n: int, dev):
+    """``n`` raw 16-bit lights of the night's scene as synth_session makes
+    them (bias, dark with hot pixels, vignetting, noise, hits), shifted
+    by whole pixels (the live stacker's shift route rounds); light 0 is
+    the reference.  Returns the uint16 frames on the host and the
+    shifts."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    ar = torch.arange(size, device=dev, dtype=torch.float32)
+    yy, xx = torch.meshgrid(ar, ar, indexing="ij")
+    c = size / 2.0
+    vig = 1.0 - 0.3 * ((xx + 0.5 - c) ** 2 + (yy + 0.5 - c) ** 2) / \
+        (2 * c * c)
+    base = torch.as_tensor(night["bias"] + night["dark"], device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    out, shifts = [], [(0, 0)]
+    shifts += [tuple(int(v) for v in rng.integers(-12, 13, 2))
+               for _ in range(n - 1)]
+    for dx, dy in shifts:
+        f = base + vig * _render_torch(size, 0.1, night["sx"] + dx,
+                                       night["sy"] + dy, night["amp"], dev)
+        f += night["sigma_n"] * torch.randn(f.shape, generator=g,
+                                            device=dev)
+        hits = torch.randint(0, size * size, (size * size // 40000,),
+                             generator=g, device=dev)
+        f.view(-1)[hits] = 1.0
+        out.append(torch.round(f.clamp(0, 1) * 65535.0).to(torch.int32)
+                   .cpu().numpy().astype(np.uint16))
+    return out, shifts
+
+
+def _exported(path, fmt):
+    """The frames of an exported file, [0, 1] float (H, W) arrays."""
+    from siril_tpu_torch.io.avi import AviReader
+    from siril_tpu_torch.io.fits_io import image_hdus, read_fits
+    from siril_tpu_torch.io.image_formats import read_tiff
+    from siril_tpu_torch.io.ser import SerFile
+
+    if fmt == "fits":
+        return [read_fits(p).data[0] for p in path]
+    if fmt == "tiff":
+        return [read_tiff(p).data[0] for p in path]
+    p = path[0]
+    if fmt == "fitseq":
+        return [read_fits(p, i).data[0] for i in range(len(image_hdus(p)))]
+    if fmt == "ser":
+        f = SerFile(p)
+        return [f.read_frame(i).data[0] for i in range(f.frame_count)]
+    r = AviReader(p)
+    return [r.read_frame(i).data[0] for i in range(r.nframes)]
+
+
+def host_norm_estimators(f):
+    """The plain host reference of the stack's normalization estimators
+    (``ops.statistics.norm_estimators``; normalization.c:98-142) for one
+    frame, in numpy: the IKSSlite location (the median of the non-zero
+    finite pixels within 6 MAD of their median) and the biweight
+    midvariance scale, its sums in float64.  Returns (location, scale)."""
+    import numpy as np
+
+    x = f[(f != 0) & np.isfinite(f)].ravel()
+    med = np.median(x)
+    mad = np.median(np.abs(x - med))
+    w = x[(x >= med - 6.0 * np.float64(mad))
+          & (x <= med + 6.0 * np.float64(mad))]
+    loc = np.median(w)
+    d = w - loc
+    y2 = np.square(d / np.float32(9.0 * np.median(np.abs(d))))
+    np.minimum(y2, 1.0, out=y2)
+    om = 1.0 - y2
+    up = (d * om * om).astype(np.float64)
+    dn = np.sum(om * (1.0 - 5.0 * y2), dtype=np.float64)
+    return float(loc), float(np.sqrt(w.size * np.dot(up, up) / dn ** 2)
+                             * 0.991)
+
+
+def phase_live(seed: int, root: str, night: dict, size: int = SIZE):
+    """In the script phase's directory ``root``: live stacking of
+    LIVE_LIGHTS lights through start_ls / livestack / stop_ls with the
+    night's masters, against the known scene; seqexport of EXPORT_FRAMES
+    pp_light frames (shift-only registration in a .seq) to each of
+    EXPORT_FORMATS with -normalize -crop=, read back and held against
+    the frames, and -format=mp4 (OpenCV); then SEQCMD_SCRIPT's sequence
+    and header commands through -s, each result checked.  Returns
+    (stackall's K1 launches, rows)."""
+    import importlib.util
+    import logging as _logging
+    import threading
+
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch import cli
+    from siril_tpu_torch.cli.commands import COMMANDS
+    from siril_tpu_torch.cli.context import CommandError
+    from siril_tpu_torch.core.image import SirilImage
+    from siril_tpu_torch.core.sequence import Sequence
+    from siril_tpu_torch.io.fits_io import read_fits, write_fits
+    from siril_tpu_torch.io.seqfile import read_seqfile
+    from siril_tpu_torch.kernels import reject_stack as k1
+    from siril_tpu_torch.ops.normalization import (
+        ADDITIVE_SCALING,
+        compute_normalization,
+    )
+
+    dev = torch.device(CARD)
+    proc = os.path.join(root, "process")
+    ok, rows = {}, {}
+    # the plain host estimators of the reference and the last exported
+    # frame, on threads from the start (seqexport's coefficients from the
+    # card are held against them)
+    norm_held = (0, EXPORT_FRAMES - 1)
+    host_est = {}
+
+    def estimate(k):
+        host_est[k] = host_norm_estimators(read_fits(os.path.join(
+            proc, f"pp_light_{k + 1:05d}.fit")).data[0])
+
+    est_threads = [threading.Thread(target=estimate, args=(k,))
+                   for k in norm_held]
+    for th in est_threads:
+        th.start()
+    # --- live stacking ------------------------------------------------
+    live, extra, masters = (os.path.join(root, d) for d in
+                            ("live", "live_extra", "live_masters"))
+    for d in (live, extra, masters):
+        os.makedirs(d, exist_ok=True)
+    dark = read_fits(os.path.join(proc, "bias_stacked.fit")).data + \
+        read_fits(os.path.join(proc, "pp_dark_stacked.fit")).data
+    write_fits(SirilImage(data=dark.astype(np.float32)),
+               os.path.join(masters, "dark_bias.fit"), bitdepth=-32)
+    t = time.perf_counter()
+    lights, shifts = live_lights(night, seed + 91, size, LIVE_LIGHTS, dev)
+    for k in range(LIVE_DROPPED, LIVE_LIGHTS):
+        write_later(write_u16_fits,
+                    os.path.join(extra, f"light_{k + 1:05d}.fit"), lights[k])
+    writes_done()
+    log(f"  rendered {LIVE_LIGHTS} lights of {size}² in "
+        f"{time.perf_counter() - t:.2f}s, shifts {shifts}")
+    t = time.perf_counter()
+    session = cli.run(["-d", live, "start_ls", "-dark=../live_masters/"
+                       "dark_bias", "-flat=../process/pp_flat_stacked"])
+    ls = session.livestacker
+    ls.cfg.poll_s = LIVE_POLL
+
+    def drop(k):
+        p = os.path.join(live, f"light_{k + 1:05d}.fit")
+        write_u16_fits(p + ".part", lights[k])
+        os.replace(p + ".part", p)
+
+    def wait_for(count, timeout=120.0):
+        end = time.monotonic() + timeout
+        while ls.count + ls.failed < count and time.monotonic() < end:
+            time.sleep(0.01)
+
+    drop(0)
+    wait_for(1)
+    dropper = threading.Thread(target=lambda: [drop(k) for k in
+                                               range(1, LIVE_DROPPED)])
+    dropper.start()
+    dropper.join()
+    wait_for(LIVE_DROPPED)
+    for k in range(LIVE_DROPPED, LIVE_LIGHTS):
+        COMMANDS["livestack"].fn(session,
+                                 [f"../live_extra/light_{k + 1:05d}.fit"])
+    COMMANDS["stop_ls"].fn(session, [])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    res = read_fits(os.path.join(live, "live_stack_result.fit")).data[0]
+    m = 64
+    err = float(np.abs(res[m:-m, m:-m] - night["scene"][m:-m, m:-m]).mean())
+    ms = sorted(ls.frame_ms)
+    rows["live"] = dict(seconds=wall, frames=ls.count, failed=ls.failed,
+                        ms_per_frame=ms, median_ms=ms[len(ms) // 2])
+    log(f"  live stack: {ls.count} frames ({ls.failed} failed) in "
+        f"{wall:.2f}s; ms a frame (read to sum) {[round(v, 1) for v in ms]}"
+        f", median {ms[len(ms) // 2]:.1f}; interior mean |Δ| vs scene "
+        f"{err:.5f} (noise {night['sigma_n']})")
+    ok["live: every light stacked"] = (ls.count, ls.failed) == \
+        (LIVE_LIGHTS, 0)
+    ok["live: interior mean |Δ| < noise/3"] = err < night["sigma_n"] / 3
+    # --- seqexport ------------------------------------------------------
+    exp = os.path.join(root, "export")
+    os.makedirs(exp, exist_ok=True)
+    for i in range(EXPORT_FRAMES):
+        os.link(os.path.join(proc, f"pp_light_{i + 1:05d}.fit"),
+                os.path.join(exp, f"pp_light_{i + 1:05d}.fit"))
+    seq = Sequence.scan("pp_light_", exp)
+    rs = np.random.default_rng(seed + 92)
+    d = np.concatenate([[[0.0, 0.0]], rs.uniform(-6, 6, (EXPORT_FRAMES - 1,
+                                                           2))])
+    reg = seq.reg(0)
+    reg.H[:] = np.eye(3)
+    reg.H[:, :2, 2] = d
+    reg.valid[:] = True
+    seq.reference_image = 0
+    seq.save()
+    whole = np.rint(d).astype(int)
+    cx, cy, cw, ch = EXPORT_CROP
+    crop = ",".join(str(v) for v in EXPORT_CROP)
+    # what each exported frame should hold: the frame moved by its whole
+    # shift, x·scale − offset where x > 0 with the coefficients of the
+    # normalization (on the card, as the export takes them), cropped,
+    # clipped; within half a step of the written format
+    cseq = read_seqfile(os.path.join(exp, "pp_light_.seq"))
+    co = compute_normalization(cseq, np.arange(EXPORT_FRAMES),
+                               ADDITIVE_SCALING, device=CARD)
+    want = []
+    for k in range(EXPORT_FRAMES):
+        f = read_fits(os.path.join(exp, f"pp_light_{k + 1:05d}.fit")).data[0]
+        sx, sy = whole[k]
+        x = np.zeros_like(f)
+        h, w = x.shape
+        x[max(0, sy):min(h, h + sy), max(0, sx):min(w, w + sx)] = \
+            f[max(0, -sy):min(h, h - sy), max(0, -sx):min(w, w - sx)]
+        v = np.where(x > 0, x * np.float32(co.scale[0, k])
+                     - np.float32(co.offset[0, k]), x)
+        want.append(np.clip(v[cy:cy + ch, cx:cx + cw], 0.0, 1.0))
+    for fmt in EXPORT_FORMATS:
+        t = time.perf_counter()
+        COMMANDS["seqexport"].fn(cli.Session(cwd=exp, device=CARD), [
+            "pp_light_", f"out_{fmt}", f"-format={fmt}", "-normalize",
+            f"-crop={crop}"])
+        dt = time.perf_counter() - t
+        names = sorted(f for f in os.listdir(exp)
+                       if f.startswith(f"out_{fmt}"))
+        got = _exported([os.path.join(exp, f) for f in names], fmt)
+        step = 1 / 255 if fmt == "avi" else 1 / 65535
+        worst = max(float(np.abs(y - e).max()) / step
+                    for y, e in zip(got, want))
+        rows[f"seqexport {fmt}"] = dict(seconds=dt, frames=len(got),
+                                        worst_steps=worst)
+        log(f"  seqexport -format={fmt} -normalize -crop={crop}: {dt:.2f}s, "
+            f"{len(got)} frames of {got[0].shape if got else None}; "
+            f"against the shifted, normalized, cropped frames: largest "
+            f"|Δ| {worst:.4f} steps of 1/{round(1 / step)}")
+        ok[f"seqexport {fmt}: every frame, the crop's size"] = \
+            len(got) == EXPORT_FRAMES and got[0].shape == (ch, cw)
+        ok[f"seqexport {fmt}: within half a step of the frames"] = \
+            worst <= 0.5 + 0.02
+    for th in est_threads:
+        th.join()
+    (l0, s0), (lk, sk) = (host_est[k] for k in norm_held)
+    k = norm_held[1]
+    card_est = [cseq.get_frame_stats(0, i) for i in norm_held]
+    est_err = max(max(abs(st.location / hl - 1.0), abs(st.scale / hs - 1.0))
+                  for st, (hl, hs) in zip(card_est, (host_est[i] for i in
+                                                     norm_held)))
+    scale_k = s0 / sk
+    co_err = (abs(co.scale[0, k] / scale_k - 1.0),
+              abs(co.offset[0, k] - (scale_k * lk - l0)))
+    log(f"  seqexport's normalization on the card against the host "
+        f"estimators of frames {norm_held}: estimators within "
+        f"{est_err:.3g} (relative), frame {k}'s scale within "
+        f"{co_err[0]:.3g} (relative), offset within {co_err[1]:.3g}")
+    ok["seqexport: the card's estimators within 1e-5 of the host's"] = \
+        est_err <= 1e-5
+    ok["seqexport: the card's coefficients within 2e-5 of the host's"] = \
+        bool(max(co_err) <= 2e-5)
+    have_cv2 = importlib.util.find_spec("cv2") is not None
+    try:
+        COMMANDS["seqexport"].fn(cli.Session(cwd=exp, device=CARD), [
+            "pp_light_", "out_mp4", "-format=mp4"])
+        ok["seqexport mp4 (OpenCV installed)"] = have_cv2 and \
+            os.path.exists(os.path.join(exp, "out_mp4.mp4"))
+    except RuntimeError as e:
+        log(f"  seqexport -format=mp4: {e}")
+        ok["seqexport mp4 without OpenCV: the error names cv2"] = \
+            not have_cv2 and "cv2" in str(e) and \
+            not any(f.startswith("out_mp4") for f in os.listdir(exp))
+    # --- the sequence and header commands -------------------------------
+    sd = os.path.join(root, "seqcmds")
+    os.makedirs(sd, exist_ok=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 93)
+    scene = night["scene"][:SEQCMD_SIZE, :SEQCMD_SIZE]
+    st = torch.as_tensor(scene, device=dev)
+    for name, count in zip(("a_", "b_"), SEQCMD_FRAMES):
+        for i in range(count):
+            f = st + night["sigma_n"] * torch.randn(st.shape, generator=g,
+                                                    device=dev)
+            hits = torch.randint(0, st.numel(), (st.numel() // 4000,),
+                                 generator=g, device=dev)
+            f.view(-1)[hits] = 1.0
+            write_later(write_f32_fits, os.path.join(
+                sd, f"{name}{i + 1:05d}.fit"), f.clamp(0, 1).cpu().numpy())
+    for i in (1, 2):
+        shutil.copy(os.path.join(root, "lights", f"light_{i:05d}.fit"),
+                    os.path.join(sd, f"raw_{i:05d}.fit"))
+    writes_done()
+    before = read_fits(os.path.join(sd, "raw_00002.fit")).data
+    with open(os.path.join(sd, "seqcmds.ssf"), "w") as f:
+        f.write(SEQCMD_SCRIPT)
+    lines = []
+
+    class Keep(_logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    keep = Keep(_logging.INFO)
+    lg = _logging.getLogger("siril_tpu_torch.cli")
+    lg.addHandler(keep)
+    level = lg.level
+    lg.setLevel(_logging.INFO)
+    k1.reset_counts()
+    t = time.perf_counter()
+    try:
+        session = cli.run(["-d", sd, "-s", os.path.join(sd, "seqcmds.ssf")])
+        torch.cuda.synchronize()
+    finally:
+        lg.removeHandler(keep)
+        lg.setLevel(level)
+    wall = time.perf_counter() - t
+    launches = {k: v for k, v in k1.launches.items() if v}
+    _log_rows(session, rows)
+    log(f"  the sequence and header commands: {wall:.2f}s, K1 launches "
+        f"{launches}")
+    a_ = read_seqfile(os.path.join(sd, "a_.seq"))
+    ab = read_seqfile(os.path.join(sd, "ab_.seq"))
+    kw_a = read_fits(os.path.join(sd, "a_00003.fit")).keywords
+    kw_b = read_fits(os.path.join(sd, "b_00002.fit")).keywords
+    stacks = {n: read_fits(os.path.join(sd, f"{n}stacked.fit"))
+              for n in ("a_", "b_", "ab_")}
+    mm = 48
+    serr = float(np.abs(stacks["ab_"].data[0][mm:-mm, mm:-mm]
+                        - scene[mm:-mm, mm:-mm]).mean())
+    pp = read_fits(os.path.join(sd, "pp_raw_00001.fit")).data
+    single = read_fits(os.path.join(sd, "single_raw_00001.fit")).data
+    after = read_fits(os.path.join(sd, "raw_00002.fit")).data
+    meta = json.load(open(os.path.join(sd, "meta.json")))
+    log(f"  ab_ stack vs scene: interior mean |Δ| {serr:.5f}; stack counts "
+        f"{ {n: s.keywords.stackcnt for n, s in stacks.items()} }; "
+        f"calibrate_single vs calibrate max |Δ| "
+        f"{float(np.abs(single - pp).max()):.3g}")
+    checks = {
+        "getref logs frame 3": "reference image of sequence: 3" in lines,
+        "a_.seq: reference 3, every frame selected after seqclean -sel":
+            a_.reference_image == 2 and bool(a_.incl.all()),
+        "merge: 12 frames in ab_": ab.number == 12,
+        "sequpdate_key wrote OBSERVER":
+            kw_a.observer == "chip_smoke" or
+            kw_a.extra.get("OBSERVER") == "chip_smoke",
+        "sequpdate_key wrote GPSLAT": kw_b.extra.get("GPSLAT") == 48.5,
+        "seqgps counted b_'s frames": "seqgps: GPS data in 4/4 frames"
+        in lines,
+        "seqheader logged every selected frame":
+            sum(1 for s in lines if s.split("\t")[0].isdigit()) == 6 + 4,
+        "stackall: a stack of each sequence": [
+            stacks[n].keywords.stackcnt for n in ("a_", "b_", "ab_")] ==
+            [8, 4, 12],
+        "stackall: ab_ within noise/3 of the scene":
+            serr < night["sigma_n"] / 3,
+        "stackall launched K1 for each sequence":
+            sum(launches.values()) >= 3,
+        "calibrate_single equals calibrate": bool(np.array_equal(single,
+                                                                 pp)),
+        "mirrorx_single flipped the file": bool(np.array_equal(
+            after, before[:, ::-1, :])),
+        "jsonmetadata": (meta["width"], meta["height"], meta["channels"],
+                         len(meta["statistics"])) ==
+            (SEQCMD_SIZE, SEQCMD_SIZE, 1, 1),
+        "dumpheader": any(s.startswith("NAXIS1  =") for s in lines),
+        "update_key + parse": "out_m42_60s" in lines,
+        "boxselect": session.selection == (10, 20, 300, 400),
+        "gps": "No GPS data found in this image" in lines,
+    }
+    try:
+        COMMANDS["seqstarnet"].fn(session, ["a_"])
+        checks["seqstarnet raises"] = False
+    except CommandError as e:
+        checks["seqstarnet raises"] = "StarNet" in str(e)
+    ok.update(checks)
+    rows["seqcmds"] = dict(seconds=wall, launches=launches)
+    for k, good in ok.items():
+        log(f"  check {k}: {'ok' if good else 'FAILED'}")
+    if not all(ok.values()):
+        raise RuntimeError("live checks failed")
+    for d in (live, extra, masters, exp, sd):
+        shutil.rmtree(d, ignore_errors=True)
+    return launches, rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6300,6 +7256,10 @@ def main(argv=None) -> int:
         stack_launches, _ = phase_stack(args.seed)
         _, stack100 = phase_stack(args.seed + 1, STACK100, SIZE100,
                                   STACK100_RUNS)
+    with Phase("multidevice"):
+        survey, fused = phase_multidevice(args.seed)
+        survey_launches, survey_held, _ = survey
+        fused_launches, _, fused_held = fused
     # the script phase's directory stays for the drizzle and formats
     # phases, the osc phase's for the drizzle phase
     osc_root = tempfile.mkdtemp(prefix="chip_smoke_osc_")
@@ -6318,13 +7278,15 @@ def main(argv=None) -> int:
         shutil.rmtree(osc_root, ignore_errors=True)
         with Phase("astrometry"):
             phase_astrometry(args.seed, script_root, night)
-        del night
         with Phase("analysis"):
             phase_analysis(args.seed)
         with Phase("planetary"):
             phase_planetary(args.seed)
         with Phase("formats"):
             formats_launches, _, _ = phase_formats(args.seed, script_root)
+        with Phase("live"):
+            stackall_launches, _ = phase_live(args.seed, script_root, night)
+        del night
     finally:
         shutil.rmtree(osc_root, ignore_errors=True)
         shutil.rmtree(script_root, ignore_errors=True)
@@ -6350,7 +7312,19 @@ def main(argv=None) -> int:
                **{p: c["K1a"] for p, c in script_launches.items()},
                "osc script": osc_launches["K1a"],
                **{p: c.get("K1a", 0) for p, c in {
-                   **drizzle_launches, **formats_launches}.items()}}
+                   **drizzle_launches, **formats_launches}.items()},
+               "survey (sharded)": survey_launches.get("K1a", 0),
+               "fused step (sharded)": sum(
+                   c.get("K1a", 0) for c in fused_launches.values()),
+               "stackall": stackall_launches.get("K1a", 0)}
+    # the multi-device paths' frame counts keep them on the register path
+    col = survey_launches.get("K1col", 0) + stackall_launches.get(
+        "K1col", 0) + sum(c.get("K1col", 0) for c in fused_launches.values())
+    if col:
+        raise RuntimeError(f"the multi-device paths launched K1col {col} "
+                           f"times; its rows count only the stack commands")
+    k1a["other_sizes"] = k1a.get("other_sizes", []) + survey_held + \
+        fused_held
     kernels = [dict(name="reject_stack (K1a)",
                     launches=sum(by_path.values()),
                     launches_by_path=by_path, replaces=f"{tpu}:763", **k1a)]

@@ -2,7 +2,8 @@
 one card, in one call.
 
     python3 scripts/phase_times.py --root DIR [--root DIR ...] \\
-        --phases k1a,k1[,k1col,planetary,camera] [--seed 0] [--repeat 2]
+        --phases k1a,k1[,k1col,planetary,camera,multidevice,live] \\
+        [--seed 0] [--repeat 2]
 
 Each root (a checkout holding ``chip_smoke.py`` and ``siril_tpu_torch/``,
 e.g. the parent commit unpacked by ``git archive`` into a gitignored
@@ -11,7 +12,9 @@ the card phase, then the phases asked for, each timed by ``chip_smoke``'s
 ``Phase`` lines.  With ``--repeat 2`` the roots run in the order A, B, B,
 A (parent, change, change, parent), so that a drift of the host shows.
 ``camera`` runs the formats phase's camera-raw and save-command parts
-(``formats_start``, ``formats_raw``) in a directory of their own.
+(``formats_start``, ``formats_raw``) in a directory of their own;
+``live`` runs the script phase first, in directories of its own, and
+also reports its own seconds without it.
 Each run prints one JSON line ``{"root": …, "phase": seconds, …}``; the
 CUDA source builds at its first use in each root.
 """
@@ -44,9 +47,22 @@ def camera(seed):
         pool.join()
         shutil.rmtree(d, ignore_errors=True)
 
+def live(seed):
+    osc, root = tempfile.mkdtemp(), tempfile.mkdtemp()
+    try:
+        night = cs.phase_script(seed, osc, root)[3]
+        t = time.perf_counter()
+        with cs.Phase("live"):
+            cs.phase_live(seed, root, night)
+        return time.perf_counter() - t
+    finally:
+        shutil.rmtree(osc, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+
 PHASES = {"k1a": lambda s: cs.phase_k1a(s), "k1": lambda s: cs.phase_k1(s),
           "k1col": lambda s: cs.phase_k1col(s),
-          "planetary": lambda s: cs.phase_planetary(s), "camera": camera}
+          "planetary": lambda s: cs.phase_planetary(s), "camera": camera,
+          "multidevice": lambda s: cs.phase_multidevice(s), "live": live}
 
 if __name__ == "__main__":
     seed = int(sys.argv[1])
@@ -56,8 +72,10 @@ if __name__ == "__main__":
     for name in sys.argv[2].split(","):
         t = time.perf_counter()
         with cs.Phase(name):
-            PHASES[name](seed)
+            inner = PHASES[name](seed)
         out[name] = time.perf_counter() - t
+        if name == "live":
+            out["live (without the script phase)"] = inner
     print(json.dumps(out), flush=True)
 """
 

@@ -19,7 +19,10 @@ BITPIX 8, 16, 32, −32 and −64 with tiled compression (``io/fits_io.py``,
 ``io/fits_compress.py``, ``native/``), SER videos and FITS cubes
 (``io/ser.py``, ``core/sequence.py``); and later slices (ROADMAP):
 astrometry, the post-stack, enhancement and analysis sessions, the
-planetary session (``planetary/``, ``registration/shift.py``) and the
+planetary session (``planetary/``, ``registration/shift.py``), the
 image formats for ``convert`` (camera raw, DNG, XISF, IRIS ``.pic``,
-TIFF / PNG / BMP / PNM in ``io/image_formats.py``).
+TIFF / PNG / BMP / PNM in ``io/image_formats.py``), multi-device
+stacking over ``torch.distributed`` (``parallel/``), live stacking
+(``livestacking/``), the sequence export and the sequence and header
+commands (``cli/sequence.py``).
 """

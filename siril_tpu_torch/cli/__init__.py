@@ -17,16 +17,21 @@ mask_autostretch, mask_bitpix, mask_feather, mask_fmul, clear_mask) and
 seqfixbanding, seqrl, seqwiener, seqsb, seqdenoise, seqatrous; the
 analysis session (``cli/analysis.py``); the planetary session
 (``cli/planetary.py``: seqquality, mpp, register_mpp, stack_mpp, and
-``rgbcomp -align``) and the image formats (``cli/formats.py``:
+``rgbcomp -align``), the image formats (``cli/formats.py``:
 convertraw, savetif, savetif8, savetif32, savepng, savejpg, savejxl,
-savebmp, savepnm).
+savebmp, savepnm) and the sequence, header, live-stacking and export
+commands (``cli/sequence.py``: load_seq, select, unselect, setref,
+getref, seqclean, merge, stackall, seqheader, update_key, sequpdate_key,
+dumpheader, jsonmetadata, gps, seqgps, parse, boxselect,
+calibrate_single, mirrorx_single, seqstarnet, start_ls, livestack,
+stop_ls, seqexport).
 
     python -m siril_tpu_torch.cli [-d dir] [--device cuda|cpu] \\
         -s script.ssf
     python -m siril_tpu_torch.cli [-d dir] [--device cuda|cpu] command …
 
-Runs on CUDA unless ``--device cpu`` is given.  The other commands of the
-reference's table are not ported yet (ROADMAP §1.7, the surfaces).
+Runs on CUDA unless ``--device cpu`` is given.  The session commands of
+the reference's table are not ported yet (ROADMAP §1.7, the surfaces).
 """
 
 from __future__ import annotations
@@ -83,7 +88,12 @@ def run(argv: Optional[List[str]] = None) -> Session:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    from siril_tpu_torch.core.processing import install_sigint_handler
+
     logging.basicConfig(level=logging.INFO, format="%(message)s")
+    # Ctrl-C requests a stop: the stack, the sequence engine, the survey
+    # and the live stacker end at their next poll (a second one quits)
+    install_sigint_handler()
     try:
         run(argv)
     except CommandError as e:

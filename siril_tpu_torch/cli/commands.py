@@ -2708,3 +2708,4 @@ def cmd_seqatrous(ctx: Session, args: List[str]) -> None:
 from siril_tpu_torch.cli import analysis  # noqa: E402,F401  isort:skip
 from siril_tpu_torch.cli import formats  # noqa: E402,F401  isort:skip
 from siril_tpu_torch.cli import planetary  # noqa: E402,F401  isort:skip
+from siril_tpu_torch.cli import sequence  # noqa: E402,F401  isort:skip

@@ -6,7 +6,8 @@ FITS compression of ``save`` (``setcompress``), whether remote catalogues
 may be queried (``online``), the photometry settings (``setphot``), the
 magnitude offset (``catmag``, ``setmag``), the 16-bit mode
 (``set16bits``), the star list of ``findstar``, the loaded image and its
-name, the current sequence and the last result of a headless run.
+name, the current sequence, the last result of a headless run and the
+live stacker of ``start_ls``.
 (The reference's undo stack is not ported: ROADMAP §1.7, the surfaces.)
 """
 
@@ -70,6 +71,8 @@ class Session:
     stages: dict = field(default_factory=dict)
     #: one entry per script command: words, seconds, K1 launches, stages
     command_log: List[dict] = field(default_factory=list)
+    #: ``start_ls``'s running LiveStacker, until ``stop_ls``
+    livestacker: Optional[object] = None
 
     def require_image(self) -> SirilImage:
         if self.image is None:

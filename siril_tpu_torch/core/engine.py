@@ -16,8 +16,10 @@ frame's own fault: too few stars to match, no exposure to scale the
 dark by), is left out of the output and unselected in the input
 (processing.h:100-102).  An exception from a hook is never taken for a
 frame's fault: it stops the run, whatever raised it (the device, a
-library, the code).  Cancellation (``core/processing.py``) is not
-ported: a run goes to its end or raises.
+library, the code).  A stop request (``core/processing.py``) is polled
+between frames (engine.py:138-144): the frames done are written, the
+run's input keeps its selection, and ``ProcessingCancelled`` is raised
+(engine.py:192-193).
 """
 
 from __future__ import annotations
@@ -31,6 +33,10 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
+from siril_tpu_torch.core.processing import (
+    ProcessingCancelled,
+    processing_should_continue,
+)
 from siril_tpu_torch.core.sequence import Sequence
 
 _log = logging.getLogger(__name__)
@@ -148,9 +154,13 @@ def run_sequence(args: SeqArgs) -> SeqResult:
         pool.shutdown(wait=False)
         writer.close()
 
+    cancelled = False
     try:
         for pos in range(n):
             idx = int(indices[pos])
+            if not processing_should_continue():
+                cancelled = True
+                break
             t = time.perf_counter()
             try:
                 img = futures.pop(pos).result()
@@ -174,10 +184,14 @@ def run_sequence(args: SeqArgs) -> SeqResult:
     except BaseException:
         abort()
         raise
-    pool.shutdown(wait=True)
+    pool.shutdown(wait=True, cancel_futures=cancelled)
     t = time.perf_counter()
     writer.close()
     add("write wait", t)
+    if cancelled:
+        _log.error("%s: cancelled after %d/%d frames", args.description,
+                   res.processed, n)
+        raise ProcessingCancelled(args.description)
     if writer.errors:
         _log.error("%s: write errors: %s", args.description,
                    writer.errors[:3])

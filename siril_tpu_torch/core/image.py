@@ -6,7 +6,9 @@ plate solution (``wcs``: an ``ops.wcs.WCS`` or None, shared by copies as
 in the JAX package, ``core/image.py:119, 186-198``), and the mask that
 the image ops blend their result through (``mask``, ``mask_active``,
 ``apply_mask_blend``: ``core/image.py:117-118, 207-216``), and the
-embedded ICC profile (``icc_profile``, ``core/image.py:122``).  Pixel data is
+embedded ICC profile (``icc_profile``, ``core/image.py:122``) and the
+source FITS header (``fits_header``; the JAX package keeps its text,
+``header_text``, ``core/image.py:115``).  Pixel data is
 a planar (C, H, W) float32 numpy array in Siril's [0, 1] convention.
 """
 
@@ -84,6 +86,9 @@ class SirilImage:
     #: the raw bytes of an embedded ICC profile (ffit.icc_profile), kept
     #: by copies and written as the FITS ``ICCProfile`` extension
     icc_profile: Optional[bytes] = None
+    #: the source file's parsed FITS header (an ``io.fits_io.Header``),
+    #: formatted only by ``dumpheader``; shared by copies
+    fits_header: Optional[Any] = None
 
     @property
     def nchans(self) -> int:
@@ -131,7 +136,8 @@ class SirilImage:
                           mask=None if self.mask is None
                           else np.array(self.mask),
                           mask_active=self.mask_active,
-                          icc_profile=self.icc_profile)
+                          icc_profile=self.icc_profile,
+                          fits_header=self.fits_header)
 
     def log_history(self, msg: str) -> None:
         self.history.append(msg)

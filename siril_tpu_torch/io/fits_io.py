@@ -91,6 +91,11 @@ class Header:
     def row_order(self) -> str:
         return str(self.get("ROWORDER", "BOTTOM-UP") or "BOTTOM-UP").upper()
 
+    def text(self) -> str:
+        """The cards as lines (``dumpheader``)."""
+        return "\n".join(_format_card(k, v, c).rstrip()
+                         for k, v, c in self.cards)
+
 
 def _parse_header_block(buf: bytes) -> Tuple[Header, bool]:
     cards = []
@@ -370,7 +375,7 @@ def _read_zimage(path, h: HDUInfo) -> SirilImage:
     return _with_wcs(SirilImage(
         data=data, keywords=kw,
         orig_bitdepth=zbitpix if zbitpix != 16 else USHORT_IMG,
-        history=h.header.history()), h.header)
+        history=h.header.history(), fits_header=h.header), h.header)
 
 
 def read_fits(path: Union[str, os.PathLike], hdu_index: int = 0
@@ -396,7 +401,7 @@ def read_fits(path: Union[str, os.PathLike], hdu_index: int = 0
         data=np.ascontiguousarray(data, dtype=np.float32),
         keywords=header_to_keywords(h.header),
         orig_bitdepth=h.bitpix if h.bitpix != 16 else USHORT_IMG,
-        history=h.header.history()), h.header)
+        history=h.header.history(), fits_header=h.header), h.header)
     img.icc_profile = _icc_from_hdus(path, every)
     return img
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from siril_tpu_torch.core.image import FLOAT_IMG, SirilImage
+from siril_tpu_torch.core.processing import check_cancelled
 from siril_tpu_torch.core.sequence import SEQ_FITSEQ, SEQ_REGULAR
 from siril_tpu_torch.device import DeviceLike, resolve_device, synchronize
 from siril_tpu_torch.ops import rejection as rj
@@ -543,6 +544,7 @@ def _streamed_stack(seq, args, indices, dev, clock, L, H, W) -> StackResult:
     try:
         nxt = pool.submit(assemble, blocks[0])
         for bi, (c, y0, y1) in enumerate(blocks):
+            check_cancelled("stacking")    # processing.h:260 between blocks
             with clock("read"):
                 buf = nxt.result()
             if bi + 1 < len(blocks):

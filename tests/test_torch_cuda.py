@@ -1221,3 +1221,51 @@ def test_native_raw_decoders_on_card_machine():
     pb = rng.integers(0, 256, 0x4000).astype(np.uint8).tobytes()
     assert np.array_equal(native.decode_panasonic(pb, 70, 64),
                           rawfile._pana_bits_decode_py(pb, 70, 64))
+
+
+@pytest.mark.cuda
+def test_survey_nccl_world1_on_card(monkeypatch):
+    """A world-1 NCCL group: ``survey_stack_sharded`` on the card launches
+    K1 once a row block, each launch bit-equal to ``reject_stack_plain``
+    on its inputs, and the whole stack equal to the same survey over the
+    group's gloo side on the CPU."""
+    _need_card()
+    import tempfile
+
+    import torch.distributed as dist
+
+    from siril_tpu_torch.kernels import reject_stack as k1
+    from siril_tpu_torch.parallel.sharding import make_mesh
+    from siril_tpu_torch.parallel.survey import survey_stack_sharded
+    from tests.test_torch_parallel import survey_reader
+
+    d = tempfile.mkdtemp()
+    dist.init_process_group("cuda:nccl,cpu:gloo",
+                            init_method=f"file://{d}/store", world_size=1,
+                            rank=0)
+    try:
+        calls, orig = [], k1.reject_mean
+
+        def spy(*a, **kw):
+            out = orig(*a, **kw)
+            calls.append((a, kw, out))
+            return out
+
+        monkeypatch.setattr(k1, "reject_mean", spy)
+        n, L, H, W = 6, 1, 64, 67
+        runs = {}
+        for kind in ("cuda", "cpu"):
+            runs[kind] = survey_stack_sharded(
+                survey_reader(n, H, W), n, L, H, W,
+                make_mesh(1, 1, device_type=kind), rj.WINSORIZED,
+                ADDITIVE_SCALING, budget_bytes_per_dev=6 * 67 * 16 * 20)
+        card = [c for c in calls if c[0][0].is_cuda]
+        assert runs["cuda"].n_blocks == 4 and len(card) == 4
+        for a, kw, out in card:
+            ref = reject_stack_plain(*a, **kw)
+            for got, want in zip(out, ref):
+                assert torch.equal(got, want)
+        np.testing.assert_array_equal(runs["cuda"].data, runs["cpu"].data)
+        assert runs["cuda"].total_rejected == runs["cpu"].total_rejected
+    finally:
+        dist.destroy_process_group()

@@ -263,6 +263,37 @@ def _true_H(th, s, dx, dy, c):
     return np.linalg.inv(F)
 
 
+#: ulps of CLAMPING_FACTOR · guide within which the lanczos4 clamp's
+#: comparison is a tie: the packages' float32 sums and sines part by up
+#: to 1.2e-7 (1-2 ulps at the sky's 0.09), so there the two can decide
+#: the mask either way
+CLAMP_TIE_ULPS = 2
+
+
+def _clamp_split(data, H):
+    """The port's branches of its lanczos4 warp of ``data`` by ``H`` (the
+    unclamped lanczos4 samples, the bilinear guide) and the clamp's tie
+    zone: the 3 × 3 dilation of the pixels where ``out < 0.98 · guide``
+    is within CLAMP_TIE_ULPS ulps."""
+    from siril_tpu_torch.ops.interp import (
+        CLAMPING_FACTOR,
+        INTERP_BILINEAR,
+        INTERP_LANCZOS4,
+        _dilate3,
+        warp_homography,
+    )
+
+    x = torch.from_numpy(data)
+    out = warp_homography(x, H, data.shape[1:], INTERP_LANCZOS4,
+                          clamp=False).numpy()
+    guide = warp_homography(x, H, data.shape[1:], INTERP_BILINEAR,
+                            clamp=False).numpy()
+    bound = np.float32(CLAMPING_FACTOR) * guide
+    tie = (np.abs(out - bound) <= CLAMP_TIE_ULPS * np.spacing(bound)) & \
+        (bound > 0)
+    return out, guide, _dilate3(torch.from_numpy(tie)).numpy()
+
+
 def test_masters_script_registration(masters):
     """Both packages' homographies within 0.2 px of the true transforms
     at the corners, and of each other: on this 256² field a full
@@ -271,7 +302,9 @@ def test_masters_script_registration(masters):
     more or less in a list (the faint fits, ROADMAP §3 fault 4) moves the
     fit by as much.  (The mono script holds them to 0.01 px.)  The warp of
     the script: the port's gather warp of the frames the JAX package
-    warped, by its H, within 2e-6 of its output."""
+    warped, by its H, within 2e-6 of its output, but in the clamp's tie
+    zone within 2e-6 of one of the port's two branches (the lanczos4
+    value or the bilinear guide: test_masters_script_clamp_ties)."""
     from siril_tpu_torch.ops.interp import warp_homography
 
     jdir, tdir, made, *_ = masters
@@ -288,7 +321,37 @@ def test_masters_script_registration(masters):
     for data, H, want in made["jax_warps"]:
         got = warp_homography(torch.from_numpy(data), H,
                               data.shape[1:]).numpy()
-        np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+        out, guide, tie = _clamp_split(data, H)
+        np.testing.assert_allclose(got[~tie], want[~tie], rtol=0, atol=2e-6)
+        branch = np.minimum(np.abs(want - out), np.abs(want - guide))
+        assert (branch[tie] <= 2e-6).all()
+
+
+def test_masters_script_clamp_ties(masters):
+    """A recorded departure (ROADMAP §3): on this night the lanczos4
+    clamp's comparison ``out < 0.98 · guide`` is a float32 tie at some
+    pixels, and the two packages decide it differently, so the port's
+    warp parts from the JAX package's by the whole lanczos-to-bilinear
+    step there (1.4e-3 at 2 of 65536 pixels of the first frame).  Held:
+    it happens (the departure stays visible), only in the tie zone, at
+    few pixels, and the JAX package's value there is one of the port's
+    two branches within 2e-6 — a branch taken the other way, no other
+    error."""
+    from siril_tpu_torch.ops.interp import warp_homography
+
+    _, _, made, *_ = masters
+    parted = 0
+    for data, H, want in made["jax_warps"]:
+        got = warp_homography(torch.from_numpy(data), H,
+                              data.shape[1:]).numpy()
+        out, guide, tie = _clamp_split(data, H)
+        far = np.abs(got - want) > 2e-6
+        assert not (far & ~tie).any()
+        assert far.sum() <= 9 * 4
+        assert (np.minimum(np.abs(want - out), np.abs(want - guide))[far]
+                <= 2e-6).all()
+        parted += int(far.sum())
+    assert parted > 0
 
 
 def test_masters_script_result(masters):
