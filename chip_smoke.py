@@ -258,7 +258,25 @@ Phases, each printing a flushed start and end line with elapsed seconds:
               merge, stackall (K1a once a sequence), calibrate_single
               against calibrate, mirrorx_single, jsonmetadata, load,
               dumpheader, update_key, parse, boxselect, gps, each result
-              checked, and seqstarnet's refusal.
+              checked, and seqstarnet's refusal;
+  session — last, the session surface at full width: the ``-p`` pipe
+              driven in process (``cli.pipe_loop``) on SESSION_LIGHTS
+              16-bit SIZE² lights made on the card and a SIZE² RGB
+              image: setmem, get -a, load / mirrorx / undo / redo (ms per
+              undo point), seqcrop (its ``progress:`` lines), fusedstack
+              against the scene as the fusedstack phase checks, a stack
+              cancelled at its first row block by the pipe's ``cancel``
+              and the next command succeeding, pyscript (PYSCRIPT: the
+              RGB image read and written back through shared memory, ms
+              per crossing, a stack through ``siril.cmd``, no jax,
+              siril_tpu or torch in the script's process), precompile
+              finding the library built, each ``status:`` line; the
+              compute probe's ladder (PROBE_STAGES, n = PROBE_N, SIZE²,
+              PROBE_ITERS iterations), Mpix/s per stage, no stage failed,
+              its K1a call held against the plain version
+              (held_at_call); one fusedstack under the torch.profiler
+              trace (``utils/trace``): the K1 kernel among its CUDA
+              kernels and the device's busy share over the window.
 Then a JSON line describing every kernel, the card line, and last the
 result line.  Any failure exits non-zero without a result line.  The script
 needs CUDA and the repository beside it; it imports nothing of JAX.
@@ -316,7 +334,7 @@ close
 # the osc phase: Siril's one-shot-colour preprocessing script
 # (OSC_Preprocessing.ssf) up to its stack, on the script phase's biases and
 # darks and a colour night's flats and lights (the reference script then
-# mirrors and saves the result, image-op commands not ported yet); 16
+# mirrors and saves the result, left out here); 16
 # lights at first, cut to 12 to make room for the astrometry phase and to
 # 8 for the enhance phase (the checks' tolerances scale with the count)
 OSC_LIGHTS = 8
@@ -5329,7 +5347,7 @@ def phase_mosaic(seed: int, size: int = SIZE,
         FRAMING_MAX,
         compute_framing,
     )
-    from siril_tpu_torch.utils.devmem import MEMORY_RATIO
+    from siril_tpu_torch.core.settings import get_settings
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mosaic_")
     try:
@@ -5422,9 +5440,9 @@ def phase_mosaic(seed: int, size: int = SIZE,
                     f"{sigma_n}); interior mean |Δ| against tile 1's level "
                     f"and gain {err:.5f}")
                 # the streamed stack's row blocks (the budget the stack
-                # command sets: 2048 MB × MEMORY_RATIO)
+                # command sets: 2048 MB × the setmem ratio)
                 rows_per = plan_blocks(out_h, out_w, 4, max(int(
-                    2048 * min(MEMORY_RATIO, 4.0)), 128))
+                    2048 * min(get_settings().memory_ratio, 4.0)), 128))
                 blocks = -(-out_h // rows_per)
                 log(f"    K1e launches {runs[cmd]['K1e']}: one a block of "
                     f"{rows_per} rows")
@@ -7218,6 +7236,298 @@ def phase_live(seed: int, root: str, night: dict, size: int = SIZE):
     return launches, rows
 
 
+SESSION_LIGHTS = 8
+#: the compute probe's call (compute_probe.py's defaults but the count of
+#: iterations, cut from 3 to 2 for room)
+PROBE_N, PROBE_ITERS = 8, 2
+PROBE_STAGES = ("sum", "calib", "stats", "cand", "detect", "warp", "est",
+                "stack", "nodetect", "full")
+#: an RGB image's channel gains (the load / undo / pyscript image)
+SESSION_RGB = (1.0, 0.8, 0.6)
+PYSCRIPT = """import json, sys, time
+import numpy as np
+t0 = time.perf_counter()
+px = siril.get_image_pixeldata()
+t1 = time.perf_counter()
+half = np.ascontiguousarray(px * np.float32(0.5))
+siril.set_image_pixeldata(half)
+t2 = time.perf_counter()
+back = siril.get_image_pixeldata()
+siril.cmd("stack", "light_", "rej", "3", "3", "-norm=addscale",
+          "-out=py_stack")
+t3 = time.perf_counter()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "siril_tpu", "torch"))
+json.dump(dict(get_ms=(t1 - t0) * 1e3, set_ms=(t2 - t1) * 1e3,
+               stack_s=t3 - t2, shape=list(px.shape), modules=bad,
+               sum_in=float(px.sum(dtype=np.float64)),
+               back_equal=bool(np.array_equal(back, half))),
+          open(sys.argv[1], "w"))
+"""
+
+
+class _Feed:
+    """The pipe's input: command lines, and before the one marked with an
+    event, a wait for that event (the second stack's first row block)."""
+
+    def __init__(self, items):
+        self.items = items
+
+    def __iter__(self):
+        import threading
+
+        for it in self.items:
+            if isinstance(it, threading.Event):
+                if not it.wait(120):
+                    raise RuntimeError("the stack to cancel never started")
+                continue
+            yield it + "\n"
+
+
+def _k1a_only(k1) -> int:
+    """K1a's launch count; the session's stacks of 8 frames launch no
+    other variant."""
+    other = {v: n for v, n in k1.launches.items() if v != "K1a" and n}
+    if other:
+        raise RuntimeError(f"the session launched other K1 variants: "
+                           f"{other}")
+    return k1.launches.get("K1a", 0)
+
+
+def _pipe_run(session, items):
+    """``cli.pipe_loop`` on ``session`` fed ``items``: (its output lines,
+    seconds)."""
+    import io
+
+    from siril_tpu_torch.cli import pipe_loop
+
+    out = io.StringIO()
+    t = time.perf_counter()
+    pipe_loop(session, _Feed(items), out)
+    return out.getvalue().splitlines(), time.perf_counter() - t
+
+
+def phase_session(seed: int, size: int = SIZE):
+    """The session surface at full width (see the module's docstring):
+    the pipe, pyscript, the compute probe ladder, a traced fusedstack and
+    precompile.  Returns (K1a launches by path, the probe's held call)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from siril_tpu_torch import cli
+    from siril_tpu_torch.core import processing
+    from siril_tpu_torch.core import undo as undo_mod
+    from siril_tpu_torch.core.image import SirilImage
+    from siril_tpu_torch.io.fits_io import read_fits, write_fits
+    from siril_tpu_torch.kernels import reject_stack as k1
+    from siril_tpu_torch.ops import stacking as st
+    from siril_tpu_torch.tools import compute_probe
+    from siril_tpu_torch.utils import trace
+
+    launches, checks, timings = {}, {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_session_")
+    try:
+        t = time.perf_counter()
+        scene, u16s, shifts, sigma_n, ray = synth_frames(
+            seed + 7, SESSION_LIGHTS, size)
+        for i, u in enumerate(u16s):
+            write_later(write_u16_fits,
+                        os.path.join(tmp, f"light_{i + 1:05d}.fit"), u)
+        rgb = np.stack([scene * np.float32(g) for g in SESSION_RGB])
+        write_fits(SirilImage(data=rgb), os.path.join(tmp, "rgb.fit"),
+                   bitdepth=-32)
+        writes_done()
+        del u16s
+        with open(os.path.join(tmp, "s.py"), "w") as f:
+            f.write(PYSCRIPT)
+        log(f"  synthesized {SESSION_LIGHTS} lights and a {size}² RGB image "
+            f"in {time.perf_counter() - t:.2f}s")
+
+        # 1. the pipe: setmem, get -a, load / mirrorx / undo / redo, a
+        # sequence command (progress), fusedstack, a cancelled stack,
+        # pyscript, precompile
+        spills = []
+        real_spill = undo_mod.UndoStack._spill
+
+        def timed_spill(self, img, desc):
+            t0 = time.perf_counter()
+            e = real_spill(self, img, desc)
+            spills.append((time.perf_counter() - t0) * 1e3)
+            return e
+
+        started = threading.Event()
+        real_read = st.read_block
+
+        def reading(*a, **k):
+            # the cancelled stack: its first row block waits (at most 30
+            # s) for the pipe's cancel, so that the cancel lands mid-stack
+            if not started.is_set():
+                started.set()
+                t0 = time.perf_counter()
+                while processing.processing_should_continue() and \
+                        time.perf_counter() - t0 < 30:
+                    time.sleep(0.005)
+            return real_read(*a, **k)
+
+        session = cli.build_session(tmp)
+        undo_mod.UndoStack._spill = timed_spill
+        k1.reset_counts()
+        try:
+            lines, wall = _pipe_run(session, [
+                "setmem 0.5", "get -a", "load rgb", "mirrorx", "undo",
+                "redo", "seqcrop light_ 0 0 1024 1024",
+                "fusedstack light_ -out=piped"])
+            st.read_block = reading
+            more, wall2 = _pipe_run(session, [
+                "stack light_ rej 3 3 -norm=addscale -rejmaps", started,
+                "cancel", "load piped", "load rgb",
+                f"pyscript s.py {os.path.join(tmp, 'pyscript.json')}",
+                "precompile 8 -rej=w"])
+        finally:
+            undo_mod.UndoStack._spill = real_spill
+            st.read_block = real_read
+        lines += more
+        launches["session pipe"] = _k1a_only(k1)
+        status = [ln for ln in lines if ln.startswith("status:")]
+        progress = [ln for ln in lines if ln.startswith("progress:")]
+        entry = {e["command"]: e for e in session.command_log}
+        log(f"  pipe: {len(lines)} lines in {wall + wall2:.2f}s; status "
+            f"{status}")
+        log(f"  progress lines {progress}")
+        for c, e in entry.items():
+            log(f"  {c[:60]:<60} {e['seconds']:8.3f} s rc {e['rc']} "
+                f"K1 {e['launches']}")
+        log(f"  undo points: {len(spills)} spills of the {size}² RGB "
+            f"image, ms each {[round(v, 1) for v in spills]}")
+        timings["undo_point_ms"] = spills
+        res = read_fits(os.path.join(tmp, "piped.fit")).host()[0]
+        m = 48
+        inner = np.s_[m:-m, m:-m]
+        err = float(np.abs(res[inner] - scene[inner]).mean())
+        py = json.load(open(os.path.join(tmp, "pyscript.json")))
+        pyst = read_fits(os.path.join(tmp, "py_stack.fit")).host()
+        log(f"  piped fusedstack: interior mean |Δ| vs scene {err:.5f} "
+            f"(noise {sigma_n}), max {float(res.max()):.4f}")
+        log(f"  pyscript: SHM get {py['get_ms']:.1f} ms, set "
+            f"{py['set_ms']:.1f} ms ({size}² RGB float32, "
+            f"{3 * size * size * 4 / 1e6:.0f} MB), stack through siril.cmd "
+            f"{py['stack_s']:.2f} s; modules in the script {py['modules']}")
+        timings.update(shm_get_ms=py["get_ms"], shm_set_ms=py["set_ms"])
+        want = ["status: success setmem", "status: success get",
+                "status: success load", "status: success mirrorx",
+                "status: success undo", "status: success redo",
+                "status: success seqcrop", "status: success fusedstack",
+                "status: error stack", "status: success cancel",
+                "status: success load", "status: success load",
+                "status: success pyscript", "status: success precompile"]
+        checks.update({
+            "pipe status lines": status == want,
+            "progress lines of seqcrop": progress == [
+                f"progress: {(i + 1) / SESSION_LIGHTS:.2f}"
+                for i in range(SESSION_LIGHTS)],
+            "setmem reached the preferences":
+                session.prefs.memory_ratio == 0.5,
+            "undo points: mirrorx, undo, redo, the pyscript's write":
+                len(spills) == 4,
+            "the cancelled stack logged its cancel":
+                "log: stack: cancelled" in lines,
+            "piped fusedstack: interior mean |Δ| < noise/3":
+                err < sigma_n / 3,
+            "piped fusedstack: K1a launched":
+                sum(entry["fusedstack light_ -out=piped"]["launches"]
+                    .values()) > 0,
+            "pyscript: the image read, halved and written back": False,
+            "pyscript: its stack launched K1a":
+                sum(entry["pyscript s.py " + os.path.join(
+                    tmp, "pyscript.json")]["launches"].values()) > 0,
+            "pyscript: the stack's result finite": bool(
+                np.isfinite(pyst).all()) and pyst.shape == (1, size, size),
+            "pyscript: the script loaded neither jax, siril_tpu nor "
+            "torch": py["modules"] == [],
+            "precompile found the library built":
+                any("precompile: reject_stack already built" in ln
+                    for ln in lines),
+        })
+        # the RGB image loaded again, read, halved and read back by the
+        # script (its stack then became the loaded image)
+        checks["pyscript: the image read, halved and written back"] = \
+            py["shape"] == [3, size, size] and py["back_equal"] and \
+            py["sum_in"] == float(rgb.sum(dtype=np.float64))
+        del res, rgb
+
+        # 2. the compute probe ladder at its call (K1a: N = 8, 4096², f32
+        # winsorized / addscale); one K1 call held at its inputs
+        torch.cuda.empty_cache()
+        k1.reset_counts()
+        with k1_calls(keep=lambda i: i == 0) as calls:
+            ladder = compute_probe.device_stage_probe(
+                PROBE_STAGES, n=PROBE_N, size=size, iters=PROBE_ITERS,
+                seed=seed)
+        launches["compute probe"] = _k1a_only(k1)
+        for stage_name in PROBE_STAGES:
+            d = ladder["details"].get(stage_name, {})
+            log(f"  probe {stage_name:<9} "
+                + (f"{d['compute_mpix_s']:>10.2f} Mpix/s (loop "
+                   f"{d['t_loop_s']:.4f} s)" if "error" not in d
+                   else f"ERROR {d.get('error')}"))
+        log(f"  probe: empty synchronize {ladder['t_rtt_s'] * 1e6:.1f} µs, "
+            f"K1a launches {launches['compute probe']}")
+        timings["probe_mpix_s"] = ladder["stages_mpix_s"]
+        checks["probe: every stage ran"] = set(
+            ladder["stages_mpix_s"]) == set(PROBE_STAGES) and not any(
+            "error" in d for d in ladder["details"].values())
+        (args, kw, _), = [c for c in calls if c is not None]
+        from siril_tpu_torch.ops import rejection as rj
+        from siril_tpu_torch.ops.normalization import ADDITIVE_SCALING
+
+        checks["probe: K1a called at N=8, 4096², f32 winsorized/addscale"] \
+            = tuple(args[0].shape) == (PROBE_N, size * size) and \
+            args[0].dtype == torch.float32 and \
+            kw["rtype"] == rj.WINSORIZED and kw["mode"] == ADDITIVE_SCALING
+        held = held_at_call("compute probe", "winsorized/addscale", *args,
+                            kw)
+        checks["probe: K1a bit-equal to its plain version at the call"] = \
+            held["ok"]
+        del calls, args
+        torch.cuda.empty_cache()
+
+        # 3. one fusedstack under the port's trace
+        tdir = os.path.join(tmp, "trace")
+        k1.reset_counts()
+        trace.start_device_trace(tdir)
+        t = time.perf_counter()
+        try:
+            cli.run(["-d", tmp, "fusedstack", "light_", "-out=traced"])
+            torch.cuda.synchronize()
+        finally:
+            path = trace.stop_device_trace()
+        traced_s = time.perf_counter() - t
+        launches["traced fusedstack"] = _k1a_only(k1)
+        busy = trace.busy_share(path)
+        k1_names = sorted(n for n in busy["kernels"]
+                          if REGISTER_KERNEL in n or "column_kernel" in n)
+        log(f"  traced fusedstack {traced_s:.2f}s (trace written in it), "
+            f"trace {os.path.getsize(path) / 1e6:.1f} MB: device busy "
+            f"{busy['busy_s']:.3f} s of a {busy['window_s']:.3f} s window "
+            f"= {100 * busy['share']:.1f} %, {len(busy['kernels'])} kernel "
+            f"names, K1: {k1_names[:2]}")
+        timings["traced_busy_share"] = busy["share"]
+        checks.update({
+            "trace names the K1 kernel": bool(k1_names),
+            "traced fusedstack launched K1a":
+                launches["traced fusedstack"] > 0,
+        })
+        for name, good in checks.items():
+            log(f"  check {name}: {'ok' if good else 'FAILED'}")
+        if not all(checks.values()):
+            raise RuntimeError("session checks failed")
+        return launches, held, timings
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7301,6 +7611,8 @@ def main(argv=None) -> int:
             phase_enhance(args.seed, post_root, post_made)
     finally:
         shutil.rmtree(post_root, ignore_errors=True)
+    with Phase("session"):
+        session_launches, probe_held, _ = phase_session(args.seed)
     src = "siril_tpu_torch/csrc/reject_stack.cu"
     tpu = "siril_tpu/pallas/reject_stack.py"
     # K1a runs on several paths: fusedstack (shifts and homographies), and
@@ -7316,7 +7628,8 @@ def main(argv=None) -> int:
                "survey (sharded)": survey_launches.get("K1a", 0),
                "fused step (sharded)": sum(
                    c.get("K1a", 0) for c in fused_launches.values()),
-               "stackall": stackall_launches.get("K1a", 0)}
+               "stackall": stackall_launches.get("K1a", 0),
+               **session_launches}
     # the multi-device paths' frame counts keep them on the register path
     col = survey_launches.get("K1col", 0) + stackall_launches.get(
         "K1col", 0) + sum(c.get("K1col", 0) for c in fused_launches.values())
@@ -7324,7 +7637,7 @@ def main(argv=None) -> int:
         raise RuntimeError(f"the multi-device paths launched K1col {col} "
                            f"times; its rows count only the stack commands")
     k1a["other_sizes"] = k1a.get("other_sizes", []) + survey_held + \
-        fused_held
+        fused_held + [probe_held]
     kernels = [dict(name="reject_stack (K1a)",
                     launches=sum(by_path.values()),
                     launches_by_path=by_path, replaces=f"{tpu}:763", **k1a)]

@@ -2,7 +2,7 @@
 one card, in one call.
 
     python3 scripts/phase_times.py --root DIR [--root DIR ...] \\
-        --phases k1a,k1[,k1col,planetary,camera,multidevice,live] \\
+        --phases k1a,k1[,k1col,planetary,camera,multidevice,live,session] \\
         [--seed 0] [--repeat 2]
 
 Each root (a checkout holding ``chip_smoke.py`` and ``siril_tpu_torch/``,
@@ -14,7 +14,9 @@ A (parent, change, change, parent), so that a drift of the host shows.
 ``camera`` runs the formats phase's camera-raw and save-command parts
 (``formats_start``, ``formats_raw``) in a directory of their own;
 ``live`` runs the script phase first, in directories of its own, and
-also reports its own seconds without it.
+also reports its own seconds without it; ``session`` runs the session
+phase (the pipe, pyscript, the compute probe ladder, the traced
+fusedstack and precompile).
 Each run prints one JSON line ``{"root": …, "phase": seconds, …}``; the
 CUDA source builds at its first use in each root.
 """
@@ -62,7 +64,8 @@ def live(seed):
 PHASES = {"k1a": lambda s: cs.phase_k1a(s), "k1": lambda s: cs.phase_k1(s),
           "k1col": lambda s: cs.phase_k1col(s),
           "planetary": lambda s: cs.phase_planetary(s), "camera": camera,
-          "multidevice": lambda s: cs.phase_multidevice(s), "live": live}
+          "multidevice": lambda s: cs.phase_multidevice(s), "live": live,
+          "session": lambda s: cs.phase_session(s)}
 
 if __name__ == "__main__":
     seed = int(sys.argv[1])

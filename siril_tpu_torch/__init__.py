@@ -24,5 +24,14 @@ image formats for ``convert`` (camera raw, DNG, XISF, IRIS ``.pic``,
 TIFF / PNG / BMP / PNM in ``io/image_formats.py``), multi-device
 stacking over ``torch.distributed`` (``parallel/``), live stacking
 (``livestacking/``), the sequence export and the sequence and header
-commands (``cli/sequence.py``).
+commands (``cli/sequence.py``); and the session surface: the preferences
+(``core/settings.py``, the active ones being the session's), undo and
+redo (``core/undo.py``), the operation descriptors (``core/opdesc.py``),
+the session commands (``cli/session.py``), the CLI's ``-p`` / ``-i`` /
+stdin modes, the log and progress fan-out (``utils/log.py``), the
+sirilpy wire protocol and ``pyscript`` (``pythonmodule/``), the stage
+timers and the ``torch.profiler`` device trace (``utils/trace.py``), the
+compute probe and the FITS comparator (``tools/``), the plots
+(``utils/splot.py``), the script repository and the update check.  The
+command table is the JAX package's, 234 names.
 """

@@ -23,7 +23,7 @@ import logging
 import os
 import urllib.parse
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -121,13 +121,24 @@ class TransportError(RuntimeError):
 
 
 class UrllibTransport:
-    """Live HTTP GET — refused unless the caller's session is online
-    (siril_networking.c is_online; the ``online`` / ``offline`` commands
-    set ``Session.online``, off by default)."""
+    """Live HTTP GET — refused unless online (siril_networking.c
+    is_online): ``online`` when given, else the active preferences'
+    (``core/settings.get_settings``; the ``online`` / ``offline``
+    commands and ``set online=`` change the session's, off by default;
+    siril_tpu/astrometry/remote.py:129)."""
 
-    def __init__(self, timeout: float = 30.0, online: bool = False):
+    def __init__(self, timeout: float = 30.0,
+                 online: Optional[bool] = None):
         self.timeout = timeout
-        self.online = online
+        self._online = online
+
+    @property
+    def online(self) -> bool:
+        if self._online is not None:
+            return bool(self._online)
+        from siril_tpu_torch.core.settings import get_settings
+
+        return bool(getattr(get_settings(), "online", False))
 
     def get(self, url: str) -> str:
         if not self.online:
@@ -174,9 +185,10 @@ class FixtureTransport:
             return f.read()
 
 
-def default_transport(online: bool = False):
+def default_transport(online: Optional[bool] = None):
     """Recorded responses from ``$SIRIL_TPU_CAT_FIXTURES`` when it is set,
-    else the live transport, gated by ``online``."""
+    else the live transport, gated by ``online`` (default: the active
+    preferences')."""
     fixture_dir = os.environ.get("SIRIL_TPU_CAT_FIXTURES")
     if fixture_dir:
         return FixtureTransport(fixture_dir)
@@ -264,7 +276,8 @@ def parse_sesame(text: str):
 class RemoteCatalogue:
     """A cone-searchable remote catalogue (drop-in for the local ones)."""
 
-    def __init__(self, cat_name: str, transport=None, online: bool = False):
+    def __init__(self, cat_name: str, transport=None,
+                 online: Optional[bool] = None):
         if cat_name.lower() not in TAP_CATALOGUES:
             raise ValueError(f"unknown remote catalogue '{cat_name}' "
                              f"(have: {', '.join(sorted(TAP_CATALOGUES))})")
@@ -281,7 +294,7 @@ class RemoteCatalogue:
         return cat
 
 
-def search_object(name: str, transport=None, online: bool = False):
+def search_object(name: str, transport=None, online: Optional[bool] = None):
     """By-name lookup (catsearch / search_objects.c)."""
     transport = transport or default_transport(online)
     text = transport.get(object_search_url(name))

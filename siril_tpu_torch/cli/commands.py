@@ -44,6 +44,7 @@ ported raise ``NotImplementedError`` naming their ROADMAP item.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import glob as globmod
 import logging
 import os
@@ -69,9 +70,20 @@ class Command:
     def __init__(self, name: str, fn: Callable, usage: str,
                  min_args: int = 0):
         self.name = name
-        self.fn = fn
         self.usage = usage
         self.min_args = min_args
+
+        def run(ctx, args):
+            # the session knows which command runs (its undo rule,
+            # core/undo.UNDO_COMMANDS); a nested command runs as itself
+            prev = getattr(ctx, "command", "")
+            ctx.command = name
+            try:
+                return fn(ctx, args)
+            finally:
+                ctx.command = prev
+
+        self.fn = functools.update_wrapper(run, fn)
 
 
 COMMANDS: Dict[str, Command] = {}
@@ -214,6 +226,8 @@ def cmd_setcompress(ctx: Session, args: List[str]) -> None:
         _log.info("FITS compression disabled")
         return
     ctx.compression = str(flags.get("type", "rice")).lower()
+    if len(pos) > 1:
+        ctx.prefs.comp_quantization = float(pos[1])
     _log.info("FITS compression enabled: %s", ctx.compression)
 
 
@@ -987,10 +1001,9 @@ def cmd_stack(ctx: Session, args: List[str]) -> None:
         _stack_drizzle(ctx, seq, flags)
         return
     sa = stack_args_from_flags(pos, flags)
-    from siril_tpu_torch.utils.devmem import MEMORY_RATIO
-
     # setmem → device block budget (commands.py _apply_mem_budget)
-    sa.block_mb = max(int(2048 * min(MEMORY_RATIO, 4.0)), 128)
+    ratio = ctx.prefs.memory_ratio or 0.9
+    sa.block_mb = max(int(2048 * min(ratio, 4.0)), 128)
     if "upscale" in flags:
         seq = _upscaled(ctx, pos[0], seq, sa.reglayer)
     indices = None
@@ -2709,3 +2722,4 @@ from siril_tpu_torch.cli import analysis  # noqa: E402,F401  isort:skip
 from siril_tpu_torch.cli import formats  # noqa: E402,F401  isort:skip
 from siril_tpu_torch.cli import planetary  # noqa: E402,F401  isort:skip
 from siril_tpu_torch.cli import sequence  # noqa: E402,F401  isort:skip
+from siril_tpu_torch.cli import session  # noqa: E402,F401  isort:skip

@@ -19,7 +19,9 @@ frame's fault: it stops the run, whatever raised it (the device, a
 library, the code).  A stop request (``core/processing.py``) is polled
 between frames (engine.py:138-144): the frames done are written, the
 run's input keeps its selection, and ``ProcessingCancelled`` is raised
-(engine.py:192-193).
+(engine.py:192-193).  Each frame done reports its share of the run to
+the progress hooks (``utils/log.log_progress``, engine.py:179: the
+``-p`` pipe's ``progress:`` lines).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from siril_tpu_torch.core.processing import (
     processing_should_continue,
 )
 from siril_tpu_torch.core.sequence import Sequence
+from siril_tpu_torch.utils.log import log_progress
 
 _log = logging.getLogger(__name__)
 
@@ -181,6 +184,7 @@ def run_sequence(args: SeqArgs) -> SeqResult:
                 continue
             res.processed += 1
             writer.submit(write_one, pos, idx, out, tag=idx)
+            log_progress((pos + 1) / n)
     except BaseException:
         abort()
         raise

@@ -4,8 +4,9 @@ PIPP-derived AVI writer (``src/io/avi_pipp/``) and the uncompressed-DIB
 case of its film import (``src/io/films.c``): RIFF/AVI with ``00db``
 frames (BGR24 rows bottom-up, or 8-bit grey with a palette) and an
 ``idx1`` index, with no codec.  Frames decode to [0, 1] float32 as the
-JAX package's reader does (u8 / 255).  The sequence export
-(``export_avi``) belongs to the export surface (ROADMAP §1.7).  Host code.
+JAX package's reader does (u8 / 255); ``export_avi`` (:164) writes a
+sequence's selected frames (the sirilpy ``export_sequence_avi``).  Host
+code.
 """
 
 from __future__ import annotations
@@ -174,3 +175,16 @@ class AviReader:
         img = SirilImage(data=np.ascontiguousarray(data))
         img.keywords.filename = os.path.basename(self.path)
         return img
+
+
+def export_avi(seq, path: str, fps: float = 25.0) -> int:
+    """Export a sequence's selected frames as an uncompressed AVI (the
+    reference's AVI export, avi_pipp); the number of frames."""
+    first = seq.read_frame(int(seq.selected_indices()[0]))
+    wr = AviWriter(path, first.width, first.height, fps, first.nchans == 3)
+    n = 0
+    for i in seq.selected_indices():
+        wr.add_frame(seq.read_frame(int(i)))
+        n += 1
+    wr.close()
+    return n

@@ -220,7 +220,7 @@ def calibrate_image(raw: SirilImage, args: CalibArgs,
     fetch."""
     st = _state if _state is not None else \
         prepare_calibration(args, raw, device)
-    clock = clock or StageClock(st["device"])
+    clock = clock or StageClock(st["device"], "calib.")
     with clock("upload"):
         x = torch.from_numpy(raw.host()).to(st["device"])
     with clock("calibrate"):
@@ -256,7 +256,7 @@ def calibrate_sequence(seq: Sequence, args: CalibArgs,
 
     dev = resolve_device(device)
     state: dict = {}
-    clock = StageClock(dev)
+    clock = StageClock(dev, "calib.")
 
     def prepare(ctx):
         with clock("masters"):

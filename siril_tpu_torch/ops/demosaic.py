@@ -196,10 +196,16 @@ def debayer(cfa: torch.Tensor, pattern: str, method: int = DEFAULT_METHOD,
 
 def debayer_tensor(x: torch.Tensor, img: SirilImage) -> torch.Tensor:
     """Debayer a (1, H, W) tensor that holds ``img``'s pixels (a CFA
-    image: ``img.is_cfa()``) with the default method and ``img``'s
-    pattern and offsets, on the tensor's device → (3, H', W')."""
+    image: ``img.is_cfa()``) with the preferences' method
+    (``debayer_method``, RCD by default; siril_tpu/ops/demosaic.py:242)
+    and ``img``'s pattern and offsets, on the tensor's device →
+    (3, H', W')."""
+    from siril_tpu_torch.core.settings import get_settings
+
+    method = METHOD_NAMES.get(get_settings().debayer_method.lower(),
+                              DEFAULT_METHOD)
     kw = img.keywords
-    return debayer(x[0], kw.bayer_pattern, DEFAULT_METHOD, kw.bayer_xoffset,
+    return debayer(x[0], kw.bayer_pattern, method, kw.bayer_xoffset,
                    kw.bayer_yoffset)
 
 
@@ -215,7 +221,7 @@ def debayered_image(img: SirilImage, rgb: torch.Tensor,
 
 def debayer_image(img: SirilImage, device: DeviceLike = None
                   ) -> SirilImage:
-    """``debayer_image`` with the default method: a CFA image debayered
+    """``debayer_image`` with the preferences' method: a CFA image debayered
     on ``device`` (CUDA unless "cpu"); any other image is returned as it
     is."""
     if not img.is_cfa():

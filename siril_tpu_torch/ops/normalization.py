@@ -136,11 +136,14 @@ def _compute_missing(seq, need, loc, sca, lite, frame_batch, device):
     import concurrent.futures as cf
 
     from siril_tpu_torch.ops.statistics import norm_estimators
+    from siril_tpu_torch.utils.devfetch import DeviceCollector
 
     by_frame = {}
     for k, idx, layer in need:
         by_frame.setdefault((k, idx), []).append(layer)
     items = sorted(by_frame.items())
+    col = DeviceCollector()          # one fetch at the end, not one a batch
+    meta = []                        # (layer, k, idx) per collected row
     with cf.ThreadPoolExecutor(max_workers=4) as pool:
         for start in range(0, len(items), frame_batch):
             chunk = items[start:start + frame_batch]
@@ -155,16 +158,15 @@ def _compute_missing(seq, need, loc, sca, lite, frame_batch, device):
                     [frames[ci][layer].reshape(-1) for ci in rows])
                     ).to(device)
                 est = norm_estimators(batch, lite=lite)
-                vals = torch.stack([est["location"], est["scale"],
-                                    est["median"], est["mad"]], 1).cpu()
-                for r, ci in enumerate(rows):
-                    (k, idx), _ = chunk[ci]
-                    location, scale_v, med, mad = (float(v)
-                                                   for v in vals[r])
-                    loc[layer, k] = location
-                    sca[layer, k] = scale_v
-                    cache_estimators(seq, layer, idx, med, mad, location,
-                                     scale_v, lite)
+                col.append(torch.stack([est["location"], est["scale"],
+                                        est["median"], est["mad"]], 1))
+                meta += [(layer, *chunk[ci][0]) for ci in rows]
+    vals = col.concat()
+    for (layer, k, idx), (location, scale_v, med, mad) in zip(meta, vals):
+        loc[layer, k] = float(location)
+        sca[layer, k] = float(scale_v)
+        cache_estimators(seq, layer, idx, float(med), float(mad),
+                         float(location), float(scale_v), lite)
 
 
 def cache_estimators(seq, layer, idx, med, mad, location, scale, lite):

@@ -20,15 +20,17 @@ from frame to frame, and fits it with the batched LM fitter on the
 device; the photometry itself stays host numpy.  A frame's window depends
 on the previous frame's fit, so the frames are fitted one after another;
 the light curve's stars go through the fitter together, frame by frame
-(``seq_photometry_stars``).  The light curve's PNG companion
-(``utils/splot.SirilPlot``) is not ported (ROADMAP §1.7): the ``.dat``,
-the AAVSO ``.csv`` and the log are the result.
+(``seq_photometry_stars``).  The light curve's PNG companion is drawn
+through ``utils/splot.SirilPlot`` (PIL) as in the JAX package; where the
+plot fails (no PIL) an error is logged and the ``.dat``, the AAVSO
+``.csv`` and the log are the result.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -275,8 +277,24 @@ def light_curve(seq, target_xy: Tuple[float, float],
         for r in rows:
             f.write(f"{r[0]} {r[1]} {r[2]:.5f} {r[3]:.5f}\n")
     if rows:
-        _log.info("light curve: no PNG companion (siril_plot is not "
-                  "ported)")
+        # the PNG companion (the reference renders the curve through its
+        # siril_plot surface, light_curve.c:285 create_JD plots)
+        try:
+            from siril_tpu_torch.utils.dates import date_obs_to_julian
+            from siril_tpu_torch.utils.splot import SirilPlot
+
+            xs = []
+            for r in rows:
+                jd = date_obs_to_julian(r[1]) if r[1] else None
+                xs.append(jd if jd else float(r[0]))
+            plot = SirilPlot(title="Light curve", xlabel="JD",
+                             ylabel="relative magnitude", revertY=True)
+            plot.add_xyerrdata("V-C", xs, [r[2] for r in rows],
+                               [r[3] for r in rows])
+            plot.sort_x()
+            plot.save_png(os.path.splitext(out_path)[0] + ".png")
+        except Exception as e:     # plotting must never fail photometry
+            _log.error("light curve plot failed: %s", e)
     return rows
 
 

@@ -97,17 +97,24 @@ class StackResult:
 
 
 class StageClock:
-    """Seconds per named stage, each stage ended by a device sync."""
+    """Seconds per named stage, each stage ended by a device sync; each
+    stage is also a ``utils.trace.stage`` named ``prefix + name`` (the
+    JAX package's ``stack.*`` and ``fused.*`` stages,
+    siril_tpu/ops/stacking.py:682, siril_tpu/pipeline.py:101)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, prefix: str = "stack."):
         self.device = device
+        self.prefix = prefix
         self.seconds: Dict[str, float] = {}
 
     @contextmanager
     def __call__(self, name: str):
+        from siril_tpu_torch.utils.trace import stage
+
         t = time.perf_counter()
-        yield
-        synchronize(self.device)
+        with stage(self.prefix + name):
+            yield
+            synchronize(self.device)
         self.seconds[name] = self.seconds.get(name, 0.0) + \
             time.perf_counter() - t
 

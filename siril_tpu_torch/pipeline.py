@@ -127,7 +127,7 @@ def fused_preprocess_stack(seq: Sequence, args: Optional[FusedArgs] = None,
     args = args or FusedArgs()
     check_supported(args)
     t0 = time.perf_counter()
-    clock = StageClock(dev)
+    clock = StageClock(dev, "fused.")
     indices = seq.selected_indices()
     n = len(indices)
     if n == 0:

@@ -121,7 +121,7 @@ def register_sequence(seq: Sequence, args: Optional[RegArgs] = None,
 
     dev = resolve_device(device)
     args = args or RegArgs()
-    clock = StageClock(dev)
+    clock = StageClock(dev, "reg.")
     ref_idx = seq.get_reference()
     if args.extref:
         from siril_tpu_torch.io.conversion import load_any
@@ -299,7 +299,7 @@ def apply_reg_sequence(seq: Sequence, args: Optional[ApplyRegArgs] = None,
 
     dev = resolve_device(device)
     args = args or ApplyRegArgs()
-    clock = StageClock(dev)
+    clock = StageClock(dev, "reg.")
     layer = args.reglayer
     if not seq.has_reg(layer):
         raise RuntimeError("sequence has no registration data")

@@ -38,6 +38,7 @@ from siril_tpu_torch.registration.psf import (
     fit_psf_batch,
     stars_from_fit,
 )
+from siril_tpu_torch.utils.trace import stage
 
 
 @dataclass
@@ -140,31 +141,37 @@ def detect_stars(layer: torch.Tensor,
     H, W = layer.shape
     R = detection_radius(H, W, p)
     box = 2 * R + 1
-    st = compute_stats_basic(layer)
-    bg, noise = st.median, st.bgnoise
-    thr = bg + p.sigma * max(noise, 1e-7)
+    with stage("sf.stats"):
+        st = compute_stats_basic(layer)
+        bg, noise = st.median, st.bgnoise
+        thr = bg + p.sigma * max(noise, 1e-7)
     dev = layer.device
-    vals, idx = _candidates(layer, torch.tensor(np.float32(thr), device=dev),
-                            R, min(K, H * W))
-    vals = vals.cpu().numpy()
-    idx = idx.cpu().numpy()
+    with stage("sf.candidates"):
+        vals, idx = _candidates(layer, torch.tensor(np.float32(thr),
+                                                    device=dev),
+                                R, min(K, H * W))
+        vals = vals.cpu().numpy()
+        idx = idx.cpu().numpy()
     n_cand = int((vals > -np.inf).sum())
     if n_cand == 0:
         return []
     y0s = np.clip(idx[:n_cand] // W - R, 0, H - box)
     x0s = np.clip(idx[:n_cand] % W - R, 0, W - box)
-    patches = _patches(layer, torch.as_tensor(y0s, device=dev),
-                       torch.as_tensor(x0s, device=dev), box)
-    stars = stars_from_fit(fit_psf_batch(patches, profile=p.profile), x0s,
-                           y0s, box, p.profile)
+    with stage("sf.psf_fit"):
+        patches = _patches(layer, torch.as_tensor(y0s, device=dev),
+                           torch.as_tensor(x0s, device=dev), box)
+        stars = stars_from_fit(fit_psf_batch(patches, profile=p.profile),
+                               x0s, y0s, box, p.profile)
 
     def crop(sel, off, small):
         return patches[torch.as_tensor(sel, device=dev)][
             :, off:off + small, off:off + small]
 
-    _refit_blended(stars, x0s, y0s, box, p, crop)
-    return _filter_and_dedup(stars, x0s, y0s, R, box, p, noise,
-                             float(layer.max()))
+    with stage("sf.mkstars"):
+        _refit_blended(stars, x0s, y0s, box, p, crop)
+    with stage("sf.dedup"):
+        return _filter_and_dedup(stars, x0s, y0s, R, box, p, noise,
+                                 float(layer.max()))
 
 
 def _refit_blended(stars, x0s, y0s, box, p, crop,

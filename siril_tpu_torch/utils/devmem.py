@@ -1,12 +1,15 @@
 """Device memory budget — counterpart of ``siril_tpu/utils/devmem.py:17-91``
 and ``siril_tpu/pipeline.py:49`` (``_hbm_budget_bytes``).
 
-The budget is the card's memory from ``torch.cuda.mem_get_info`` times the
-``setmem`` ratio (0.9 by default, settings.h:402-404).  On the CPU the
-fused path keeps the JAX package's fixed 6 GiB working-set budget and the
-resident stack path its 4 GiB cap; ``memory_budget_bytes`` (the survey
-stack's row planner) takes the host's available memory there, as
-``siril_tpu/utils/devmem.py:64-80`` does.
+The budget is the card's memory from ``torch.cuda.mem_get_info`` scaled
+by the active preferences (``core/settings.get_settings``, which are the
+session's: ``setmem``, ``set memory_ratio=…``), as
+``siril_tpu/utils/devmem.py:64-80`` does: ``memory_ratio`` (0.9 by
+default, settings.h:402-404; held to [0.05, 1]) of it, or
+``memory_amount`` GiB when ``mem_mode`` is 1.  On the CPU the fused path
+keeps the JAX package's fixed 6 GiB working-set budget and the resident
+stack path its 4 GiB cap; ``memory_budget_bytes`` (the survey stack's
+row planner) takes the host's available memory there.
 """
 
 from __future__ import annotations
@@ -16,8 +19,18 @@ from typing import Optional
 
 import torch
 
-MEMORY_RATIO = 0.9
 CPU_BUDGET_BYTES = 6 << 30
+
+
+def scaled_budget(total: int) -> int:
+    """``total`` bytes under the active preferences' memory settings."""
+    from siril_tpu_torch.core.settings import get_settings
+
+    prefs = get_settings()
+    if getattr(prefs, "mem_mode", 0) == 1:
+        return int(getattr(prefs, "memory_amount", 4.0) * (1 << 30))
+    ratio = float(getattr(prefs, "memory_ratio", 0.9))
+    return int(total * max(min(ratio, 1.0), 0.05))
 
 
 def device_memory_bytes(device: torch.device) -> Optional[int]:
@@ -33,7 +46,7 @@ def fused_budget_bytes(device: torch.device) -> int:
     total = device_memory_bytes(device)
     if total is None:
         return CPU_BUDGET_BYTES
-    return int(total * MEMORY_RATIO)
+    return scaled_budget(total)
 
 
 def resident_budget_bytes(device: torch.device) -> int:
@@ -43,7 +56,7 @@ def resident_budget_bytes(device: torch.device) -> int:
     total = device_memory_bytes(device)
     if total is None:
         return 4 << 30
-    return int(total * MEMORY_RATIO) // 3
+    return scaled_budget(total) // 3
 
 
 def host_available_bytes() -> int:
@@ -65,8 +78,8 @@ def host_available_bytes() -> int:
 def memory_budget_bytes(device: torch.device) -> int:
     """The compute-memory budget of ``device`` (memory_budget_bytes,
     siril_tpu/utils/devmem.py:64): the card's memory, or the host's
-    available memory on the CPU, times the ``setmem`` ratio."""
+    available memory on the CPU, under the ``setmem`` settings."""
     total = device_memory_bytes(device)
     if total is None:
         total = host_available_bytes()
-    return int(total * MEMORY_RATIO)
+    return scaled_budget(total)

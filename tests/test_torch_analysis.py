@@ -36,26 +36,20 @@ torch.set_num_threads(1)
 
 CPU = "cpu"
 
-#: the JAX package's commands still to port, by ROADMAP item (§1.7 the
-#: surfaces: the session commands; its sequence, header, live-stacking
-#: and export commands are ported)
-STILL_TO_PORT = {
-    7: {"help", "ls", "dir", "pwd", "exit", "log", "capabilities", "get",
-        "set", "setmem", "setcpu", "clear", "undo", "redo", "pyscript",
-        "reloadscripts", "precompile"},
-}
+#: the JAX package's commands still to port, by ROADMAP item: none since
+#: the session commands (item 7, the surfaces)
+STILL_TO_PORT = {}
 
 
 def test_command_tables():
     """Every name of the JAX package's table is ported or listed above
-    (17 after the sequence, header, live-stacking and export commands:
-    217 of 234 ported); the port has no name of its own."""
+    (234 of 234 ported); the port has no name of its own."""
     from siril_tpu.cli.commands import COMMANDS as JCMD
     from siril_tpu_torch.cli.commands import COMMANDS as TCMD
 
     todo = set().union(*STILL_TO_PORT.values())
-    assert len(todo) == 17
-    assert len(TCMD) == 217 and len(JCMD) == 234
+    assert len(todo) == 0
+    assert len(TCMD) == 234 and len(JCMD) == 234
     assert not todo & set(TCMD)
     assert set(JCMD) - set(TCMD) == todo
     assert set(TCMD) <= set(JCMD)

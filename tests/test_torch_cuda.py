@@ -85,7 +85,12 @@ JAX):
   MultiLevelCorrelation on the same windows with the same integer shifts
   and successes and sub-pixel shifts within 1e-3 px, the SER store's
   decode equal; and the native raw decoders (LJPEG, Nikon, Panasonic)
-  bit-equal to their Python versions on the card machine's compiler.
+  bit-equal to their Python versions on the card machine's compiler;
+- each stage of the compute probe's iteration on the card against the
+  CPU (the frames within 2e-6, statistics and estimators within 1e-5
+  relative, the stack's counts equal and its mean within 2e-6); the pipe,
+  ``pyscript`` and ``precompile`` on a card session, under a
+  ``torch.profiler`` trace that names the K1 kernel.
 """
 
 import numpy as np
@@ -1269,3 +1274,77 @@ def test_survey_nccl_world1_on_card(monkeypatch):
         assert runs["cuda"].total_rejected == runs["cpu"].total_rejected
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_compute_probe_on_card_vs_cpu():
+    """Each stage of the compute probe's iteration on the card against the
+    CPU on the same inputs (n = 3, 256²): the calibrated and warped frames
+    within 2e-6, the statistics and estimators within 1e-5 relative, the
+    stack's mean within 2e-6 and its counts equal (the K1 kernel on the
+    card, its plain version on the CPU)."""
+    _need_card()
+    from siril_tpu_torch.tools import compute_probe as cp
+
+    inputs = [t.cpu() for t in cp.make_inputs(3, 256, 5, "cuda")]
+    for stage in cp.STAGE_FEATURES:
+        pc, ph = {}, {}
+        ac = cp.probe_iteration(1, *inputs, stage, device="cuda", parts=pc)
+        ah = cp.probe_iteration(1, *inputs, stage, device="cpu", parts=ph)
+        assert np.isfinite(float(ac)) and np.isfinite(float(ah)), stage
+        for key, tol in (("calib", 2e-6), ("warped", 2e-6)):
+            if key in pc:
+                assert (pc[key].cpu() - ph[key]).abs().max() <= tol, stage
+        for key in ("stats", "scale"):
+            if key in pc:
+                rel = ((pc[key].cpu() - ph[key]).abs()
+                       / ph[key].abs().clamp_min(1e-30)).max()
+                assert rel <= 1e-5, (stage, key)
+        if "stack" in pc:
+            mc, lc, hc = (t.cpu() for t in pc["stack"])
+            mh, lh, hh = ph["stack"]
+            assert torch.equal(lc, lh) and torch.equal(hc, hh), stage
+            assert (mc - mh).abs().max() <= 2e-6, stage
+
+
+@pytest.mark.cuda
+def test_session_surface_on_card(tmp_path):
+    """On the card: the pipe runs a stack and ``precompile`` finds the
+    library; ``pyscript`` moves the card session's image through SHM and
+    back; a ``torch.profiler`` trace of a stack names the K1 kernel."""
+    _need_card()
+    import io
+
+    from siril_tpu_torch.cli import build_session, pipe_loop
+    from siril_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(8)
+    for i in range(6):
+        write_fits(SirilImage(data=_mkstack(rng, 1, 64 * 48).reshape(
+            1, 64, 48)), str(tmp_path / f"c_{i + 1:05d}.fit"), bitdepth=-32)
+    write_fits(SirilImage(data=rng.random((3, 32, 40)).astype(np.float32)),
+               str(tmp_path / "rgb.fit"), bitdepth=-32)
+    (tmp_path / "s.py").write_text(
+        "px = siril.get_image_pixeldata()\n"
+        "siril.set_image_pixeldata(px * 0.5)\n")
+    s = build_session(str(tmp_path), "cuda")
+    out = io.StringIO()
+    trace.start_device_trace(str(tmp_path / "tr"))
+    try:
+        pipe_loop(s, ["stack c_ rej 3 3 -norm=addscale\n", "load rgb\n",
+                      "pyscript s.py\n", "precompile 6\n"], out)
+    finally:
+        path = trace.stop_device_trace()
+    status = [ln for ln in out.getvalue().splitlines()
+              if ln.startswith("status:")]
+    assert status == ["status: success stack", "status: success load",
+                      "status: success pyscript",
+                      "status: success precompile"]
+    assert "already built" in out.getvalue()
+    assert s.command_log[0]["launches"].get("K1a", 0) >= 1
+    from siril_tpu_torch.io.fits_io import read_fits
+
+    rgb = read_fits(str(tmp_path / "rgb.fit")).data
+    assert np.array_equal(s.image.host(), rgb * np.float32(0.5))
+    names = trace.busy_share(path)["kernels"]
+    assert any("register_kernel" in n for n in names)
