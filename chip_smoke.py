@@ -7510,7 +7510,8 @@ def phase_session(seed: int, size: int = SIZE):
                           if REGISTER_KERNEL in n or "column_kernel" in n)
         log(f"  traced fusedstack {traced_s:.2f}s (trace written in it), "
             f"trace {os.path.getsize(path) / 1e6:.1f} MB: device busy "
-            f"{busy['busy_s']:.3f} s of a {busy['window_s']:.3f} s window "
+            f"(kernels, copies, sets) {busy['busy_s']:.3f} s of a "
+            f"{busy['window_s']:.3f} s window "
             f"= {100 * busy['share']:.1f} %, {len(busy['kernels'])} kernel "
             f"names, K1: {k1_names[:2]}")
         timings["traced_busy_share"] = busy["share"]

@@ -849,7 +849,9 @@ def cmd_seqapplyreg(ctx: Session, args: List[str]) -> None:
          "[-noreg]", min_args=1)
 def cmd_fusedstack(ctx: Session, args: List[str]) -> None:
     """Fused calibrate+register+stack with the sequence resident on the
-    device; no intermediate sequences, one upload and one result fetch."""
+    device; no intermediate sequences, one upload and one result fetch.
+    The sequence and masters' load and the result's write are the spans
+    ``cli.load`` and ``cli.write``."""
     from siril_tpu_torch.io.fits_io import write_fits
     from siril_tpu_torch.ops import rejection as rj
     from siril_tpu_torch.ops.normalization import (
@@ -861,13 +863,15 @@ def cmd_fusedstack(ctx: Session, args: List[str]) -> None:
     from siril_tpu_torch.registration.matching import (
         HOMOGRAPHY_TRANSFORMATION,
     )
+    from siril_tpu_torch.utils.trace import stage
 
     pos, flags = parse_flags(args)
-    seq = ctx.load_sequence(pos[0])
-    calib = None
-    if any(k in flags for k in ("bias", "dark", "flat")):
-        calib = _calib_args_from_flags(
-            ctx, flags, seq.read_frame(int(seq.selected_indices()[0])))
+    with stage("cli.load"):
+        seq = ctx.load_sequence(pos[0])
+        calib = None
+        if any(k in flags for k in ("bias", "dark", "flat")):
+            calib = _calib_args_from_flags(
+                ctx, flags, seq.read_frame(int(seq.selected_indices()[0])))
     sa = StackArgs(method="rej")
     rest = pos[1:]
     if rest and not _is_number(rest[0]):
@@ -892,7 +896,8 @@ def cmd_fusedstack(ctx: Session, args: List[str]) -> None:
     p = ctx.path(name)
     if not os.path.splitext(p)[1]:
         p += ctx.ext
-    write_fits(res.image, p, bitdepth=FLOAT_IMG)
+    with stage("cli.write"):
+        write_fits(res.image, p, bitdepth=FLOAT_IMG)
     ctx.image = res.image
     ctx.result = res
     ctx.stages = res.stage_s

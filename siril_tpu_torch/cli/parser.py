@@ -5,7 +5,9 @@
 ``execute_script`` also keeps, for each command, its wall seconds, the
 launches of kernel K1 it made, the stages it timed and, on a card, the
 peak device memory it took beyond what was allocated before it
-(``peak_mib``) in ``Session.command_log``; ``run_logged`` does the same
+(``peak_mib``) and its span record (``spans``, ``counters`` and
+``events``, ``utils/trace.py``) in ``Session.command_log``;
+``run_logged`` does the same
 for one command line (the ``-p`` and ``-i`` loops).  A script stops at
 ``exit`` (``Session.stop_requested``).
 """
@@ -91,21 +93,28 @@ def _peak_mib(dev, base: int):
 def run_logged(ctx: Session, words: List[str], dev) -> int:
     """Run one parsed command on ``dev`` and keep its entry in
     ``Session.command_log``: words, seconds, K1 launches, stages, return
-    code, peak MiB on a card."""
+    code, peak MiB on a card, and the command's span record (``spans``,
+    ``counters``, ``events``: ``utils/trace.command``)."""
     from siril_tpu_torch.device import synchronize
     from siril_tpu_torch.kernels import reject_stack as k1
+    from siril_tpu_torch.utils import trace
 
     before = dict(k1.launches)
     ctx.stages = {}
     base = _reset_peak(dev)
-    t = time.perf_counter()
-    rc = execute_command(ctx, words)
-    synchronize(dev)
-    ctx.command_log.append(dict(
-        command=" ".join(words), seconds=time.perf_counter() - t,
+    with trace.command() as rec:
+        t = time.perf_counter()
+        rc = execute_command(ctx, words)
+        synchronize(dev)
+        seconds = time.perf_counter() - t
+    entry = dict(
+        command=" ".join(words), seconds=seconds,
         launches={v: n - before.get(v, 0) for v, n in k1.launches.items()
                   if n != before.get(v, 0)},
-        stages=dict(ctx.stages), rc=rc, peak_mib=_peak_mib(dev, base)))
+        stages=dict(ctx.stages), rc=rc, peak_mib=_peak_mib(dev, base),
+        **rec.result())
+    ctx.command_log.append(entry)
+    trace.keep(entry)
     return rc
 
 

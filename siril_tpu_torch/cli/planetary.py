@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from typing import List
 
 import numpy as np
@@ -98,6 +97,8 @@ def cmd_register_mpp(ctx: Session, args: List[str]) -> None:
         mpp_analyze,
         mpp_compute_shifts,
     )
+    from siril_tpu_torch.device import resolve_device
+    from siril_tpu_torch.ops.stacking import StageClock
 
     pos, flags = parse_flags(args)
     seq = ctx.load_sequence(pos[0])
@@ -105,9 +106,9 @@ def cmd_register_mpp(ctx: Session, args: List[str]) -> None:
     ctx.stages = {}
     state = mpp_analyze(seq, a, ctx.device, ctx.stages)
     state = mpp_compute_shifts(seq, state, a, ctx.device, ctx.stages)
-    t = time.perf_counter()
-    state.save(_sidecar(seq))
-    ctx.stages["sidecar"] = time.perf_counter() - t
+    with StageClock(resolve_device(ctx.device), "mpp.",
+                    ctx.stages)("sidecar"):
+        state.save(_sidecar(seq))
     _log.info("MPP registration saved to %s.mpp", seq.name)
 
 

@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Sequence as Seq
 import numpy as np
 
 from siril_tpu_torch.core.image import Keywords, SirilImage
+from siril_tpu_torch.utils import trace
 
 # sequence types (siril.h:351-357)
 SEQ_REGULAR = 0
@@ -231,6 +232,7 @@ class Sequence:
             img = self._film.read_frame(index)
         else:
             img = read_fits(self._file_list[index])
+        trace.count("io.frames_read")
         if self.nb_layers < 0:
             self.nb_layers = img.nchans
             self.rx, self.ry = img.width, img.height
@@ -368,6 +370,8 @@ def raw_chunk_reader(seq: Sequence, indices: np.ndarray, L: int, H: int,
                 else seq.read_frame(idx).host()
 
         list(pool.map(one, range(count)))
+        if u16:                     # read_frame counts the others
+            trace.count("io.frames_read", count)
         return out
 
     return read_chunk, pool.shutdown

@@ -36,6 +36,7 @@ from siril_tpu_torch.ops.cosmetic import (
 from siril_tpu_torch.ops.demosaic import debayer_tensor
 from siril_tpu_torch.ops.rejection import fma
 from siril_tpu_torch.ops.stacking import StageClock
+from siril_tpu_torch.utils.trace import stage
 
 _log = logging.getLogger(__name__)
 
@@ -157,46 +158,54 @@ def equalize_cfa_flat(flat: np.ndarray) -> np.ndarray:
 
 
 def prepare_calibration(args: CalibArgs, sample: SirilImage,
-                        device: DeviceLike = None) -> dict:
+                        device: DeviceLike = None,
+                        span: str = "calib.masters.") -> dict:
     """prepro_prepare_hook (preprocess.c:304): masters on the device, the
-    flat's mean, the deviant map and the calibration function."""
+    flat's mean, the deviant map and the calibration function; the
+    uploads and the deviant map are the spans ``<span>upload`` and
+    ``<span>deviant``."""
     dev = resolve_device(device)
 
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
     st: dict = {"device": dev}
-    st["bias"] = None
-    if args.bias is not None:
-        st["bias"] = up(args.bias.host())
-    elif args.bias_level is not None:
-        st["bias"] = up(np.full((1, 1, 1), np.float32(args.bias_level)))
-    st["dark"] = up(args.dark.host()) if args.dark is not None else None
-    st["fnorm"] = None
-    if args.flat is not None:
-        flat = args.flat.host()
-        if args.is_cfa and args.equalize_cfa:
-            flat = equalize_cfa_flat(flat)
-        mu = args.flat_norm if args.flat_norm else float(flat.mean())
-        if mu == 0:
-            _log.error("flat mean is zero; not normalizing")
-            mu = 1.0
-        st["fnorm"] = up(flat) * torch.tensor(np.float32(1.0 / mu),
-                                              device=dev)
+    with stage(span + "upload"):
+        st["bias"] = None
+        if args.bias is not None:
+            st["bias"] = up(args.bias.host())
+        elif args.bias_level is not None:
+            st["bias"] = up(np.full((1, 1, 1), np.float32(args.bias_level)))
+        st["dark"] = up(args.dark.host()) if args.dark is not None else None
+        st["fnorm"] = None
+        if args.flat is not None:
+            flat = args.flat.host()
+            if args.is_cfa and args.equalize_cfa:
+                flat = equalize_cfa_flat(flat)
+            mu = args.flat_norm if args.flat_norm else float(flat.mean())
+            if mu == 0:
+                _log.error("flat mean is zero; not normalizing")
+                mu = 1.0
+            st["fnorm"] = up(flat) * torch.tensor(np.float32(1.0 / mu),
+                                                  device=dev)
     H, W = sample.height, sample.width
     cold = np.zeros((H, W), bool)
     hot = np.zeros((H, W), bool)
     has_cc = False
+    plan = None
     if args.use_cosmetic and args.dark is not None and \
             (args.sig_cold >= 0 or args.sig_hot >= 0):
-        cold, hot = detect_deviant_from_dark(
-            args.dark.host()[0], args.sig_cold, args.sig_hot)
-        ncold, nhot = int(cold.sum()), int(hot.sum())
-        _log.info("Cosmetic correction: %d cold, %d hot pixels", ncold, nhot)
-        has_cc = ncold + nhot > 0
+        with stage(span + "deviant"):
+            cold, hot = detect_deviant_from_dark(
+                args.dark.host()[0], args.sig_cold, args.sig_hot)
+            ncold, nhot = int(cold.sum()), int(hot.sum())
+            _log.info("Cosmetic correction: %d cold, %d hot pixels", ncold,
+                      nhot)
+            has_cc = ncold + nhot > 0
+            if has_cc:
+                plan = deviant_plan(cold, hot, args.is_cfa, dev)
     st["cold"], st["hot"] = cold, hot
-    st["plan"] = deviant_plan(cold, hot, args.is_cfa, dev) if has_cc \
-        else None
+    st["plan"] = plan
     st["has_cc"] = has_cc
     st["kernel"] = make_calibrate_kernel(
         st["bias"] is not None, st["dark"] is not None,

@@ -98,25 +98,26 @@ class StackResult:
 
 class StageClock:
     """Seconds per named stage, each stage ended by a device sync; each
-    stage is also a ``utils.trace.stage`` named ``prefix + name`` (the
-    JAX package's ``stack.*`` and ``fused.*`` stages,
-    siril_tpu/ops/stacking.py:682, siril_tpu/pipeline.py:101)."""
+    stage is a ``utils.trace.stage`` named ``prefix + name`` (the JAX
+    package's ``stack.*`` and ``fused.*`` stages,
+    siril_tpu/ops/stacking.py:682, siril_tpu/pipeline.py:101), whose
+    duration, the sync included, is the stage's seconds, added into
+    ``seconds`` (a caller's dict, or a new one)."""
 
-    def __init__(self, device: torch.device, prefix: str = "stack."):
+    def __init__(self, device: torch.device, prefix: str = "stack.",
+                 seconds: Optional[Dict[str, float]] = None):
         self.device = device
         self.prefix = prefix
-        self.seconds: Dict[str, float] = {}
+        self.seconds: Dict[str, float] = {} if seconds is None else seconds
 
     @contextmanager
     def __call__(self, name: str):
         from siril_tpu_torch.utils.trace import stage
 
-        t = time.perf_counter()
-        with stage(self.prefix + name):
+        with stage(self.prefix + name) as span:
             yield
             synchronize(self.device)
-        self.seconds[name] = self.seconds.get(name, 0.0) + \
-            time.perf_counter() - t
+        self.seconds[name] = self.seconds.get(name, 0.0) + span.seconds
 
 
 def decode_i16(raw: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,9 @@ gather warp; the rung taken is logged.
 Frames live as a list of (n_i, L, H, W) chunks; each row block gathers the
 same rows of every chunk into one (N, rows·W) stack of about 256 MiB.
 Each stage ends with a device synchronize and its seconds are kept in
-``StackResult.stage_s``.
+``StackResult.stage_s``.  Spans inside the stages (``utils/trace.py``:
+the masters' sample read, uploads and deviant map; detection's
+statistics, candidates, fits and host finish) add no synchronize.
 
 Calibration runs on each decoded chunk before detection, as
 ``siril_tpu/pipeline.py:100-107`` (``_calib_operands``:549,
@@ -81,6 +83,7 @@ from siril_tpu_torch.registration.starfinder import (
     stats_cand_fit,
 )
 from siril_tpu_torch.utils.devmem import fused_budget_bytes
+from siril_tpu_torch.utils.trace import stage
 
 _log = logging.getLogger(__name__)
 
@@ -154,8 +157,10 @@ def fused_preprocess_stack(seq: Sequence, args: Optional[FusedArgs] = None,
     cal = None
     if args.calib is not None:
         with clock("masters"):
-            cal = prepare_calibration(args.calib,
-                                      seq.read_frame(int(indices[0])), dev)
+            with stage("fused.masters.sample"):
+                sample = seq.read_frame(int(indices[0]))
+            cal = prepare_calibration(args.calib, sample, dev,
+                                      span="fused.masters.")
     frames: List[torch.Tensor] = []
     detect_parts = []
     read_chunk, close_reader = raw_chunk_reader(seq, indices, L, H, W)
@@ -187,7 +192,7 @@ def fused_preprocess_stack(seq: Sequence, args: Optional[FusedArgs] = None,
         ref_abs = seq.get_reference()
         ref_pos = int(np.nonzero(indices == ref_abs)[0][0]) \
             if ref_abs in list(indices) else 0
-        with clock("detect"):
+        with clock("detect"), stage("fused.detect.finish"):
             pre = (torch.cat([d[0] for d in detect_parts], 1).cpu().numpy(),
                    *(torch.cat([d[k] for d in detect_parts]).cpu().numpy()
                      for k in (1, 2, 3)))

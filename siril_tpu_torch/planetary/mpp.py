@@ -30,7 +30,6 @@ keys, so each package reads the other's.
 from __future__ import annotations
 
 import logging
-import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -40,6 +39,7 @@ import torch.nn.functional as F
 
 from siril_tpu_torch.core.image import SirilImage
 from siril_tpu_torch.device import DeviceLike, resolve_device
+from siril_tpu_torch.ops.stacking import StageClock
 
 _log = logging.getLogger(__name__)
 
@@ -128,25 +128,6 @@ def _irfft2(X: torch.Tensor, H: int, W: int) -> torch.Tensor:
     return torch.fft.irfft(Y, n=W, dim=-1)
 
 
-class _Clock:
-    """Seconds per stage into ``stages`` (a dict, or None), the device
-    synchronized at each mark."""
-
-    def __init__(self, stages, dev):
-        self.stages, self.dev = stages, dev
-        self.t = time.perf_counter()
-
-    def mark(self, name: str) -> None:
-        if self.stages is None:
-            return
-        from siril_tpu_torch.device import synchronize
-
-        synchronize(self.dev)
-        now = time.perf_counter()
-        self.stages[name] = self.stages.get(name, 0.0) + now - self.t
-        self.t = now
-
-
 def _cut_patches(x: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
                  size: int) -> torch.Tensor:
     """(B, A, size, size) windows of (B, H, W) ``x`` at origins (oy, ox),
@@ -178,50 +159,49 @@ def mpp_analyze(seq, args: Optional[MPPArgs] = None,
     )
 
     dev = resolve_device(device)
-    clock = _Clock(stages, dev)
+    clock = StageClock(dev, "mpp.", stages)
     args = args or MPPArgs()
-    layer = args.layer
-    indices = seq.selected_indices()
-    if args.max_frames:
-        indices = indices[: args.max_frames]
-    n = len(indices)
-    H, W = seq.ry, seq.rx
-    if H == 0:
-        img0 = seq.read_frame(int(indices[0]))
-        H, W = img0.height, img0.width
-        seq.ry, seq.rx = H, W
-    pos_of = {int(i): p for p, i in enumerate(indices)}
+    with clock("quality"):
+        layer = args.layer
+        indices = seq.selected_indices()
+        if args.max_frames:
+            indices = indices[: args.max_frames]
+        n = len(indices)
+        H, W = seq.ry, seq.rx
+        if H == 0:
+            img0 = seq.read_frame(int(indices[0]))
+            H, W = img0.height, img0.width
+            seq.ry, seq.rx = H, W
+        pos_of = {int(i): p for p, i in enumerate(indices)}
 
-    # 1. the quality of every frame
-    qual = torch.cat([quality_core(fr) for _, fr in frame_chunks(
-        seq, indices, layer, args.frame_batch, dev)]).cpu().numpy()
-    qual = qual[:n].astype(np.float64)
-    clock.mark("quality")
-    best = int(np.argmax(qual))
-    _log.info("MPP analyze: best frame %d (q=%.3g)", indices[best],
-              qual[best])
+        # 1. the quality of every frame
+        qual = torch.cat([quality_core(fr) for _, fr in frame_chunks(
+            seq, indices, layer, args.frame_batch, dev)]).cpu().numpy()
+        qual = qual[:n].astype(np.float64)
+    with clock("global"):
+        best = int(np.argmax(qual))
+        _log.info("MPP analyze: best frame %d (q=%.3g)", indices[best],
+                  qual[best])
 
-    # 2. the global shifts against the best frame (read on the host)
-    ref0 = seq.read_frame(int(indices[best])).host()[layer]
-    ref_dev = torch.from_numpy(np.ascontiguousarray(ref0)).to(dev)
-    packed = torch.cat([phase_correlate_device(ref_dev, fr) for _, fr in
-                        frame_chunks(seq, indices, layer, args.frame_batch,
-                                     dev)])
-    gshifts = decode_phasecorr_peaks(packed[:n], H, W)
-    clock.mark("global")
-
+        # 2. the global shifts against the best frame (read on the host)
+        ref0 = seq.read_frame(int(indices[best])).host()[layer]
+        ref_dev = torch.from_numpy(np.ascontiguousarray(ref0)).to(dev)
+        packed = torch.cat([phase_correlate_device(ref_dev, fr) for _, fr in
+                            frame_chunks(seq, indices, layer, args.frame_batch,
+                                         dev)])
+        gshifts = decode_phasecorr_peaks(packed[:n], H, W)
     # 3. the reference: the mean of the best R % globally aligned frames
-    n_best = max(int(round(n * args.global_best_pct / 100.0)), 1)
-    best_idx = np.argsort(-qual)[:n_best]
-    acc = None
-    for chunk, frames in frame_chunks(seq, indices[best_idx], layer,
-                                      args.frame_batch, dev):
-        pos = [pos_of[int(i)] for i in chunk]
-        sh = torch.from_numpy(gshifts[pos].astype(np.float32)).to(dev)
-        part = _shift_core(frames, sh).sum(dim=0)
-        acc = part if acc is None else acc + part
-    reference = (acc.cpu().numpy() / n_best).astype(np.float32)
-    clock.mark("reference")
+    with clock("reference"):
+        n_best = max(int(round(n * args.global_best_pct / 100.0)), 1)
+        best_idx = np.argsort(-qual)[:n_best]
+        acc = None
+        for chunk, frames in frame_chunks(seq, indices[best_idx], layer,
+                                          args.frame_batch, dev):
+            pos = [pos_of[int(i)] for i in chunk]
+            sh = torch.from_numpy(gshifts[pos].astype(np.float32)).to(dev)
+            part = _shift_core(frames, sh).sum(dim=0)
+            acc = part if acc is None else acc + part
+        reference = (acc.cpu().numpy() / n_best).astype(np.float32)
 
     # 4. the AP grid where the reference has structure
     aps = _place_aps(reference, args)
@@ -322,50 +302,50 @@ def mpp_compute_shifts(seq, state: MPPState,
     from siril_tpu_torch.planetary.source import frame_chunks
 
     dev = resolve_device(device)
-    clock = _Clock(stages, dev)
-    args = args or state.args or MPPArgs()
-    layer = args.layer
-    indices = seq.selected_indices()[: len(state.quality)]
-    n = len(indices)
-    A = len(state.ap_xy)
-    S = args.ap_size
-    half = S // 2
-    H, W = state.reference.shape
+    clock = StageClock(dev, "mpp.", stages)
+    with clock("shifts"):
+        args = args or state.args or MPPArgs()
+        layer = args.layer
+        indices = seq.selected_indices()[: len(state.quality)]
+        n = len(indices)
+        A = len(state.ap_xy)
+        S = args.ap_size
+        half = S // 2
+        H, W = state.reference.shape
 
-    # the blurred reference boxes, cut once (mpp_shift.cpp:93-95)
-    refb = blur_gauss(torch.from_numpy(np.ascontiguousarray(
-        state.reference, np.float32)).to(dev)[None],
-        args.gauss_width)[0].cpu().numpy()
-    origins = [(int(np.clip(int(y) - half, 0, H - S)),
-                int(np.clip(int(x) - half, 0, W - S)))
-               for x, y in state.ap_xy]
-    ref_boxes = np.stack([refb[y0:y0 + S, x0:x0 + S]
-                          for (y0, x0) in origins]).astype(np.float32)
-    ref_d = torch.from_numpy(ref_boxes).to(dev)
-    ref_p1_d = torch.from_numpy(np.ascontiguousarray(
-        ref_boxes[:, ::2, ::2])).to(dev)
-    oy = torch.tensor([o[0] for o in origins], dtype=torch.int64,
-                      device=dev)
-    ox = torch.tensor([o[1] for o in origins], dtype=torch.int64,
-                      device=dev)
+        # the blurred reference boxes, cut once (mpp_shift.cpp:93-95)
+        refb = blur_gauss(torch.from_numpy(np.ascontiguousarray(
+            state.reference, np.float32)).to(dev)[None],
+            args.gauss_width)[0].cpu().numpy()
+        origins = [(int(np.clip(int(y) - half, 0, H - S)),
+                    int(np.clip(int(x) - half, 0, W - S)))
+                   for x, y in state.ap_xy]
+        ref_boxes = np.stack([refb[y0:y0 + S, x0:x0 + S]
+                              for (y0, x0) in origins]).astype(np.float32)
+        ref_d = torch.from_numpy(ref_boxes).to(dev)
+        ref_p1_d = torch.from_numpy(np.ascontiguousarray(
+            ref_boxes[:, ::2, ::2])).to(dev)
+        oy = torch.tensor([o[0] for o in origins], dtype=torch.int64,
+                          device=dev)
+        ox = torch.tensor([o[1] for o in origins], dtype=torch.int64,
+                          device=dev)
 
-    ap_shifts = np.zeros((n, A, 2))
-    ap_qual = np.zeros((n, A))
-    for chunk, frames in frame_chunks(seq, indices, layer,
-                                      args.frame_batch, dev):
-        pos = [int(np.nonzero(indices == i)[0][0]) for i in chunk]
-        gsh = torch.from_numpy(
-            state.global_shifts[pos].astype(np.float32)).to(dev)
-        dy, dx, ok, q = (t.cpu().numpy() for t in shift_stage(
-            frames, gsh, ref_d, ref_p1_d, oy, ox, args))
-        for k, p in enumerate(pos):
-            # failed solves fall back to the global shift alone
-            ap_shifts[p, :, 0] = np.where(ok[k], dx[k], 0.0)
-            ap_shifts[p, :, 1] = np.where(ok[k], dy[k], 0.0)
-            ap_qual[p] = q[k]
-    state.ap_shifts = ap_shifts
-    state.ap_quality = ap_qual
-    clock.mark("shifts")
+        ap_shifts = np.zeros((n, A, 2))
+        ap_qual = np.zeros((n, A))
+        for chunk, frames in frame_chunks(seq, indices, layer,
+                                          args.frame_batch, dev):
+            pos = [int(np.nonzero(indices == i)[0][0]) for i in chunk]
+            gsh = torch.from_numpy(
+                state.global_shifts[pos].astype(np.float32)).to(dev)
+            dy, dx, ok, q = (t.cpu().numpy() for t in shift_stage(
+                frames, gsh, ref_d, ref_p1_d, oy, ox, args))
+            for k, p in enumerate(pos):
+                # failed solves fall back to the global shift alone
+                ap_shifts[p, :, 0] = np.where(ok[k], dx[k], 0.0)
+                ap_shifts[p, :, 1] = np.where(ok[k], dy[k], 0.0)
+                ap_qual[p] = q[k]
+        state.ap_shifts = ap_shifts
+        state.ap_quality = ap_qual
     _log.info("MPP shifts: %d frames × %d APs (multilevel correlation, "
               "sw=%d)", n, A, args.search_width)
     return state
@@ -398,68 +378,69 @@ def mpp_stack(seq, state: MPPState, args: Optional[MPPArgs] = None,
     from siril_tpu_torch.planetary.source import frame_chunks
 
     dev = resolve_device(device)
-    clock = _Clock(stages, dev)
-    args = args or state.args or MPPArgs()
-    layer = args.layer
-    indices = seq.selected_indices()[: len(state.quality)]
-    n = len(indices)
-    A = len(state.ap_xy)
-    S = args.ap_size
-    half = S // 2
-    H, W = state.reference.shape
+    clock = StageClock(dev, "mpp.", stages)
+    with clock("stack"):
+        args = args or state.args or MPPArgs()
+        layer = args.layer
+        indices = seq.selected_indices()[: len(state.quality)]
+        n = len(indices)
+        A = len(state.ap_xy)
+        S = args.ap_size
+        half = S // 2
+        H, W = state.reference.shape
 
-    n_keep = max(int(round(n * args.stack_best_pct / 100.0)), 1)
-    # per-AP frame selection by local quality: numpy's (unstable) sort
-    sel = np.argsort(-state.ap_quality, axis=0)[:n_keep]     # (n_keep, A)
-    selm = np.zeros((n, A), np.float32)
-    np.put_along_axis(selm, sel, 1.0, axis=0)
+        n_keep = max(int(round(n * args.stack_best_pct / 100.0)), 1)
+        # per-AP frame selection by local quality: numpy's (unstable) sort
+        sel = np.argsort(-state.ap_quality, axis=0)[:n_keep]  # (n_keep, A)
+        selm = np.zeros((n, A), np.float32)
+        np.put_along_axis(selm, sel, 1.0, axis=0)
 
-    xs = state.ap_xy[None, :, 0]
-    ys = state.ap_xy[None, :, 1]
-    acc_ap = torch.zeros((A, S, S), device=dev)
-    for chunk, frames in frame_chunks(seq, indices, layer,
-                                      args.frame_batch, dev):
-        pos = [int(np.nonzero(indices == i)[0][0]) for i in chunk]
-        # local content at ref position x sits at x − lx in the globally
-        # aligned frame
-        cx = xs - state.ap_shifts[pos, :, 0]
-        cy = ys - state.ap_shifts[pos, :, 1]
-        ix = np.clip(np.round(cx) - half, 0, W - S).astype(np.int64)
-        iy = np.clip(np.round(cy) - half, 0, H - S).astype(np.int64)
-        resid = np.stack([cx - (ix + half), cy - (iy + half)],
-                         -1).astype(np.float32)
-        acc_ap = stack_stage(
-            acc_ap, frames,
-            torch.from_numpy(state.global_shifts[pos].astype(
-                np.float32)).to(dev),
-            torch.from_numpy(iy).to(dev), torch.from_numpy(ix).to(dev),
-            torch.from_numpy(resid).to(dev),
-            torch.from_numpy(np.ascontiguousarray(selm[pos])).to(dev))
+        xs = state.ap_xy[None, :, 0]
+        ys = state.ap_xy[None, :, 1]
+        acc_ap = torch.zeros((A, S, S), device=dev)
+        for chunk, frames in frame_chunks(seq, indices, layer,
+                                          args.frame_batch, dev):
+            pos = [int(np.nonzero(indices == i)[0][0]) for i in chunk]
+            # local content at ref position x sits at x − lx in the
+            # globally aligned frame
+            cx = xs - state.ap_shifts[pos, :, 0]
+            cy = ys - state.ap_shifts[pos, :, 1]
+            ix = np.clip(np.round(cx) - half, 0, W - S).astype(np.int64)
+            iy = np.clip(np.round(cy) - half, 0, H - S).astype(np.int64)
+            resid = np.stack([cx - (ix + half), cy - (iy + half)],
+                             -1).astype(np.float32)
+            acc_ap = stack_stage(
+                acc_ap, frames,
+                torch.from_numpy(state.global_shifts[pos].astype(
+                    np.float32)).to(dev),
+                torch.from_numpy(iy).to(dev), torch.from_numpy(ix).to(dev),
+                torch.from_numpy(resid).to(dev),
+                torch.from_numpy(np.ascontiguousarray(selm[pos])).to(dev))
 
-    # the assembly on the host, in float64
-    ap_sums = acc_ap.cpu().numpy().astype(np.float64)
-    clock.mark("stack")
-    win = (np.hanning(S)[:, None] * np.hanning(S)[None, :]).astype(np.float64)
-    acc = np.zeros((H, W), np.float64)
-    wacc = np.zeros((H, W), np.float64)
-    counts = selm.sum(0)
-    for a in range(A):
-        x, y = state.ap_xy[a].astype(int)
-        y0 = int(np.clip(y - half, 0, H - S))
-        x0 = int(np.clip(x - half, 0, W - S))
-        acc[y0:y0 + S, x0:x0 + S] += ap_sums[a] * win
-        wacc[y0:y0 + S, x0:x0 + S] += win * counts[a]
+        # the assembly on the host, in float64
+        ap_sums = acc_ap.cpu().numpy().astype(np.float64)
+    with clock("assembly"):
+        win = (np.hanning(S)[:, None] *
+               np.hanning(S)[None, :]).astype(np.float64)
+        acc = np.zeros((H, W), np.float64)
+        wacc = np.zeros((H, W), np.float64)
+        counts = selm.sum(0)
+        for a in range(A):
+            x, y = state.ap_xy[a].astype(int)
+            y0 = int(np.clip(y - half, 0, H - S))
+            x0 = int(np.clip(x - half, 0, W - S))
+            acc[y0:y0 + S, x0:x0 + S] += ap_sums[a] * win
+            wacc[y0:y0 + S, x0:x0 + S] += win * counts[a]
 
-    out = np.where(wacc > 1e-6, acc / np.maximum(wacc, 1e-6),
-                   state.reference).astype(np.float32)
-    if args.scale != 1.0:
-        from siril_tpu_torch.ops.interp import INTERP_LANCZOS4, resize
+        out = np.where(wacc > 1e-6, acc / np.maximum(wacc, 1e-6),
+                       state.reference).astype(np.float32)
+        if args.scale != 1.0:
+            from siril_tpu_torch.ops.interp import INTERP_LANCZOS4, resize
 
-        out = resize(torch.from_numpy(out[None]).to(dev),
-                     int(W * args.scale), int(H * args.scale),
-                     INTERP_LANCZOS4, clamp=True)[0].cpu().numpy()
-    img = SirilImage(data=np.clip(out, 0.0, 1.0)[None])
-    clock.mark("assembly")
+            out = resize(torch.from_numpy(out[None]).to(dev),
+                         int(W * args.scale), int(H * args.scale),
+                         INTERP_LANCZOS4, clamp=True)[0].cpu().numpy()
+        img = SirilImage(data=np.clip(out, 0.0, 1.0)[None])
     img.log_history(
         f"MPP stack ({n_keep}/{n} frames per AP, {A} APs, box {S})")
     _log.info("MPP stack done: %d APs, best %d/%d frames each", A, n_keep,
@@ -475,8 +456,6 @@ def mpp_full(seq, args: Optional[MPPArgs] = None,
     state = mpp_analyze(seq, args, device, stages)
     state = mpp_compute_shifts(seq, state, args, device, stages)
     if sidecar:
-        t = time.perf_counter()
-        state.save(sidecar)
-        if stages is not None:
-            stages["sidecar"] = time.perf_counter() - t
+        with StageClock(resolve_device(device), "mpp.", stages)("sidecar"):
+            state.save(sidecar)
     return mpp_stack(seq, state, args, device, stages)

@@ -12,7 +12,11 @@ Per frame on the device: median/MAD detection statistics, threshold
 ``bg + σ·noise``, local maxima of a separable (2r+1)² max-pool above it,
 per-cell argmax compaction, top-K candidates, and one batched LM PSF fit
 of their patches.  On the host: a second fit of blended candidates on
-smaller crops, quality filters and the minimum-separation dedup.
+smaller crops, quality filters and the minimum-separation dedup.  The
+batched path's device part runs as the spans ``fused.detect.stats``,
+``.candidates`` and ``.fit``; the counters ``detect.candidates``,
+``detect.refits`` and ``detect.stars`` count the finite candidates
+fitted, the blended refits and the stars kept (``utils/trace.py``).
 
 Max-pooling is exact in any precision (no TF32 involved).  ``torch.topk``
 may order tied candidates differently from ``lax.top_k``: star lists are
@@ -38,7 +42,7 @@ from siril_tpu_torch.registration.psf import (
     fit_psf_batch,
     stars_from_fit,
 )
-from siril_tpu_torch.utils.trace import stage
+from siril_tpu_torch.utils.trace import count, stage
 
 
 @dataclass
@@ -114,21 +118,25 @@ def stats_cand_fit(frames: torch.Tensor, r: int, k: int, sigma: float,
     n, H, W = frames.shape
     box = 2 * r + 1
     fitter = _Fitter(box, profile)
-    flat = frames.reshape(n, -1)
-    valid = torch.isfinite(flat)
-    med = median_rows(flat, valid)
-    mad = median_rows(torch.abs(flat - med[:, None]), valid)
-    noise = 1.4826 * mad
-    stats = torch.stack([med, noise, flat.max(dim=1).values])
-    thrs = fma(float(np.float32(sigma)), torch.clamp_min(noise, 1e-7), med)
+    with stage("fused.detect.stats"):
+        flat = frames.reshape(n, -1)
+        valid = torch.isfinite(flat)
+        med = median_rows(flat, valid)
+        mad = median_rows(torch.abs(flat - med[:, None]), valid)
+        noise = 1.4826 * mad
+        stats = torch.stack([med, noise, flat.max(dim=1).values])
+        thrs = fma(float(np.float32(sigma)), torch.clamp_min(noise, 1e-7),
+                   med)
     vals, idxs, fits = [], [], []
     for f in range(n):
-        v, i = _candidates(frames[f], thrs[f], r, k)
-        y0 = torch.clamp(i // W - r, 0, H - box)
-        x0 = torch.clamp(i % W - r, 0, W - box)
-        vals.append(v)
-        idxs.append(i)
-        fits.append(fitter(_patches(frames[f], y0, x0, box)))
+        with stage("fused.detect.candidates"):
+            v, i = _candidates(frames[f], thrs[f], r, k)
+            y0 = torch.clamp(i // W - r, 0, H - box)
+            x0 = torch.clamp(i % W - r, 0, W - box)
+            vals.append(v)
+            idxs.append(i)
+        with stage("fused.detect.fit"):
+            fits.append(fitter(_patches(frames[f], y0, x0, box)))
     return stats, torch.stack(vals), torch.stack(idxs), torch.stack(fits)
 
 
@@ -153,6 +161,7 @@ def detect_stars(layer: torch.Tensor,
         vals = vals.cpu().numpy()
         idx = idx.cpu().numpy()
     n_cand = int((vals > -np.inf).sum())
+    count("detect.candidates", n_cand)
     if n_cand == 0:
         return []
     y0s = np.clip(idx[:n_cand] // W - R, 0, H - box)
@@ -170,8 +179,10 @@ def detect_stars(layer: torch.Tensor,
     with stage("sf.mkstars"):
         _refit_blended(stars, x0s, y0s, box, p, crop)
     with stage("sf.dedup"):
-        return _filter_and_dedup(stars, x0s, y0s, R, box, p, noise,
-                                 float(layer.max()))
+        out = _filter_and_dedup(stars, x0s, y0s, R, box, p, noise,
+                                float(layer.max()))
+    count("detect.stars", len(out))
+    return out
 
 
 def _refit_blended(stars, x0s, y0s, box, p, crop,
@@ -192,6 +203,7 @@ def _refit_blended(stars, x0s, y0s, box, p, crop,
         retry = sorted(sorted(retry, key=lambda i: -stars[i].A)[:cap])
     if not retry:
         return
+    count("detect.refits", len(retry))
     small = ((box // 2) // 2) * 2 + 1
     off = (box - small) // 2
     ridx = np.asarray(retry)
@@ -263,6 +275,7 @@ def detect_stars_batch(chunks: Sequence[torch.Tensor],
     stats, vals, idx, fits_h = precomputed
     noises, sats = np.maximum(stats[1], 1e-7), stats[2]
     fi, ki = np.nonzero(vals > -np.inf)
+    count("detect.candidates", fi.size)
     if fi.size == 0:
         return [[] for _ in range(N)]
     cy = (idx[fi, ki] // W).astype(np.int64)
@@ -294,6 +307,7 @@ def detect_stars_batch(chunks: Sequence[torch.Tensor],
         out.append(_filter_and_dedup(
             [stars[i] for i in sel], x0s[sel], y0s[sel], R, box, p,
             float(noises[f]), float(sats[f])))
+    count("detect.stars", sum(len(o) for o in out))
     return out
 
 

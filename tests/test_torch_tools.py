@@ -500,9 +500,10 @@ def test_update_check_with_fixture_transport(tmp_path):
 
 
 def test_trace_stages_and_profiler_trace(tmp_path):
-    """``stage`` accumulates and reports; a device trace (CPU activities
-    here) is written as a Chrome trace that names the stages, and
-    ``busy_share`` reads one."""
+    """``stage`` accumulates bounded totals and reports; a device trace
+    (CPU activities here) is written as a Chrome trace that names the
+    stages, and ``busy_share`` reads one: kernels, copies and sets within
+    the ``cli.command`` spans, or the whole trace where none ran."""
     from siril_tpu_torch.utils import trace
 
     trace.reset()
@@ -519,19 +520,33 @@ def test_trace_stages_and_profiler_trace(tmp_path):
     assert trace.stop_device_trace() is None
     t = trace.timings()
     assert t["probe.a"][0] == 2 and t["probe.b"][0] == 1
+    assert t["probe.a"][2] == t["probe.a"][1] / 2
+    assert trace._acc["probe.a"][0] == 2            # a count, not a list
     assert "probe.a" in trace.report()
     doc = json.load(open(path))
     names = {e.get("name") for e in doc["traceEvents"]}
     assert {"probe.a", "probe.b"} <= names
-    fake = tmp_path / "fake.json"
-    fake.write_text(json.dumps({"traceEvents": [
+    events = [
         dict(ph="X", cat="cpu_op", name="x", ts=0.0, dur=100.0),
         dict(ph="X", cat="kernel", name="k1", ts=10.0, dur=20.0),
         dict(ph="X", cat="kernel", name="k1", ts=20.0, dur=20.0),
-        dict(ph="X", cat="kernel", name="k2", ts=60.0, dur=10.0)]}))
+        dict(ph="X", cat="gpu_memcpy", name="Memcpy HtoD", ts=50.0,
+             dur=10.0),
+        dict(ph="X", cat="gpu_memset", name="Memset", ts=62.0, dur=3.0),
+        dict(ph="X", cat="kernel", name="k2", ts=85.0, dur=10.0)]
+    fake = tmp_path / "fake.json"
+    fake.write_text(json.dumps({"traceEvents": events}))
     b = trace.busy_share(str(fake))
     assert b["kernels"] == {"k1": 2, "k2": 1}
-    assert abs(b["share"] - 0.4) < 1e-12 and abs(b["window_s"] - 1e-4) < 1e-12
+    # 10-40, 50-60, 62-65, 85-95 of the whole trace, 0-100
+    assert abs(b["share"] - 0.53) < 1e-12 and abs(b["window_s"] - 1e-4) < 1e-12
+    fake.write_text(json.dumps({"traceEvents": events + [
+        dict(ph="X", cat="user_annotation", name="cli.command", ts=5.0,
+             dur=85.0)]}))
+    b = trace.busy_share(str(fake))
+    # within the command's 5-90: 30 + 10 + 3 + 5 of 85
+    assert abs(b["share"] - 48 / 85) < 1e-12
+    assert abs(b["busy_s"] - 48e-6) < 1e-15
     trace.reset()
 
 
